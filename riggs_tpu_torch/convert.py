@@ -1,0 +1,105 @@
+"""Carry the JAX package's state across as numpy arrays.
+
+Turns ``riggs_tpu`` objects, flattened to numpy (for example with
+``jax.tree.map(np.asarray, gs.params_dict())``), into the port's objects.
+This module takes numpy only; it never imports ``jax`` or ``riggs_tpu``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from riggs_tpu_torch.camera.camera import Camera
+from riggs_tpu_torch.device import resolve_device
+from riggs_tpu_torch.models.gaussians import Gaussians
+from riggs_tpu_torch.models.skeleton_warp import init_skeleton_warp
+
+
+def _t(a, dev, dtype=torch.float32) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+
+def gaussians_from_numpy(
+    params: dict,
+    alive,
+    max_sh_degree: int,
+    isotropic: bool = False,
+    with_motion_mask: bool = True,
+    shared_scale: bool = False,
+    device: str | torch.device | None = None,
+) -> Gaussians:
+    """``params`` holds the reference's ``Gaussians.params_dict()`` keys:
+    xyz, f_dc, f_rest, scaling, rotation, opacity, feature."""
+    dev = resolve_device(device)
+    return Gaussians(
+        xyz=_t(params["xyz"], dev),
+        features_dc=_t(params["f_dc"], dev),
+        features_rest=_t(params["f_rest"], dev),
+        scaling=_t(params["scaling"], dev),
+        rotation=_t(params["rotation"], dev),
+        opacity=_t(params["opacity"], dev),
+        feature=_t(params["feature"], dev),
+        alive=_t(alive, dev, torch.bool),
+        max_sh_degree=int(max_sh_degree),
+        isotropic=bool(isotropic),
+        with_motion_mask=bool(with_motion_mask),
+        shared_scale=bool(shared_scale),
+    )
+
+
+def _load_linear(lin: torch.nn.Linear, p: dict):
+    """Reference weights are (d_in, d_out); nn.Linear keeps (d_out, d_in)."""
+    w = np.asarray(p["w"], np.float32).T
+    b = np.asarray(p["b"], np.float32)
+    if lin.weight.shape != w.shape or lin.bias.shape != b.shape:
+        raise ValueError(f"shape mismatch: {tuple(lin.weight.shape)} vs {w.shape}")
+    lin.weight.copy_(torch.from_numpy(np.ascontiguousarray(w)))
+    lin.bias.copy_(torch.from_numpy(b.copy()))
+
+
+def _load_mlp(mlp, p: dict):
+    if len(p["layers"]) != len(mlp.layers):
+        raise ValueError(f"{len(p['layers'])} layers given, the module has {len(mlp.layers)}")
+    for lin, lp in zip(mlp.layers, p["layers"]):
+        _load_linear(lin, lp)
+    for name in ("head", "rotation", "translation"):
+        if name in p:
+            _load_linear(getattr(mlp, name), p[name])
+
+
+@torch.no_grad()
+def skeleton_warp_from_numpy(
+    params: dict,
+    joints,
+    parents,
+    K: int = -1,
+    use_skinning_mlp: bool = True,
+    use_template_offsets: bool = True,
+    device: str | torch.device | None = None,
+):
+    """``params`` is the reference's ``SkeletonWarp.params_dict()``: radius,
+    pose, and skinning_mlp / detail_net when the net uses them."""
+    dev = resolve_device(device)
+    skel = init_skeleton_warp(
+        np.asarray(joints, np.float32), parents,
+        node_radius_log=np.asarray(params["radius"], np.float32), K=K,
+        use_skinning_mlp=use_skinning_mlp, use_template_offsets=use_template_offsets,
+        generator=torch.Generator(device=dev).manual_seed(0),  # overwritten below
+        device=dev,
+    )
+    _load_mlp(skel.pose_mlp, params["pose"])
+    if use_skinning_mlp:
+        _load_mlp(skel.weight_mlp, params["skinning_mlp"])
+    if use_template_offsets:
+        _load_mlp(skel.detail_mlp, params["detail_net"])
+    return skel
+
+
+def camera_from_numpy(w2c, intrinsics, fid, width: int, height: int,
+                      znear: float = 0.01, zfar: float = 100.0,
+                      device: str | torch.device | None = None) -> Camera:
+    dev = resolve_device(device)
+    return Camera(
+        w2c=_t(w2c, dev), intrinsics=_t(intrinsics, dev), fid=_t(fid, dev),
+        width=int(width), height=int(height), znear=float(znear), zfar=float(zfar),
+    )

@@ -1,0 +1,88 @@
+"""Canonical Gaussian cloud: a capacity-padded tensor container.
+
+Port of ``riggs_tpu/models/gaussians.py:40-119`` (the container and its
+activations). Every tensor's leading dimension is the capacity C; ``alive``
+marks the used slots. Densification comes with the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from riggs_tpu_torch.ops.quaternion import quat_normalize
+
+
+def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x / (1.0 - x))
+
+
+@dataclasses.dataclass
+class Gaussians:
+    xyz: torch.Tensor  # (C, 3)
+    features_dc: torch.Tensor  # (C, 1, 3)
+    features_rest: torch.Tensor  # (C, K-1, 3)
+    scaling: torch.Tensor  # (C, 1) isotropic or (C, 3); log-scale
+    rotation: torch.Tensor  # (C, 4) unnormalized quat
+    opacity: torch.Tensor  # (C, 1) logit
+    feature: torch.Tensor  # (C, F) hyper coords + motion-mask logit (F may be 0)
+    alive: torch.Tensor  # (C,) bool
+    max_sh_degree: int
+    isotropic: bool
+    with_motion_mask: bool
+    # every splat shares the mean log-scale (node Gaussians)
+    shared_scale: bool = False
+
+    @property
+    def capacity(self) -> int:
+        return self.xyz.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.xyz.device
+
+    @property
+    def get_scaling(self) -> torch.Tensor:
+        s = self.scaling
+        if self.isotropic:
+            s = s[:, :1].repeat(1, 3)
+        if self.shared_scale:
+            mean = torch.sum(torch.where(self.alive[:, None], s, 0.0)) / torch.clamp(
+                3 * torch.sum(self.alive), min=1
+            )
+            s = mean.expand(s.shape)
+        return torch.exp(s)
+
+    @property
+    def get_rotation(self) -> torch.Tensor:
+        return quat_normalize(self.rotation)
+
+    @property
+    def get_opacity(self) -> torch.Tensor:
+        return torch.sigmoid(self.opacity)
+
+    @property
+    def get_features(self) -> torch.Tensor:
+        return torch.cat([self.features_dc, self.features_rest], dim=1)
+
+    @property
+    def motion_mask(self) -> torch.Tensor:
+        if self.with_motion_mask and self.feature.shape[-1] > 0:
+            return torch.sigmoid(self.feature[:, -1:])
+        return torch.ones_like(self.xyz[:, :1])
+
+    @property
+    def num_alive(self) -> torch.Tensor:
+        return torch.sum(self.alive)
+
+    def params_dict(self) -> dict[str, torch.Tensor]:
+        """The trainable tensors (alive mask excluded), under the reference's keys."""
+        return {
+            "xyz": self.xyz,
+            "f_dc": self.features_dc,
+            "f_rest": self.features_rest,
+            "scaling": self.scaling,
+            "rotation": self.rotation,
+            "opacity": self.opacity,
+            "feature": self.feature,
+        }

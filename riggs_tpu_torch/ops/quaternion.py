@@ -1,0 +1,118 @@
+"""Quaternion and rotation math, batched over leading dimensions.
+
+Port of ``riggs_tpu/ops/quaternion.py`` (the parts the serving path uses).
+Quaternions are (w, x, y, z); the quaternion axis is the last one.
+"""
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-12
+
+
+def quat_normalize(q: torch.Tensor, eps: float = _EPS) -> torch.Tensor:
+    """Unit quaternion via q / sqrt(|q|^2 + eps^2) (zero quats stay finite)."""
+    norm = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True) + eps * eps)
+    return q / norm
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a*b. a, b: (..., 4) broadcastable."""
+    aw, ax, ay, az = torch.unbind(a, dim=-1)
+    bw, bx, by, bz = torch.unbind(b, dim=-1)
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
+def quat_to_rotmat(q: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+    """Unit quaternion (..., 4) -> rotation matrix (..., 3, 3)."""
+    if normalize:
+        q = quat_normalize(q)
+    w, x, y, z = torch.unbind(q, dim=-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack(
+        [
+            1.0 - 2.0 * (yy + zz), 2.0 * (xy - wz), 2.0 * (xz + wy),
+            2.0 * (xy + wz), 1.0 - 2.0 * (xx + zz), 2.0 * (yz - wx),
+            2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def rotmat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion (..., 4), w >= 0.
+
+    Branch-free Shepperd construction: all four candidates are built and the
+    one with the largest squared magnitude is picked (first on ties)."""
+    m00 = m[..., 0, 0]
+    m11 = m[..., 1, 1]
+    m22 = m[..., 2, 2]
+    qw2 = 1.0 + m00 + m11 + m22
+    qx2 = 1.0 + m00 - m11 - m22
+    qy2 = 1.0 - m00 + m11 - m22
+    qz2 = 1.0 - m00 - m11 + m22
+
+    def _safe_sqrt(v):
+        return torch.sqrt(torch.clamp(v, min=_EPS))
+
+    def _div(a, b):
+        return a / torch.clamp(b, min=_EPS)
+
+    w_w = _safe_sqrt(qw2) * 0.5
+    c_w = torch.stack(
+        [
+            _div(4.0 * w_w * w_w / 2.0, 2.0 * w_w),
+            _div(m[..., 2, 1] - m[..., 1, 2], 4.0 * w_w),
+            _div(m[..., 0, 2] - m[..., 2, 0], 4.0 * w_w),
+            _div(m[..., 1, 0] - m[..., 0, 1], 4.0 * w_w),
+        ],
+        dim=-1,
+    )
+    x_x = _safe_sqrt(qx2) * 0.5
+    c_x = torch.stack(
+        [
+            _div(m[..., 2, 1] - m[..., 1, 2], 4.0 * x_x),
+            x_x,
+            _div(m[..., 0, 1] + m[..., 1, 0], 4.0 * x_x),
+            _div(m[..., 0, 2] + m[..., 2, 0], 4.0 * x_x),
+        ],
+        dim=-1,
+    )
+    y_y = _safe_sqrt(qy2) * 0.5
+    c_y = torch.stack(
+        [
+            _div(m[..., 0, 2] - m[..., 2, 0], 4.0 * y_y),
+            _div(m[..., 0, 1] + m[..., 1, 0], 4.0 * y_y),
+            y_y,
+            _div(m[..., 1, 2] + m[..., 2, 1], 4.0 * y_y),
+        ],
+        dim=-1,
+    )
+    z_z = _safe_sqrt(qz2) * 0.5
+    c_z = torch.stack(
+        [
+            _div(m[..., 1, 0] - m[..., 0, 1], 4.0 * z_z),
+            _div(m[..., 0, 2] + m[..., 2, 0], 4.0 * z_z),
+            _div(m[..., 1, 2] + m[..., 2, 1], 4.0 * z_z),
+            z_z,
+        ],
+        dim=-1,
+    )
+    mags = torch.stack([qw2, qx2, qy2, qz2], dim=-1)
+    best = torch.argmax(mags, dim=-1)
+    cands = torch.stack([c_w, c_x, c_y, c_z], dim=-2)  # (..., 4 candidates, 4)
+    idx = best[..., None, None].expand(best.shape + (1, 4))
+    q = torch.gather(cands, -2, idx)[..., 0, :]
+    q = quat_normalize(q)
+    return q * torch.where(q[..., :1] < 0.0, -1.0, 1.0)

@@ -1,0 +1,159 @@
+"""High-level render entry point: Gaussians (+ deformation residuals) -> image.
+
+Port of ``riggs_tpu/render/api.py`` for serving: ``render`` with the
+residuals, SH colour, override colours, motion-mask rendering, scale_const
+and scaling_modifier; ``tier_kwargs``; and ``render_auto``'s capacity
+escalation. The gradient-only arguments (``detach_*``, ``mean2d_bias``) come
+with the training slice and raise here.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Any
+
+import torch
+
+from riggs_tpu_torch.camera.camera import Camera, camera_center
+from riggs_tpu_torch.models.gaussians import Gaussians
+from riggs_tpu_torch.ops.quaternion import quat_multiply, quat_normalize
+from riggs_tpu_torch.ops.sh import eval_sh
+from riggs_tpu_torch.render import oracle as _oracle
+from riggs_tpu_torch.render import tiles as _tiles
+
+
+def render(
+    cam: Camera,
+    gs: Gaussians,
+    bg: torch.Tensor,
+    d_xyz: torch.Tensor | float = 0.0,
+    d_rotation: torch.Tensor | float = 0.0,
+    d_scaling: torch.Tensor | float = 0.0,
+    d_opacity: torch.Tensor | None = None,
+    d_color: torch.Tensor | None = None,
+    active_sh_degree: int = 0,
+    scaling_modifier: float = 1.0,
+    override_color: torch.Tensor | None = None,
+    render_motion: bool = False,
+    detach_xyz: bool = False,
+    detach_scale: bool = False,
+    detach_rot: bool = False,
+    detach_opacity: bool = False,
+    scale_const: float | None = None,
+    d_rotation_bias: torch.Tensor | None = None,
+    mean2d_bias: torch.Tensor | None = None,
+    rasterizer: str = "tiled",
+    max_per_tile: int = 1024,
+    max_tiles_per_gaussian: int = 16,
+    binning: str | None = None,
+    giant_cap: int | None = None,
+    mid_cap: int | None = None,
+    mid_side: int | None = None,
+    tile_ladder: tuple | None = None,
+    tile_shard_mesh=None,
+) -> dict[str, Any]:
+    if detach_xyz or detach_scale or detach_rot or detach_opacity or mean2d_bias is not None:
+        raise NotImplementedError(
+            "detach_* and mean2d_bias are training arguments; they come with the training slice (ROADMAP A3)"
+        )
+    means3d = gs.xyz + d_xyz
+    if scale_const is not None:
+        opacity = torch.ones_like(gs.get_opacity)
+    else:
+        opacity = gs.get_opacity if d_opacity is None else gs.get_opacity + d_opacity
+
+    scales = gs.get_scaling + d_scaling
+    rotations = quat_normalize(gs.rotation + d_rotation)
+    if d_rotation_bias is not None:
+        rotations = quat_multiply(d_rotation_bias, rotations)
+
+    if render_motion:
+        mm = gs.motion_mask
+        colors = torch.cat([mm, torch.zeros_like(mm), 1.0 - mm], dim=-1)
+    elif override_color is not None:
+        colors = override_color
+    else:
+        feats = gs.get_features
+        if d_color is not None:
+            feats = torch.cat([feats[:, :1] + d_color[:, None], feats[:, 1:]], dim=1)
+        dirs = means3d - camera_center(cam)
+        dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-8)
+        colors = torch.clamp(eval_sh(int(active_sh_degree), feats, dirs) + 0.5, min=0.0)
+
+    if scale_const is not None:
+        scales = scale_const * torch.ones_like(scales)
+
+    if rasterizer == "tiled":
+        kwargs = dict(max_per_tile=max_per_tile, max_tiles_per_gaussian=max_tiles_per_gaussian)
+        for name, val in (
+            ("binning", binning), ("giant_cap", giant_cap), ("mid_cap", mid_cap),
+            ("mid_side", mid_side), ("tile_ladder", tile_ladder), ("tile_shard_mesh", tile_shard_mesh),
+        ):
+            if val is not None:
+                kwargs[name] = val
+        fn = _tiles.rasterize_tiled
+    else:
+        kwargs = {}
+        fn = _oracle.rasterize_oracle
+    out = fn(
+        cam, means3d, colors, opacity[:, 0], scales, rotations, bg,
+        alive=gs.alive, scale_modifier=scaling_modifier, **kwargs,
+    )
+    zero = torch.zeros((), dtype=torch.int32, device=means3d.device)
+    return {
+        "render": out["image"],
+        "visibility_filter": out["radii"] > 0,
+        "radii": out["radii"],
+        "depth": out["depth"],
+        "alpha": out["alpha"],
+        "bg_color": bg,
+        "overflow": out.get("overflow", zero),
+        "overflow_tiles": out.get("overflow_tiles", zero),
+        "overflow_rect": out.get("overflow_rect", zero),
+        "max_count": out.get("max_count", zero),
+        # (T,) ladder probe input; the oracle has no tiles
+        "tile_counts": out.get("tile_counts", torch.zeros((1,), dtype=torch.int32, device=means3d.device)),
+    }
+
+
+def tier_kwargs(tiers: tuple | None) -> dict:
+    """(max_tiles_per_gaussian, mid_cap, mid_side) -> render() kwargs."""
+    if tiers is None:
+        return {}
+    return dict(max_tiles_per_gaussian=tiers[0], mid_cap=tiers[1], mid_side=tiers[2])
+
+
+def render_auto(
+    cam: Camera,
+    gs: Gaussians,
+    bg: torch.Tensor,
+    max_per_tile: int = 512,
+    max_tiles_per_gaussian: int = 16,
+    max_per_tile_limit: int = 8192,
+    max_tiles_limit: int = 1024,
+    **kwargs,
+) -> dict[str, Any]:
+    """render() with capacity escalation: re-render with the offending cap
+    doubled (the rect cap x4) until nothing is truncated, or warn and return
+    the truncated render at the limits."""
+    while True:
+        out = render(
+            cam, gs, bg, max_per_tile=max_per_tile,
+            max_tiles_per_gaussian=max_tiles_per_gaussian, **kwargs,
+        )
+        tiles_of = int(out["overflow_tiles"])
+        rect_of = int(out["overflow_rect"])
+        if tiles_of == 0 and rect_of == 0:
+            return out
+        escalated = False
+        if tiles_of > 0 and max_per_tile < max_per_tile_limit:
+            max_per_tile = min(max_per_tile * 2, max_per_tile_limit)
+            escalated = True
+        if rect_of > 0 and max_tiles_per_gaussian < max_tiles_limit:
+            max_tiles_per_gaussian = min(max_tiles_per_gaussian * 4, max_tiles_limit)
+            escalated = True
+        if not escalated:
+            warnings.warn(
+                f"render_auto hit capacity limits (overflow_tiles={tiles_of}, "
+                f"overflow_rect={rect_of}); returning truncated render"
+            )
+            return out

@@ -1,0 +1,247 @@
+"""Fused per-tile front-to-back blend: the two forward kernels of the slice.
+
+Port of the forward kernels of ``riggs_tpu/render/pallas_blend.py``:
+
+  * ``blend_cm`` replaces ``_fwd_kernel`` (entry ``pallas_blend``): windows
+    arrive channel-major, g (T, 16, MAX), opacity already masked by the
+    caller;
+  * ``blend_permuted_gm`` replaces ``_fwd_kernel_gm`` with ``permuted=True``
+    (entry ``pallas_blend_permuted_gm``): windows arrive gaussian-major,
+    g (T, MAX, 10), rows past the tile's count are masked inside the kernel,
+    and row t renders the real tile ``tids[t]``.
+
+Attribute rows: 0 mx, 1 my, 2..4 conic (a, b, c), 5 opacity, 6..8 rgb,
+9 depth. Outputs: ``out`` (T, 8, 1024) rows [r, g, b, depth, acc, 0, 0, 0]
+and ``tentry`` (T, C, 1024), the transmittance at entry to each 128-Gaussian
+chunk (written for every chunk, skipped ones too). Per pixel and chunk:
+
+  alpha = min(op * exp(power), 0.99), zeroed when power > 0 or alpha < 1/255
+  t_in  = T_entry * exp(inclusive cumsum log1p(-alpha))   (after the Gaussian)
+  w     = alpha * t_in / (1 - alpha) * [t_in >= 1e-4]
+  out  += [rgb, depth, 1] * w
+
+A chunk is skipped when it starts past the tile's count or when no pixel of
+the tile has T_entry >= 1e-4.
+
+Each kernel is CUDA C++ (``riggs_tpu_torch/csrc/blend.cu``), built at first
+use with nvcc for sm_90a into ``.torch_ext/`` beside the package and called
+through ctypes. Beside each kernel sits its plain PyTorch version, a
+vectorised (T, G, P) chunk loop of the same math; the wrappers use it for
+CPU tensors only. On a CUDA tensor they launch the kernel or raise.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+ALPHA_MIN = 1.0 / 255.0
+ALPHA_MAX = 0.99
+T_EPS = 1e-4
+G_CHUNK = 128
+PACK_ROWS = 16  # channel-major rows: 10 used, padded
+ROWS_GM = 10  # gaussian-major columns
+OUT_ROWS = 8  # 5 used
+TILE = 32
+P_TILE = TILE * TILE
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc" / "blend.cu"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / ".torch_ext"
+
+# launches of each kernel since the last reset_launches(); a wrapper adds one
+# where it launches its kernel and nowhere else
+launches = {"blend_cm": 0, "blend_permuted_gm": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _blend_plain(gt: torch.Tensor, counts: torch.Tensor, tids: torch.Tensor, tiles_x: int, mask_rows: bool):
+    """gt: (T, MAX, 10) gaussian-major rows; returns (out, tentry)."""
+    T, MAX, _ = gt.shape
+    C = MAX // G_CHUNK
+    dev = gt.device
+    p = torch.arange(P_TILE, device=dev)
+    tids = tids.to(torch.int64)
+    px = ((tids % tiles_x) * TILE)[:, None].add(p % TILE).to(torch.float32)[:, None, :]  # (T, 1, P)
+    py = ((tids // tiles_x) * TILE)[:, None].add(p // TILE).to(torch.float32)[:, None, :]
+    counts = counts.to(torch.int64)
+    row = torch.arange(G_CHUNK, device=dev)
+
+    out = torch.zeros((T, OUT_ROWS, P_TILE), dtype=torch.float32, device=dev)
+    tentry = torch.empty((T, C, P_TILE), dtype=torch.float32, device=dev)
+    trun = torch.ones((T, P_TILE), dtype=torch.float32, device=dev)
+    for c in range(C):
+        t_entry = trun
+        tentry[:, c] = t_entry
+        active = (c * G_CHUNK < counts) & (torch.amax(t_entry, dim=1) >= T_EPS)  # (T,)
+        if not bool(active.any()):
+            continue
+        g = gt[:, c * G_CHUNK : (c + 1) * G_CHUNK]  # (T, G, 10)
+        mx, my = g[:, :, 0:1], g[:, :, 1:2]
+        ca, cb, cc, op = g[:, :, 2:3], g[:, :, 3:4], g[:, :, 4:5], g[:, :, 5:6]
+        dx = px - mx  # (T, G, P)
+        dy = py - my
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        raw = op * torch.exp(power)
+        raw = torch.where(power > 0.0, 0.0, raw)
+        alpha = torch.clamp(raw, max=ALPHA_MAX)
+        alpha = torch.where(alpha < ALPHA_MIN, 0.0, alpha)
+        keep = active[:, None]
+        if mask_rows:
+            keep = keep & ((c * G_CHUNK + row)[None, :] < counts[:, None])
+        alpha = torch.where(keep[:, :, None], alpha, 0.0)
+        lg = torch.log1p(-alpha)
+        cum = torch.cumsum(lg, dim=1)  # sequential along the chunk, as the kernel sums
+        t_in = t_entry[:, None, :] * torch.exp(cum)
+        w = alpha * (t_in / (1.0 - alpha)) * (t_in >= T_EPS)
+        v = torch.cat([g[:, :, 6:10], torch.ones_like(op)], dim=2)  # (T, G, 5)
+        out[:, :5] += torch.bmm(v.transpose(1, 2), w)
+        trun = t_entry * torch.exp(cum[:, -1])
+    return out, tentry
+
+
+def blend_cm_plain(g: torch.Tensor, counts: torch.Tensor, tiles_x: int):
+    """Plain version of ``blend_cm``: g (T, 16, MAX), counts (T,)."""
+    T = g.shape[0]
+    tids = torch.arange(T, device=g.device)
+    return _blend_plain(g[:, :ROWS_GM, :].transpose(1, 2), counts, tids, tiles_x, mask_rows=False)
+
+
+def blend_permuted_gm_plain(g: torch.Tensor, counts: torch.Tensor, tids: torch.Tensor, tiles_x: int):
+    """Plain version of ``blend_permuted_gm``: g (T, MAX, 10), counts/tids (T,)."""
+    return _blend_plain(g, counts, tids, tiles_x, mask_rows=True)
+
+
+# ---------------------------------------------------------------------------
+# the kernels: build, load, launch
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the blend kernels build with the CUDA toolkit")
+    return nvcc
+
+
+def _lib_path() -> Path:
+    src = CSRC.read_bytes()
+    return BUILD_DIR / f"libriggs_blend_{hashlib.sha256(src).hexdigest()[:12]}.so"
+
+
+def build_log() -> str:
+    """ptxas's report (registers, shared memory, spills per kernel) of the
+    build ``load_library`` made or found."""
+    return _lib_path().with_suffix(".log").read_text()
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build ``csrc/blend.cu`` for sm_90a (once per source version) and load it."""
+    lib_path = _lib_path()
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [
+            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(CSRC),
+        ]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        lib_path.with_suffix(".log").write_text(res.stdout + res.stderr)
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.riggs_blend_fwd_cm.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.riggs_blend_fwd_cm.restype = ci
+    lib.riggs_blend_fwd_gm_permuted.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.riggs_blend_fwd_gm_permuted.restype = ci
+    return lib
+
+
+def _check(g: torch.Tensor, counts: torch.Tensor, tids: torch.Tensor | None, max_axis: int, rows: int, rows_axis: int):
+    if g.dtype != torch.float32 or g.dim() != 3 or g.shape[rows_axis] != rows:
+        raise ValueError(f"g must be float32 with {rows} rows on axis {rows_axis}, got {g.dtype} {tuple(g.shape)}")
+    if g.shape[max_axis] % G_CHUNK != 0:
+        raise ValueError(f"window length {g.shape[max_axis]} is not a multiple of {G_CHUNK}")
+    for name, a in (("counts", counts), ("tids", tids)):
+        if a is None:
+            continue
+        if a.dtype != torch.int32 or a.shape != (g.shape[0],):
+            raise ValueError(f"{name} must be int32 of shape ({g.shape[0]},), got {a.dtype} {tuple(a.shape)}")
+        if a.device != g.device:
+            raise ValueError(f"{name} is on {a.device}, g on {g.device}")
+    if g.device.type == "cuda":
+        if not (g.is_contiguous() and counts.is_contiguous() and (tids is None or tids.is_contiguous())):
+            raise ValueError("the blend kernels take contiguous tensors")
+    elif g.device.type != "cpu":
+        raise ValueError(f"unsupported device {g.device}")
+
+
+def _outputs(g: torch.Tensor, T: int, C: int):
+    out = torch.empty((T, OUT_ROWS, P_TILE), dtype=torch.float32, device=g.device)
+    tentry = torch.empty((T, C, P_TILE), dtype=torch.float32, device=g.device)
+    return out, tentry
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def blend_cm(g: torch.Tensor, counts: torch.Tensor, tiles_x: int):
+    """Channel-major blend of plain windows. g: (T, 16, MAX) f32, counts:
+    (T,) int32 hit counts (chunk predication). Returns (out, tentry)."""
+    _check(g, counts, None, max_axis=2, rows=PACK_ROWS, rows_axis=1)
+    if g.device.type == "cpu":
+        return blend_cm_plain(g, counts, tiles_x)
+    T, _, MAX = g.shape
+    out, tentry = _outputs(g, T, MAX // G_CHUNK)
+    if T == 0:
+        return out, tentry
+    lib = load_library()
+    with torch.cuda.device(g.device):
+        err = lib.riggs_blend_fwd_cm(
+            g.data_ptr(), counts.data_ptr(), out.data_ptr(), tentry.data_ptr(),
+            T, MAX // G_CHUNK, tiles_x, torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    _raise_on(err, "blend_cm")
+    launches["blend_cm"] += 1
+    return out, tentry
+
+
+def blend_permuted_gm(g: torch.Tensor, counts: torch.Tensor, tids: torch.Tensor, tiles_x: int):
+    """Gaussian-major blend of laddered windows. g: (T, MAX, 10) f32, counts:
+    (T,) int32 (rows past the count are masked), tids: (T,) int32 real tile
+    id per row. Returns (out, tentry)."""
+    _check(g, counts, tids, max_axis=1, rows=ROWS_GM, rows_axis=2)
+    if g.device.type == "cpu":
+        return blend_permuted_gm_plain(g, counts, tids, tiles_x)
+    T, MAX, _ = g.shape
+    out, tentry = _outputs(g, T, MAX // G_CHUNK)
+    if T == 0:
+        return out, tentry
+    lib = load_library()
+    with torch.cuda.device(g.device):
+        err = lib.riggs_blend_fwd_gm_permuted(
+            g.data_ptr(), counts.data_ptr(), tids.data_ptr(), out.data_ptr(), tentry.data_ptr(),
+            T, MAX // G_CHUNK, tiles_x, torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    _raise_on(err, "blend_permuted_gm")
+    launches["blend_permuted_gm"] += 1
+    return out, tentry

@@ -1,0 +1,156 @@
+"""Tiled rasterizer: project, bin, gather per-tile windows, blend, untile.
+
+Port of ``riggs_tpu/render/tiles.py:rasterize_tiled`` for the serving path:
+the sort binner (and the dense one), the plain-window blend
+(``blend.blend_cm``, ``tiles.py:399-437``), the laddered blend
+(``blend.blend_permuted_gm``, ``tiles.py:294-367``), the untile step and the
+overflow counters. The reference's XLA scan blend (``blend='jnp'``) has no
+separate port: the kernels' plain versions take its place on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from riggs_tpu_torch.camera.camera import Camera
+from riggs_tpu_torch.render import blend as _blend
+from riggs_tpu_torch.render.binning import (
+    TILE,
+    _extract_windows,
+    bin_gaussians,
+    bin_gaussians_sorted,
+)
+from riggs_tpu_torch.render.project import build_cov3d_packed, project_gaussians
+
+G_CHUNK = _blend.G_CHUNK
+
+
+def _round_up(n: int) -> int:
+    return -(-n // G_CHUNK) * G_CHUNK
+
+
+def rasterize_tiled(
+    cam: Camera,
+    means3d: torch.Tensor,
+    colors: torch.Tensor,
+    opacity: torch.Tensor,
+    scales: torch.Tensor,
+    rotations: torch.Tensor,
+    bg: torch.Tensor,
+    alive: torch.Tensor | None = None,
+    scale_modifier: float = 1.0,
+    cov3d: torch.Tensor | None = None,
+    max_per_tile: int = 1024,
+    mean2d_bias: torch.Tensor | None = None,
+    binning: str = "sort",
+    max_tiles_per_gaussian: int = 16,
+    giant_cap: int = 256,
+    giant_side: int = 12,
+    mid_cap: int = 0,
+    mid_side: int = 4,
+    tile_ladder: tuple | None = None,
+    tile_shard_mesh=None,
+) -> dict:
+    """Render one view. colors (N, 3) RGB; opacity (N,) activated.
+
+    binning='sort' is the (tile, depth, gid) sort binner; 'dense' the exact
+    dense-mask reference. ``tile_ladder`` ((n_tiles, cap), ...) gives the
+    count-sorted tiles rank-dependent window capacities (render/ladder.py).
+    Returns image (H, W, 3), depth, alpha, radii, proj, the overflow
+    counters and the true per-tile hit counts.
+    """
+    if mean2d_bias is not None:
+        raise NotImplementedError("mean2d_bias (densification gradients) comes with the training slice (ROADMAP A3)")
+    if tile_shard_mesh is not None:
+        raise NotImplementedError("tile-sharded rendering comes with the multi-device port (ROADMAP A11)")
+    if binning not in ("sort", "dense"):
+        raise NotImplementedError(f"binning={binning!r} is not ported yet (ROADMAP A9; runs kernels: Queue B)")
+
+    if cov3d is None:
+        cov3d = build_cov3d_packed(scales, rotations, scale_modifier)
+    max_per_tile = _round_up(max_per_tile)
+    proj = project_gaussians(cam, means3d, cov3d, alive)
+    op_masked = torch.where(proj.mask, opacity, 0.0)
+    if binning == "sort":
+        bins = bin_gaussians_sorted(
+            proj, cam.width, cam.height, max_per_tile=max_per_tile,
+            max_tiles_per_gaussian=max_tiles_per_gaussian,
+            opacity=op_masked, giant_cap=giant_cap, giant_side=giant_side,
+            mid_cap=mid_cap, mid_side=mid_side,
+        )
+    else:
+        bins = bin_gaussians(proj, cam.width, cam.height, max_per_tile=max_per_tile)
+
+    # one packed row per Gaussian: [mean2d, conic, opacity, rgb, depth]
+    packed = torch.cat(
+        [proj.mean2d, proj.conic, op_masked[:, None], colors, proj.depth[:, None]], dim=-1
+    )  # (N, 10)
+    T = bins.tiles_x * bins.tiles_y
+    if tile_ladder is not None:
+        if bins.starts is None:
+            raise ValueError("tile_ladder requires binning='sort'")
+        if sum(n for n, _ in tile_ladder) != T:
+            raise ValueError(f"tile_ladder bucket sizes must sum to the tile count {T}: {tile_ladder}")
+        ordr = torch.argsort(-bins.count, stable=True)
+        inv = torch.argsort(ordr)
+        cap_max = max(_round_up(cap) for _, cap in tile_ladder)
+        gid_pad = torch.nn.functional.pad(bins.gid_sorted, (0, cap_max))
+        outs = []
+        ladder_overflow = torch.zeros((), dtype=torch.int64, device=packed.device)
+        r0 = 0
+        for nb, cap in tile_ladder:
+            tids_b = ordr[r0 : r0 + nb]
+            counts_b = bins.count[tids_b]
+            r0 += nb
+            if cap == 0:
+                # empty-tile bucket: background only; any count is truncation
+                outs.append(torch.zeros((nb, 8, TILE * TILE), dtype=torch.float32, device=packed.device))
+                ladder_overflow += torch.sum(counts_b)
+                continue
+            cap = _round_up(cap)
+            win = _extract_windows(gid_pad, bins.starts[tids_b], cap)
+            valid = torch.arange(cap, device=win.device)[None, :] < torch.clamp(counts_b, max=cap)[:, None]
+            g_b = packed[torch.where(valid, win, 0)]  # (nb, cap, 10); invalid slots read row 0
+            out_b, _ = _blend.blend_permuted_gm(
+                g_b, torch.clamp(counts_b, max=cap).to(torch.int32),
+                tids_b.to(torch.int32), bins.tiles_x,
+            )
+            outs.append(out_b)
+            ladder_overflow += torch.sum(torch.clamp(counts_b - cap, min=0))
+        out = torch.cat(outs, dim=0)[inv]  # (T, 8, P) back in tile order
+        overflow_tiles = ladder_overflow
+    else:
+        g = packed[bins.idx]  # (T, MAX, 10)
+        g[..., 5] = torch.where(bins.valid, g[..., 5], 0.0)
+        gp = torch.nn.functional.pad(g, (0, _blend.PACK_ROWS - g.shape[-1]))
+        gp = gp.transpose(1, 2).contiguous()  # (T, 16, MAX)
+        counts = torch.clamp(bins.count, max=max_per_tile).to(torch.int32)
+        out, _ = _blend.blend_cm(gp, counts, bins.tiles_x)
+        overflow_tiles = torch.sum(torch.clamp(bins.count - max_per_tile, min=0))
+
+    rgb = out[:, 0:3, :].transpose(1, 2)  # (T, P, 3)
+    dep = out[:, 3, :]
+    acc = out[:, 4, :]
+
+    H, W = cam.height, cam.width
+    Hp, Wp = bins.tiles_y * TILE, bins.tiles_x * TILE
+
+    def untile(a):
+        c = a.shape[-1] if a.dim() == 3 else 1
+        a = a.reshape(bins.tiles_y, bins.tiles_x, TILE, TILE, c)
+        return a.permute(0, 2, 1, 3, 4).reshape(Hp, Wp, c)[:H, :W]
+
+    image = untile(rgb) + (1.0 - untile(acc[..., None])) * bg
+    overflow_rect = bins.overflow
+    overflow_tiles = overflow_tiles.to(torch.int32)
+    return dict(
+        image=image,
+        depth=untile(dep[..., None])[..., 0],
+        alpha=untile(acc[..., None])[..., 0],
+        radii=proj.radius,
+        proj=proj,
+        overflow=overflow_tiles + overflow_rect,
+        overflow_tiles=overflow_tiles,
+        overflow_rect=overflow_rect,
+        max_count=torch.max(bins.count),
+        tile_counts=bins.count,  # (T,) true hit counts: the ladder's probe input
+    )
