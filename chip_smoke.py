@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -20,13 +21,26 @@ Phases, each printed as it runs:
      renders, and per-frame times of both paths;
   5. profile: for each path, the host-clock split between skeleton_forward
      and render, the device's busy time by kernel (torch.profiler) and its
-     idle share.
+     idle share;
+  6. train: the stage-2 training step (make_stage2_auto) on the same avatar
+     at full width against a target rendered with a second seeded skeleton:
+     steps at it = 0 (warmup) and it = 15001 (template offsets, skinning
+     MLP, chamfer, SH 3) on plain windows and on the ladder, with the launch
+     counters zeroed just before and read just after; the frame loss's
+     gradient of every parameter group, finite and nonzero where the flags
+     give one, kernel path against plain-version path; each backward kernel
+     against its plain version on the inputs it got in a real step, with its
+     time beside its bound; the step time, its three parts (the ranges
+     stage2_step names for the profiler), and the device's busy time and
+     idle share per step.
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without CUDA
 it exits 2 and prints no result. Imports nothing of JAX or riggs_tpu.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -67,6 +81,25 @@ FP32_OPS_PER_S = 67e12
 # sub, div, mul, 5 multiply-adds)
 OPS_PER_PAIR = 16
 OPS_PER_HIT = 17
+# the same count for the backward, as the function needs it (csrc/blend.cu
+# blend_bwd recomputes the power, alpha and transmittance in a second sweep;
+# that is the design's cost, not the function's): every live pair needs the
+# EWA power and the alpha test once (16); a pair whose alpha reaches 1/255
+# also needs the transmittance update and weights (log1p, add, exp, mul,
+# compare, sub, div, 2 mul: 9), the value dot [rgb, depth, 1] . dC (8), the
+# running sum of w * vdc (2), the suffix (2), dalpha (3), dpower (compare,
+# mul: 2), the five moments (5), w * dC[0:4] (4), and one add for each of
+# its ten sums over the tile's pixels (10). The per-row assembly of dg is
+# per row, not per pair, and not counted.
+OPS_PER_PAIR_BWD = OPS_PER_PAIR
+OPS_PER_HIT_BWD = 45
+# backward kernel vs plain version, and the step's gradient on the kernel
+# path vs the plain-version path: per column (attribute, or parameter leaf)
+# max |delta| <= 1e-3 * max |plain|
+BWD_TOL = 1e-3
+TRAIN_ITS = (0, 15001)  # warmup; everything unlocked (optimize_template_offsets_iters 15000)
+TRAIN_STEPS = 2  # counted steps per (it, path)
+UID, N_FRAMES, N_THIN = 0, 4, 256  # the template frame; pre_d_* frames; padded thinned points
 
 
 def build_avatar(seed: int, n_alive: int, capacity: int, size: int, device: str):
@@ -136,11 +169,13 @@ def frame(gs, skel, cam, bg, t=None, pose=None, **kw):
 
 
 class _Capture:
-    """Record the blend wrappers' arguments while a frame renders."""
+    """Record the arguments of the blend wrappers ``names`` (the forward
+    entries, or the backward wrappers the autograd Function calls) while a
+    frame renders or a step runs."""
 
-    def __init__(self, blend):
+    def __init__(self, blend, names=("blend_cm", "blend_permuted_gm")):
         self.blend = blend
-        self.calls = {"blend_cm": [], "blend_permuted_gm": []}
+        self.calls = {k: [] for k in names}
 
     def __enter__(self):
         self.orig = {k: getattr(self.blend, k) for k in self.calls}
@@ -157,16 +192,19 @@ class _Capture:
 
 
 class _PlainBlend:
-    """Route the renderer's blends to the plain PyTorch versions (on CUDA
-    tensors too) for the kernel-path vs plain-path comparison."""
+    """Route the renderer's blends, forward and backward, to the plain
+    PyTorch versions (on CUDA tensors too) for the kernel-path vs plain-path
+    comparison."""
 
     def __init__(self, blend):
         self.blend = blend
 
     def __enter__(self):
-        self.orig = (self.blend.blend_cm, self.blend.blend_permuted_gm)
-        self.blend.blend_cm = self.blend.blend_cm_plain
-        self.blend.blend_permuted_gm = self.blend.blend_permuted_gm_plain
+        b = self.blend
+        self.orig = (b.blend_cm, b.blend_permuted_gm)
+        b.blend_cm = lambda g, counts, tx: b.BlendFn.apply(g, b.blend_cm_plain, b.blend_cm_bwd_plain, tx, counts)
+        b.blend_permuted_gm = lambda g, counts, tids, tx: b.BlendFn.apply(
+            g, b.blend_permuted_gm_plain, b.blend_permuted_gm_bwd_plain, tx, counts, tids)
         return self
 
     def __exit__(self, *exc):
@@ -190,8 +228,9 @@ def _work(name, calls, outs):
     Pairs are the (Gaussian, pixel) pairs of active chunks (the chunk starts
     before the tile's count and some pixel enters it with T >= 1e-4), rows
     before the count; hits are the pairs whose alpha reaches 1/255. The g
-    rows of active chunks are read once, counts (and tids) read once, out
-    and tentry written once."""
+    rows of active chunks are read once, counts (and tids) read once, the
+    five used rows of out written once, and tentry written for the chunks
+    that start before the count (the only ones the backward reads)."""
     import torch
 
     pairs = hits = nbytes = 0
@@ -205,6 +244,7 @@ def _work(name, calls, outs):
         p = torch.arange(1024, device=g.device)
         r = torch.arange(128, device=g.device)
         for c in range(tentry.shape[1]):
+            nbytes += int((c * 128 < counts).sum()) * 1024 * 4  # tentry
             act = torch.nonzero((c * 128 < counts) & (tentry[:, c].amax(dim=1) >= 1e-4))[:, 0]
             if act.numel() == 0:
                 continue
@@ -221,7 +261,7 @@ def _work(name, calls, outs):
             hits += int(hit.sum())
             nbytes += n_rows * 10 * 4
         nbytes += counts.numel() * 4 * (2 if name == "blend_permuted_gm" else 1)
-        nbytes += out.numel() * 4 + tentry.numel() * 4
+        nbytes += out.shape[0] * 5 * out.shape[2] * 4
     ops = pairs * OPS_PER_PAIR + hits * OPS_PER_HIT
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return {"pairs": pairs, "hits": hits, "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
@@ -380,13 +420,390 @@ def profile_frames(gs, skel, cam, bg, cap, kw, label, frame_ms, n=5):
                     for name, lin in skel.named_modules() if isinstance(lin, torch.nn.Linear))
     print(f"[profile] {label}: host clock skeleton_forward {split['skeleton_forward']:.2f} ms, render "
           f"{split['render']:.2f} ms; device busy {busy:.2f} ms of {frame_ms:.2f} ms per frame "
-          f"(idle share {1 - busy / frame_ms:.3f}), {sum(e.count for e in kernels) // n} kernel launches "
-          f"per frame; MLP products {gemm_flop / 1e9:.1f} GFLOP per frame, "
+          f"(idle share {1 - busy / frame_ms:.3f}), {sum(e.count for e in kernels) // n} kernel launches and "
+          f"{sum(e.count for e in kernels if 'HtoD' in e.key) // n} host-to-device copies per frame; "
+          f"MLP products {gemm_flop / 1e9:.1f} GFLOP per frame, "
           f"{gemm_flop / groups.get('gemm', float('nan')) / 1e9:.1f} TFLOP/s in the GEMM kernels; "
           "device ms per frame by kind "
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
     for e in top:
         print(f"[profile]   {e.self_device_time_total / 1e3 / n:8.3f} ms  {e.count // n:4d} launches  {e.key[:90]}")
+
+
+def _work_bwd(name, calls):
+    """Bytes and operations the backward calls of one step need on this data
+    (the function's needs, not blend_bwd's two sweeps and zero writes).
+    Pairs are the (row, pixel) pairs of rows before the tile's count, in
+    chunks that some pixel enters with T >= 1e-4, at the pixels that do;
+    hits are those whose alpha reaches 1/255. Bytes: counts (and tids), the
+    g rows of those chunks and the five used rows of dout of the tiles that
+    have one read once, tentry read for the chunks that start before the
+    count, and the ten attributes of dg written for every row before the
+    count (the window gathers' backward passes those on and zeroes the rest)."""
+    import torch
+
+    pairs = hits = nbytes = 0
+    for args in calls:
+        if name == "blend_cm_bwd":
+            g, counts, tentry, dout, tiles_x = args
+            gt = g[:, :10].transpose(1, 2)
+            tids = torch.arange(g.shape[0], device=g.device)
+        else:
+            g, counts, tids, tentry, dout, tiles_x = args
+            gt, tids = g, tids.to(torch.int64)
+        counts = torch.clamp(counts.to(torch.int64), max=gt.shape[1])
+        p = torch.arange(1024, device=g.device)
+        r = torch.arange(128, device=g.device)
+        used = torch.zeros(g.shape[0], dtype=torch.bool, device=g.device)
+        for c in range(tentry.shape[1]):
+            started = c * 128 < counts
+            nbytes += int(started.sum()) * 1024 * 4  # tentry
+            live = tentry[:, c] >= 1e-4  # (T, P)
+            act = torch.nonzero(started & live.any(dim=1))[:, 0]
+            if act.numel() == 0:
+                continue
+            used[act] = True
+            rows = (c * 128 + r)[None, :] < counts[act][:, None]
+            gc = gt[act, c * 128:(c + 1) * 128]
+            t = tids[act]
+            dx = (((t % tiles_x) * 32)[:, None] + p % 32).float()[:, None, :] - gc[..., 0:1]
+            dy = (((t // tiles_x) * 32)[:, None] + p // 32).float()[:, None, :] - gc[..., 1:2]
+            power = -0.5 * (gc[..., 2:3] * dx * dx + gc[..., 4:5] * dy * dy) - gc[..., 3:4] * dx * dy
+            alpha = torch.clamp(gc[..., 5:6] * torch.exp(power), max=0.99)
+            pair = rows[..., None] & live[act][:, None, :]
+            pairs += int(pair.sum())
+            hits += int(((power <= 0) & (alpha >= 1.0 / 255.0) & pair).sum())
+            nbytes += int(rows.sum()) * 10 * 4  # g rows
+        nbytes += counts.numel() * 4 * (2 if name == "blend_permuted_gm_bwd" else 1)
+        nbytes += int(used.sum()) * 5 * dout.shape[2] * 4  # dout
+        nbytes += int(counts.sum()) * 10 * 4  # dg
+    ops = pairs * OPS_PER_PAIR_BWD + hits * OPS_PER_HIT_BWD
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return {"pairs": pairs, "hits": hits, "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _column_err(a, b, axis):
+    """Per column (``axis``): max |a - b| and max |b|."""
+    dims = tuple(d for d in range(a.dim()) if d != axis % a.dim())
+    return (a - b).abs().amax(dim=dims), b.abs().amax(dim=dims)
+
+
+def check_bwd_kernels(blend, captured):
+    """Each backward kernel against its plain version on the inputs it got
+    in a real full-width step (one call per blend call of the step): per dg
+    column max |delta| <= 1e-3 * max |plain column|, exact zeros where the
+    kernel must write them; times in turns plain, kernel, kernel, plain."""
+    import torch
+
+    kern = {"blend_cm_bwd": blend.blend_cm_bwd, "blend_permuted_gm_bwd": blend.blend_permuted_gm_bwd}
+    plain = {"blend_cm_bwd": blend.blend_cm_bwd_plain, "blend_permuted_gm_bwd": blend.blend_permuted_gm_bwd_plain}
+    results = {}
+    with torch.no_grad():  # the captured g is a saved tensor of the step's graph
+        for name, calls in captured.items():
+            results[name] = _check_bwd_kernel(name, calls, kern, plain)
+    return results
+
+
+def _check_bwd_kernel(name, calls, kern, plain):
+    """One backward kernel of check_bwd_kernels."""
+    import torch
+
+    if not calls:
+        raise RuntimeError(f"the step made no {name} call")
+    axis = 1 if name == "blend_cm_bwd" else 2
+    err = torch.zeros(16 if axis == 1 else 10, dtype=torch.float64)
+    scale = torch.zeros_like(err)
+    for args in calls:
+        kd, pd = kern[name](*args), plain[name](*args)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(kd).all()):
+            raise RuntimeError(f"{name}: non-finite kernel output")
+        if name == "blend_cm_bwd":
+            if bool(kd[:, 10:].any()):
+                raise RuntimeError(f"{name}: padding rows of dg are not zero")
+        else:
+            counts = args[1].to(torch.int64)
+            past = torch.arange(kd.shape[1], device=kd.device)[None, :] >= counts[:, None]
+            if bool(kd[past].any()):
+                raise RuntimeError(f"{name}: rows past the count are not zero")
+        e, s = _column_err(kd, pd, axis)
+        err = torch.maximum(err, e.double().cpu())
+        scale = torch.maximum(scale, s.double().cpu())
+    rel = torch.where(scale > 0, err / scale.clamp(min=1e-300), err)
+    print(f"[train] {name}: {len(calls)} launch(es) per step, shapes {[tuple(a[0].shape) for a in calls]}; "
+          f"per dg column max|d| / max|plain|: " + " ".join(f"{v:.2e}" for v in rel[:10].tolist())
+          + f"; max|d| {float(err.max()):.3e}")
+    if not float(rel.max()) <= BWD_TOL:
+        raise RuntimeError(f"{name}: kernel vs plain column error {float(rel.max()):.3e} > {BWD_TOL}")
+
+    def run(fns):
+        return lambda: [fns[name](*a) for a in calls]
+
+    for fn in (run(kern), run(plain)):  # warm up
+        fn()
+    torch.cuda.synchronize()
+    p1 = _event_ms(run(plain), 2)
+    k1 = _event_ms(run(kern), 10)
+    k2 = _event_ms(run(kern), 10)
+    p2 = _event_ms(run(plain), 2)
+    work = _work_bwd(name, calls)
+    print(f"[train] {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms per step; "
+          f"{work['pairs']} live (Gaussian, pixel) pairs ({work['hits']} with alpha >= 1/255), "
+          f"{work['ops']} operations, {work['bytes']} bytes, bound {work['bound_ms']:.4f} ms by {work['bound_by']}")
+    return dict(err=float(err.max()), rel=float(rel.max()), ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                launches_per_step=len(calls), **work)
+
+
+def build_training(gs, skel, cam, bg, device):
+    """The [train] set-up: a frame whose target is the avatar at t = 0.5
+    posed by a second seeded SkeletonWarp, with that pose's bone samples
+    projected as thinned points (padded, masked); pre_d_xyz / pre_d_joints
+    of four frames from the same second skeleton; the configuration with
+    both optional MLPs on."""
+    import torch
+
+    from riggs_tpu_torch.camera import project_nodes_2d
+    from riggs_tpu_torch.data.dataset import Frame
+    from riggs_tpu_torch.models import skeleton_warp as SW
+    from riggs_tpu_torch.train.config import Config
+    from riggs_tpu_torch.train.stage2 import eval_image, sample_skeleton_points
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    skel2 = SW.init_skeleton_warp(skel.joints.cpu().numpy(), PARENTS, K=-1, use_skinning_mlp=True,
+                                  use_template_offsets=True, generator=gen, device=device)
+    target = eval_image(gs, skel2, cam, 0.5, bg)
+    with torch.no_grad():
+        d = SW.skeleton_forward(skel2, gs.xyz, 0.5, gs.motion_mask)
+        pix = project_nodes_2d(cam, sample_skeleton_points(d["d_nodes"], PARENTS))
+        thinned = torch.zeros((N_THIN, 2), device=device)
+        thinned[: pix.shape[0]] = pix
+        pre = [SW.skeleton_forward(skel2, gs.xyz, t, gs.motion_mask) for t in np.linspace(0.0, 1.0, N_FRAMES)]
+    frame = Frame(cam=dataclasses.replace(cam, fid=torch.tensor(0.5, device=device)), image=target,
+                  thinned=thinned, thinned_mask=torch.arange(N_THIN, device=device) < pix.shape[0])
+    pre_d_xyz = torch.stack([p["d_xyz"] for p in pre])
+    pre_d_joints = torch.stack([p["d_nodes"] for p in pre])
+    cfg = Config()
+    cfg.model.sh_degree = SH_DEGREE
+    cfg.model.use_template_offsets = cfg.model.use_skinning_weight_mlp = True
+    return frame, pre_d_xyz, pre_d_joints, cfg
+
+
+def fresh_state(gs, skel, it, device):
+    """A Stage2State at iteration ``it`` with fresh Adam moments; the
+    skeleton is a copy (a step updates it in place)."""
+    import torch
+
+    from riggs_tpu_torch.models.gaussians import init_densify_stats
+    from riggs_tpu_torch.train.optim import adam_init
+    from riggs_tpu_torch.train.stage2 import Stage2State
+
+    sk = copy.deepcopy(skel)
+    return Stage2State(gs=gs, skel=sk, opt_gs=adam_init(gs.params_dict()), opt_skel=adam_init(sk.params_dict()),
+                       stats_gs=init_densify_stats(gs.capacity, device=device),
+                       proj_loss=torch.full((N_FRAMES,), 1.0e5, device=device),
+                       it=torch.tensor(it, dtype=torch.int32, device=device))
+
+
+def frame_grads(gs, skel, frame, pre_d_xyz, pre_d_joints, bg, cfg, it, kw):
+    """stage2_frame_loss at iteration ``it`` with the flags the step derives
+    there (stage2_flags), and its gradient tree {"gs", "skel", "m2b"} (m2b
+    is mean2d_bias)."""
+    import torch
+
+    from riggs_tpu_torch.train.optim import grad_tree
+    from riggs_tpu_torch.train.stage2 import stage2_flags, stage2_frame_loss
+
+    st = fresh_state(gs, skel, it, gs.device)
+    params = {"gs": {k: v.detach().requires_grad_(True) for k, v in gs.params_dict().items()},
+              "skel": st.skel.params_dict(), "m2b": torch.zeros_like(gs.xyz[:, :2], requires_grad=True)}
+    loss, (_, aux, _) = stage2_frame_loss(params, st, frame, UID, bg, params["m2b"], pre_d_xyz[UID],
+                                          pre_d_joints[UID], **stage2_flags(cfg, it, UID, 0), **kw)
+    return loss, aux, grad_tree(loss, params)
+
+
+def _groups(grads):
+    """Parameter group -> its gradient leaves (skel groups by top-level key)."""
+    from riggs_tpu_torch.train.optim import tree_leaves
+
+    out = {f"gs.{k}": [v] for k, v in grads["gs"].items()}
+    out.update({f"skel.{k}": tree_leaves(v) for k, v in grads["skel"].items()})
+    out["mean2d_bias"] = [grads["m2b"]]
+    return out
+
+
+def check_grads(grads, it):
+    """Finite everywhere; nonzero exactly in the groups the flags at ``it``
+    give a gradient: in warmup only the skeleton's radius and pose MLP and
+    the Gaussians' motion-mask feature (through d_xyz) are reached, the
+    image's weight being 0; at 15001 every group is."""
+    import torch
+
+    warm_live = {"gs.feature", "skel.radius", "skel.pose"}
+    for name, leaves in _groups(grads).items():
+        if not all(bool(torch.isfinite(v).all()) for v in leaves):
+            raise RuntimeError(f"it={it}: non-finite gradient in {name}")
+        nonzero = any(bool(v.any()) for v in leaves)
+        want = name in warm_live if it == 0 else True
+        if nonzero != want:
+            raise RuntimeError(f"it={it}: gradient of {name} is {'nonzero' if nonzero else 'zero'}, the flags say otherwise")
+
+
+def compare_grads(gk, gp, label):
+    """Kernel-path vs plain-version-path gradient: per parameter leaf, max
+    |delta| over max |plain|; the worst leaf of each group is printed."""
+    worst = {}
+    plain = _groups(gp)
+    for name, lk in _groups(gk).items():
+        r = 0.0
+        for a, b in zip(lk, plain[name]):
+            s, e = float(b.abs().max()), float((a - b).abs().max())
+            r = max(r, e / s if s > 0 else e)
+        worst[name] = r
+    print(f"[train] step gradient, kernel vs plain-version path, {label}: per group max|d| / max|plain| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    bad = {k: v for k, v in worst.items() if not v <= BWD_TOL}
+    if bad:
+        raise RuntimeError(f"{label}: gradient kernel vs plain path above {BWD_TOL}: {bad}")
+
+
+def _host_ms(fn, reps):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def profile_steps(step, gs, skel, frame, pre_d_xyz, pre_d_joints, bg, kw, label, step_ms, n=3):
+    """Device busy time and idle share per training step (torch.profiler),
+    and the step's three parts as stage2_step names them (record_function
+    ranges): their host time under the profiler and the device time of the
+    kernels launched inside them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    st = fresh_state(gs, skel, TRAIN_ITS[-1], gs.device)
+    st, _ = step(st, frame, UID, bg, pre_d_xyz, pre_d_joints, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            st, _ = step(st, frame, UID, bg, pre_d_xyz, pre_d_joints, **kw)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("stage2_step.")]  # a range's device-side copy is no kernel
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    if busy <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    parts = {k: max((e for e in events if e.key == f"stage2_step.{k}"), key=lambda e: e.cpu_time_total, default=None)
+             for k in ("forward", "backward", "update")}
+    if any(e is None or e.cpu_time_total <= 0 for e in parts.values()):
+        raise RuntimeError(f"the profile lacks a range of stage2_step: {parts}")
+    # host time only: the backward's kernels are launched from autograd's
+    # device thread, outside the range as the profiler attributes them
+    print(f"[train] {label}: step parts by host time under the profiler (stage2_step's ranges): "
+          + ", ".join(f"{k} {e.cpu_time_total / 1e3 / n:.2f} ms" for k, e in parts.items()))
+    groups = {}
+    for e in kernels:
+        k = e.key
+        g = ("gemm" if "gemm" in k else "blend bwd kernel" if "blend_bwd" in k else "blend fwd kernel"
+             if "blend_fwd" in k else "sort" if "sort" in k.lower() else "scatter/index" if "index" in k.lower()
+             or "scatter" in k.lower() else "other")
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3 / n
+    print(f"[train] profile {label}: device busy {busy:.2f} ms of {step_ms:.2f} ms per step "
+          f"(idle share {1 - busy / step_ms:.3f}), {sum(e.count for e in kernels) // n} kernel launches and "
+          f"{sum(e.count for e in kernels if 'HtoD' in e.key) // n} host-to-device copies per step; "
+          "device ms per step by kind " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"[train]   {e.self_device_time_total / 1e3 / n:8.3f} ms  {e.count // n:4d} launches  {e.key[:90]}")
+    return busy
+
+
+def train_phase(blend, gs, skel, cam, bg, cap, ladder):
+    """Phase 6: the stage-2 training step at full width on both window
+    paths. Returns (launch counts of the counted run, backward kernel
+    results)."""
+    import torch
+
+    from riggs_tpu_torch.train.optim import tree_leaves
+    from riggs_tpu_torch.train.stage2 import make_stage2_auto
+
+    t0 = time.perf_counter()
+    frame, pre_d_xyz, pre_d_joints, cfg = build_training(gs, skel, cam, bg, DEVICE)
+    step = make_stage2_auto(cfg, template_idx=0)
+    paths = (("plain windows", dict(max_per_tile=cap)), ("ladder", dict(max_per_tile=cap, tile_ladder=ladder)))
+    torch.cuda.synchronize()
+    print(f"[train] set-up {time.perf_counter() - t0:.1f} s: target at t=0.5 from a second skeleton, "
+          f"{int(frame.thinned_mask.sum())} thinned points, {N_FRAMES} pre_d frames, uid {UID} (the template frame)")
+
+    # the main path: make_stage2_auto steps, counters zeroed just before
+    torch.cuda.synchronize()
+    blend.reset_launches()
+    for it in TRAIN_ITS:
+        for label, kw in paths:
+            st = fresh_state(gs, skel, it, DEVICE)
+            for _ in range(TRAIN_STEPS):
+                st, m = step(st, frame, UID, bg, pre_d_xyz, pre_d_joints, **kw)
+                if not all(bool(torch.isfinite(v).all()) for k, v in m.items() if v.is_floating_point()):
+                    raise RuntimeError(f"[train] it={it} {label}: non-finite metric")
+                if int(m["overflow_tiles"]) or int(m["overflow_rect"]):
+                    raise RuntimeError(f"[train] it={it} {label}: overflow {int(m['overflow_tiles'])}/{int(m['overflow_rect'])}")
+            leaves = tree_leaves(st.gs.params_dict()) + tree_leaves(st.skel.params_dict())
+            if not all(bool(torch.isfinite(v).all()) for v in leaves) or int(st.it) != it + TRAIN_STEPS:
+                raise RuntimeError(f"[train] it={it} {label}: non-finite parameters or wrong it")
+            if it < cfg.opt.skeleton_warm_up and st.gs.xyz is not gs.xyz:
+                raise RuntimeError("[train] the Gaussians moved in warmup")
+            print(f"[train] it={it} {label}: {TRAIN_STEPS} steps, loss {float(m['loss']):.5f} img {float(m['img_loss']):.5f} "
+                  f"psnr {float(m['psnr']):.2f} d_xyz {float(m['d_xyz_loss']):.3e} chamfer {float(m['chamfer']):.2f}")
+    torch.cuda.synchronize()
+    launches = dict(blend.launches)
+    print(f"[train] launch counters over the training main path: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"the training path never launched {name}")
+
+    # gradients: finite, nonzero where the flags give one, kernel vs plain path
+    for it in TRAIN_ITS:
+        for label, kw in paths:
+            loss, aux, gk = frame_grads(gs, skel, frame, pre_d_xyz, pre_d_joints, bg, cfg, it, kw)
+            if not bool(torch.isfinite(loss)) or not all(bool(torch.isfinite(v)) for v in aux.values()):
+                raise RuntimeError(f"[train] it={it} {label}: non-finite loss")
+            check_grads(gk, it)
+            if it == TRAIN_ITS[-1]:
+                with _PlainBlend(blend):
+                    _, _, gp = frame_grads(gs, skel, frame, pre_d_xyz, pre_d_joints, bg, cfg, it, kw)
+                compare_grads(gk, gp, f"it={it} {label}")
+            del gk
+    print(f"[train] gradients finite and nonzero exactly where the flags give one, at it {TRAIN_ITS}")
+
+    # each backward kernel against its plain version on a real step's inputs
+    names = ("blend_cm_bwd", "blend_permuted_gm_bwd")
+    captured = {}
+    for (label, kw), name in zip(paths, names):
+        with _Capture(blend, names) as c:
+            step(fresh_state(gs, skel, TRAIN_ITS[-1], DEVICE), frame, UID, bg, pre_d_xyz, pre_d_joints, **kw)
+        captured[name] = c.calls[name]
+    bres = check_bwd_kernels(blend, captured)
+    del captured
+
+    # step time: the whole make_stage2_auto step by host clock around
+    # synchronized steps; then the profile, with the step's parts
+    for label, kw in paths:
+        st = fresh_state(gs, skel, TRAIN_ITS[-1], DEVICE)
+
+        def full_step():
+            nonlocal st
+            st, _ = step(st, frame, UID, bg, pre_d_xyz, pre_d_joints, **kw)
+
+        full_step()  # warm-up
+        full = _host_ms(full_step, 5)
+        print(f"[train] {label}: step {full:.2f} ms (host clock, synchronized, it={int(st.it)}, {SIZE}x{SIZE})")
+        profile_steps(step, gs, skel, frame, pre_d_xyz, pre_d_joints, bg, kw, label, full)
+    return launches, bres
 
 
 def main() -> int:
@@ -462,8 +879,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(blend.launches)
     print(f"[slice] launch counters over the main path: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("blend_cm", "blend_permuted_gm"):
+        if launches[name] <= 0:
             raise RuntimeError(f"the main path never launched {name}")
     if ladder_fit != ladder:
         raise RuntimeError(f"the refit ladder {ladder_fit} differs from the probe's {ladder}")
@@ -502,6 +919,11 @@ def main() -> int:
     for label, kw in (("plain windows", {}), ("ladder", {"tile_ladder": ladder})):
         profile_frames(gs, skel, cam, bg, cap, kw, label, frame_ms[label])
 
+    # 6. the training slice (its own counted run)
+    train_launches, bres = train_phase(blend, gs, skel, cam, bg, cap, ladder)
+
+    # forward kernels: times per frame, launches of the serving run; backward
+    # kernels: times per training step, launches of the training run
     rows = []
     for name, replaces in (("blend_cm", "riggs_tpu/render/pallas_blend.py:179"),
                            ("blend_permuted_gm", "riggs_tpu/render/pallas_blend.py:602")):
@@ -512,6 +934,17 @@ def main() -> int:
             "max_abs_err": max(r["err"].values()), "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "launches_per_frame": r["launches_per_frame"], "ms_per_launch": r["ms"] / r["launches_per_frame"],
+        })
+    for name, replaces in (("blend_cm_bwd", "riggs_tpu/render/pallas_blend.py:221"),
+                           ("blend_permuted_gm_bwd", "riggs_tpu/render/pallas_blend.py:638")):
+        r = bres[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": "riggs_tpu_torch/csrc/blend.cu",
+            "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "launches_per_step": r["launches_per_step"], "ms_per_launch": r["ms"] / r["launches_per_step"],
+            "max_rel_column_err": r["rel"],
         })
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -4,6 +4,7 @@ from riggs_tpu_torch.camera.camera import (
     focal2fov,
     fov2focal,
     make_camera,
+    project_nodes_2d,
     project_points,
     world_to_view,
 )

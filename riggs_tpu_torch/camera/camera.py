@@ -13,7 +13,7 @@ import math
 import numpy as np
 import torch
 
-from riggs_tpu_torch.device import resolve_device
+from riggs_tpu_torch.device import constant, resolve_device
 
 
 def fov2focal(fov: float, pixels: float) -> float:
@@ -124,3 +124,14 @@ def project_points(cam: Camera, points: torch.Tensor) -> tuple[torch.Tensor, tor
 def camera_center(cam: Camera) -> torch.Tensor:
     """World-space camera position: -R^T t of the w2c transform."""
     return -cam.w2c[:3, :3].T @ cam.w2c[:3, 3]
+
+
+def project_nodes_2d(cam: Camera, nodes: torch.Tensor) -> torch.Tensor:
+    """World points -> (row, col) pixel coordinates for the thinned-skeleton
+    chamfer: principal point at (cx, cy) with no half-pixel shift, and (y, x)
+    order to match ``np.argwhere`` of the thinned mask."""
+    view = world_to_view(cam.w2c, nodes)
+    z = torch.maximum(view[..., 2], constant(1e-6, view))
+    px = cam.intrinsics[0] * view[..., 0] / z + cam.intrinsics[2]
+    py = cam.intrinsics[1] * view[..., 1] / z + cam.intrinsics[3]
+    return torch.stack([py, px], dim=-1)

@@ -10,9 +10,12 @@ import numpy as np
 import torch
 
 from riggs_tpu_torch.camera.camera import Camera
+from riggs_tpu_torch.data.dataset import Frame
 from riggs_tpu_torch.device import resolve_device
-from riggs_tpu_torch.models.gaussians import Gaussians
+from riggs_tpu_torch.models.gaussians import DensifyStats, Gaussians
 from riggs_tpu_torch.models.skeleton_warp import init_skeleton_warp
+from riggs_tpu_torch.train.optim import AdamState
+from riggs_tpu_torch.train.stage2 import Stage2State
 
 
 def _t(a, dev, dtype=torch.float32) -> torch.Tensor:
@@ -102,4 +105,73 @@ def camera_from_numpy(w2c, intrinsics, fid, width: int, height: int,
     return Camera(
         w2c=_t(w2c, dev), intrinsics=_t(intrinsics, dev), fid=_t(fid, dev),
         width=int(width), height=int(height), znear=float(znear), zfar=float(zfar),
+    )
+
+
+def frame_from_numpy(w2c, intrinsics, fid, width: int, height: int, image, alpha_mask=None,
+                     thinned=None, thinned_mask=None, device: str | torch.device | None = None) -> Frame:
+    """A training ``Frame``: the camera and the supervision, (row, col)
+    thinned pixels padded with their mask."""
+    dev = resolve_device(device)
+    opt = lambda a, dtype=torch.float32: None if a is None else _t(a, dev, dtype)
+    return Frame(
+        cam=camera_from_numpy(w2c, intrinsics, fid, width, height, device=dev),
+        image=_t(image, dev), alpha_mask=opt(alpha_mask), thinned=opt(thinned),
+        thinned_mask=opt(thinned_mask, torch.bool),
+    )
+
+
+def _skel_tree(tree, dev):
+    """A reference skeleton tree (Adam moments) in the port's layout: every
+    linear ``w`` (d_in, d_out) becomes (d_out, d_in)."""
+    if isinstance(tree, dict):
+        if set(tree) == {"w", "b"}:
+            return {"w": _t(np.asarray(tree["w"]).T.copy(), dev), "b": _t(tree["b"], dev)}
+        return {k: _skel_tree(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_skel_tree(v, dev) for v in tree]
+    return _t(tree, dev)
+
+
+def stage2_state_from_numpy(
+    gs_params: dict,
+    alive,
+    max_sh_degree: int,
+    skel_params: dict,
+    joints,
+    parents,
+    opt_gs: tuple,
+    opt_skel: tuple,
+    stats: tuple,
+    proj_loss,
+    it: int = 0,
+    isotropic: bool = False,
+    with_motion_mask: bool = True,
+    K: int = -1,
+    use_skinning_mlp: bool = True,
+    use_template_offsets: bool = True,
+    device: str | torch.device | None = None,
+) -> Stage2State:
+    """A ``Stage2State`` from the reference's: the Gaussians' and skeleton's
+    ``params_dict`` trees, both Adam states as (mu, nu, count) with mu and nu
+    in the params' trees, the densification statistics as
+    (xyz_gradient_accum, denom, max_radii2d), ``proj_loss`` and ``it``."""
+    dev = resolve_device(device)
+    gs = gaussians_from_numpy(gs_params, alive, max_sh_degree, isotropic, with_motion_mask, device=dev)
+    skel = skeleton_warp_from_numpy(skel_params, joints, parents, K=K, use_skinning_mlp=use_skinning_mlp,
+                                    use_template_offsets=use_template_offsets, device=dev)
+
+    def adam(state, tree):
+        mu, nu, count = state
+        return AdamState(mu=tree(mu), nu=tree(nu), count=torch.tensor(int(count), dtype=torch.int32, device=dev))
+
+    gs_tree = lambda d: {k: _t(v, dev) for k, v in d.items()}
+    return Stage2State(
+        gs=gs,
+        skel=skel,
+        opt_gs=adam(opt_gs, gs_tree),
+        opt_skel=adam(opt_skel, lambda d: _skel_tree(d, dev)),
+        stats_gs=DensifyStats(*(_t(a, dev) for a in stats)),
+        proj_loss=_t(proj_loss, dev),
+        it=torch.tensor(int(it), dtype=torch.int32, device=dev),
     )

@@ -1,9 +1,10 @@
-// Fused per-tile front-to-back Gaussian blend, forward only, for Hopper (sm_90a).
+// Fused per-tile front-to-back Gaussian blend and its backward, for Hopper (sm_90a).
 //
 // Replaces the two forward Pallas kernels of riggs_tpu/render/pallas_blend.py:
 //   riggs_blend_fwd_cm          <- _fwd_kernel      (:179, entry pallas_blend)
 //   riggs_blend_fwd_gm_permuted <- _fwd_kernel_gm   (:602, entry pallas_blend_permuted_gm)
-// One template gives both; each instantiation is its own kernel.
+// One template gives both; each instantiation is its own kernel. The two
+// backward kernels follow below the forward.
 //
 // Design. One thread block per 32x32 tile, one thread per pixel (1024). The
 // TPU kernel walked a (tile, chunk) grid sequentially and kept the
@@ -117,6 +118,232 @@ blend_fwd(const float* __restrict__ g, const int* __restrict__ counts,
   o[7 * P] = 0.0f;
 }
 
+// ---------------------------------------------------------------------------
+// Backward. Replaces the two backward Pallas kernels:
+//   riggs_blend_bwd_cm          <- _bwd_kernel / _bwd_body       (:221/:251)
+//   riggs_blend_bwd_gm_permuted <- _bwd_kernel_gm / _bwd_body_gm (:638/:666)
+//
+// Math (per pixel, for the Gaussians j of a chunk in blend order):
+//   te_j  = t_in_j / (1 - alpha_j) * [t_in_j >= 1e-4],  w_j = alpha_j * te_j
+//   vdc_j = [rgb, depth, 1]_j . dC
+//   suf_j = sum over later Gaussians of w * vdc (this chunk and later ones)
+//   dalpha_j = te_j * vdc_j - suf_j / (1 - alpha_j)
+//   dpower_j = dalpha_j * raw_j * [1/255 <= raw_j < 0.99]
+// and per Gaussian, summed over the tile's pixels: the five moments
+// dx*dpower, dy*dpower, dx*dx*dpower, dx*dy*dpower, dy*dy*dpower and dpower
+// give d(mx, my, conic a b c, opacity); w * dC[0:4] gives d(rgb, depth).
+//
+// Design. One block per tile, one thread per pixel, chunks walked from last
+// to first with the suffix of later chunks in a register (the TPU carried it
+// in VMEM scratch between grid steps). Inside a chunk two sweeps run in
+// blend order: the first sums s_total = sum_j w_j vdc_j, the second
+// recomputes cum, t_in and w with the forward's intrinsics in the forward's
+// order (so every threshold falls as it fell in the forward) and takes
+// suf_j = (s_total - s_incl_j) + suffix, the reference's own expression.
+// The per-Gaussian sums over 1024 pixels go in rounds of 32 Gaussians:
+// warp shuffles (skipped when no lane of the warp touches the Gaussian),
+// then per-warp partials in shared memory summed in warp order, so the
+// result is deterministic. Each (tile, row) of dg belongs to one block: no
+// global atomics. Every element of dg is written. Rows before the count in a
+// chunk that no pixel enters with T >= 1e-4 get zeros as their true
+// gradient. The zeros of chunks past the count and of the channel-major
+// padding rows are defensive (the window gathers' backward zeroes invalid
+// slots, pad's backward drops the padding rows): they keep dg equal to its
+// plain version element for element. Together they cost one write of the
+// skipped chunks' rows, most of the 230 MB of a channel-major dg at 800x800.
+//
+// What bounds it on an H100: like the forward, operations (two sweeps of
+// the EWA power and alpha per pair, three special-function operations per
+// blended pair and sweep) plus the shuffles of the reductions; bytes are
+// the g rows, tentry, dout and dg, tens of MB.
+
+constexpr int SUB = 32;       // Gaussians per reduction round
+constexpr int NW = P / 32;    // warps per block
+constexpr int NV = 10;        // sums per Gaussian
+constexpr unsigned FULL = 0xffffffffu;
+
+// [r, g, b, depth, 1] . dC with explicit rounding: both sweeps must give the
+// same bits, so that s_total - s_incl is exactly 0 after the last term
+__device__ __forceinline__ float value_dot(float r, float g, float b, float d, float c0,
+                                           float c1, float c2, float c3, float c4) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(r, c0), __fmul_rn(g, c1)),
+                                       __fmul_rn(b, c2)), __fmul_rn(d, c3)), c4);
+}
+
+template <bool GM>
+__device__ __forceinline__ void zero_chunk(float* dg, int t, int c, size_t MAX, int p) {
+  if (GM) {
+    float* d = dg + ((size_t)t * MAX + (size_t)c * G) * ATTRS;
+    for (int k = p; k < G * ATTRS; k += P) d[k] = 0.0f;
+  } else {
+    for (int k = p; k < PACK_ROWS * G; k += P)
+      dg[((size_t)t * PACK_ROWS + k / G) * MAX + (size_t)c * G + k % G] = 0.0f;
+  }
+}
+
+template <bool GM>
+__global__ void __launch_bounds__(P)
+blend_bwd(const float* __restrict__ g, const int* __restrict__ counts,
+          const int* __restrict__ tids, const float* __restrict__ tentry,
+          const float* __restrict__ dout, float* __restrict__ dg, int C, int tiles_x) {
+  __shared__ float sg[ATTRS][G];
+  __shared__ float part[NW][SUB][NV];  // per-warp partial sums of one round
+  __shared__ float msum[SUB][NV];      // block sums of one round
+  const int t = blockIdx.x;
+  const int p = threadIdx.x;
+  const int lane = p & 31;
+  const int warp = p >> 5;
+  const int tile = GM ? tids[t] : t;
+  const int count = counts[t];
+  const size_t MAX = (size_t)C * G;
+  const float px = (float)((tile % tiles_x) * TILE + p % TILE);
+  const float py = (float)((tile / tiles_x) * TILE + p / TILE);
+  const float* dp = dout + (size_t)t * OUT_ROWS * P + p;
+  const float dc0 = dp[0 * P], dc1 = dp[1 * P], dc2 = dp[2 * P], dc3 = dp[3 * P], dc4 = dp[4 * P];
+
+  float suffix = 0.0f;
+  for (int c = C - 1; c >= 0; --c) {
+    // both conditions are uniform over the block; tentry is read only for
+    // chunks that start before the count
+    if (c * G >= count) {
+      zero_chunk<GM>(dg, t, c, MAX, p);
+      continue;
+    }
+    const float t0 = tentry[((size_t)t * C + c) * P + p];
+    if (!__syncthreads_or(t0 >= T_EPS)) {
+      zero_chunk<GM>(dg, t, c, MAX, p);
+      continue;
+    }
+    for (int k = p; k < ATTRS * G; k += P) {
+      if (GM) {
+        sg[k % ATTRS][k / ATTRS] = g[((size_t)t * MAX + (size_t)c * G) * ATTRS + k];
+      } else {
+        sg[k / G][k % G] = g[((size_t)t * PACK_ROWS + k / G) * MAX + (size_t)c * G + k % G];
+      }
+    }
+    __syncthreads();
+    const int n = GM ? min(G, count - c * G) : G;
+    // a pixel entering below 1e-4 blends nothing here (t_in <= t0) and has a
+    // zero suffix: it only joins the reductions
+    const bool live = t0 >= T_EPS;
+
+    // sweep 1: s_total
+    float s_total = 0.0f;
+    if (live) {
+      float cum = 0.0f;
+      for (int j = 0; j < n; ++j) {
+        const float dx = __fsub_rn(px, sg[0][j]);
+        const float dy = __fsub_rn(py, sg[1][j]);
+        const float quad = __fadd_rn(__fmul_rn(__fmul_rn(sg[2][j], dx), dx),
+                                     __fmul_rn(__fmul_rn(sg[4][j], dy), dy));
+        const float power = __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(sg[3][j], dx), dy));
+        if (power > 0.0f) continue;
+        const float alpha = fminf(__fmul_rn(sg[5][j], expf(power)), ALPHA_MAX);
+        if (alpha < ALPHA_MIN) continue;
+        cum = __fadd_rn(cum, log1pf(-alpha));
+        const float t_in = __fmul_rn(t0, expf(cum));
+        if (t_in < T_EPS) continue;
+        const float w = __fmul_rn(alpha, __fmul_rn(t_in, __fdiv_rn(1.0f, __fsub_rn(1.0f, alpha))));
+        const float vdc = value_dot(sg[6][j], sg[7][j], sg[8][j], sg[9][j], dc0, dc1, dc2, dc3, dc4);
+        s_total = __fadd_rn(s_total, __fmul_rn(w, vdc));
+      }
+    }
+
+    // sweep 2: per-pair gradients, reduced over the tile in rounds of SUB
+    float cum = 0.0f, s_incl = 0.0f;
+    for (int j0 = 0; j0 < G; j0 += SUB) {
+      for (int jj = 0; jj < SUB; ++jj) {
+        const int j = j0 + jj;
+        float v[NV];
+#pragma unroll
+        for (int k = 0; k < NV; ++k) v[k] = 0.0f;
+        bool nz = false;
+        if (live && j < n) {
+          const float dx = __fsub_rn(px, sg[0][j]);
+          const float dy = __fsub_rn(py, sg[1][j]);
+          const float quad = __fadd_rn(__fmul_rn(__fmul_rn(sg[2][j], dx), dx),
+                                       __fmul_rn(__fmul_rn(sg[4][j], dy), dy));
+          const float power = __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(sg[3][j], dx), dy));
+          const float raw = power > 0.0f ? 0.0f : __fmul_rn(sg[5][j], expf(power));
+          const float alpha = fminf(raw, ALPHA_MAX);
+          if (alpha >= ALPHA_MIN) {
+            cum = __fadd_rn(cum, log1pf(-alpha));
+            const float t_in = __fmul_rn(t0, expf(cum));
+            const float inv_onem = __fdiv_rn(1.0f, __fsub_rn(1.0f, alpha));
+            const float te = t_in >= T_EPS ? __fmul_rn(t_in, inv_onem) : 0.0f;
+            const float w = __fmul_rn(alpha, te);
+            const float vdc = value_dot(sg[6][j], sg[7][j], sg[8][j], sg[9][j], dc0, dc1, dc2, dc3, dc4);
+            s_incl = __fadd_rn(s_incl, __fmul_rn(w, vdc));
+            const float suf = __fadd_rn(__fsub_rn(s_total, s_incl), suffix);
+            const float dalpha = __fsub_rn(__fmul_rn(te, vdc), __fmul_rn(suf, inv_onem));
+            // raw >= alpha >= 1/255 here; at raw >= 0.99 the clamp stops the gradient
+            const float dpower = raw < ALPHA_MAX ? __fmul_rn(dalpha, raw) : 0.0f;
+            const float dpx = dx * dpower;
+            const float dpy = dy * dpower;
+            v[0] = dpx;
+            v[1] = dpy;
+            v[2] = dx * dpx;
+            v[3] = dy * dpx;
+            v[4] = dy * dpy;
+            v[5] = dpower;
+            v[6] = w * dc0;
+            v[7] = w * dc1;
+            v[8] = w * dc2;
+            v[9] = w * dc3;
+            nz = (w != 0.0f) || (dpower != 0.0f);
+          }
+        }
+        if (__any_sync(FULL, nz)) {
+#pragma unroll
+          for (int k = 0; k < NV; ++k) {
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) v[k] += __shfl_xor_sync(FULL, v[k], off);
+          }
+        }
+        if (lane == 0) {
+#pragma unroll
+          for (int k = 0; k < NV; ++k) part[warp][jj][k] = v[k];
+        }
+      }
+      __syncthreads();
+      if (p < SUB * NV) {
+        const int jj = p / NV, k = p % NV;
+        float s = 0.0f;
+        for (int w = 0; w < NW; ++w) s += part[w][jj][k];
+        msum[jj][k] = s;
+      }
+      __syncthreads();
+      // assemble d(mx, my, a, b, c, op, rgb, depth) of the round's Gaussians
+      const int jj = GM ? p / NV : p % SUB;
+      const int k = GM ? p % NV : p / SUB;
+      if (GM ? p < SUB * NV : p < SUB * PACK_ROWS) {
+        const int j = j0 + jj;
+        const float* m = msum[jj];
+        float val = 0.0f;
+        if (j < n) {
+          switch (k) {
+            case 0: val = sg[2][j] * m[0] + sg[3][j] * m[1]; break;
+            case 1: val = sg[4][j] * m[1] + sg[3][j] * m[0]; break;
+            case 2: val = -0.5f * m[2]; break;
+            case 3: val = -m[3]; break;
+            case 4: val = -0.5f * m[4]; break;
+            case 5: val = m[5] / fmaxf(sg[5][j], 1e-12f); break;
+            case 6: case 7: case 8: case 9: val = m[k]; break;
+            default: break;  // channel-major padding rows 10..15
+          }
+        }
+        if (GM) {
+          dg[((size_t)t * MAX + (size_t)c * G + j) * ATTRS + k] = val;
+        } else {
+          dg[((size_t)t * PACK_ROWS + k) * MAX + (size_t)c * G + j] = val;
+        }
+      }
+    }
+    suffix = __fadd_rn(suffix, s_total);
+    __syncthreads();  // every thread is done with sg and msum before the next chunk
+  }
+}
+
 }  // namespace
 
 // Plain C interface for ctypes. Pointers are device pointers; stream is a
@@ -132,5 +359,19 @@ extern "C" int riggs_blend_fwd_gm_permuted(const float* g, const int* counts,
                                            const int* tids, float* out, float* tentry,
                                            int T, int C, int tiles_x, void* stream) {
   blend_fwd<true><<<T, P, 0, (cudaStream_t)stream>>>(g, counts, tids, out, tentry, C, tiles_x);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int riggs_blend_bwd_cm(const float* g, const int* counts, const float* tentry,
+                                  const float* dout, float* dg, int T, int C, int tiles_x,
+                                  void* stream) {
+  blend_bwd<false><<<T, P, 0, (cudaStream_t)stream>>>(g, counts, nullptr, tentry, dout, dg, C, tiles_x);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int riggs_blend_bwd_gm_permuted(const float* g, const int* counts, const int* tids,
+                                           const float* tentry, const float* dout, float* dg,
+                                           int T, int C, int tiles_x, void* stream) {
+  blend_bwd<true><<<T, P, 0, (cudaStream_t)stream>>>(g, counts, tids, tentry, dout, dg, C, tiles_x);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
 """Canonical Gaussian cloud: a capacity-padded tensor container.
 
-Port of ``riggs_tpu/models/gaussians.py:40-119`` (the container and its
-activations). Every tensor's leading dimension is the capacity C; ``alive``
-marks the used slots. Densification comes with the training slice.
+Port of ``riggs_tpu/models/gaussians.py:40-134`` (the container, its
+activations and its parameter tree) and ``:302-328`` (the densification
+statistics). Every tensor's leading dimension is the capacity C; ``alive``
+marks the used slots. Densification itself (clone, split, prune) comes with
+a later slice.
 """
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import dataclasses
 
 import torch
 
+from riggs_tpu_torch.device import constant, resolve_device
 from riggs_tpu_torch.ops.quaternion import quat_normalize
 
 
@@ -86,3 +89,55 @@ class Gaussians:
             "opacity": self.opacity,
             "feature": self.feature,
         }
+
+    def replace_params(self, p: dict[str, torch.Tensor]) -> "Gaussians":
+        return dataclasses.replace(
+            self,
+            xyz=p["xyz"],
+            features_dc=p["f_dc"],
+            features_rest=p["f_rest"],
+            scaling=p["scaling"],
+            rotation=p["rotation"],
+            opacity=p["opacity"],
+            feature=p["feature"],
+        )
+
+
+@dataclasses.dataclass
+class DensifyStats:
+    """Screen-space gradient statistics driving clone/split decisions."""
+
+    xyz_gradient_accum: torch.Tensor  # (C,)
+    denom: torch.Tensor  # (C,)
+    max_radii2d: torch.Tensor  # (C,)
+
+
+def init_densify_stats(capacity: int, device: str | torch.device | None = None) -> DensifyStats:
+    dev = resolve_device(device)
+    z = lambda: torch.zeros(capacity, dtype=torch.float32, device=dev)
+    return DensifyStats(xyz_gradient_accum=z(), denom=z(), max_radii2d=z())
+
+
+def add_densification_stats(
+    stats: DensifyStats,
+    screen_grad: torch.Tensor,
+    radii: torch.Tensor,
+    visible: torch.Tensor,
+    width: int | None = None,
+    height: int | None = None,
+) -> DensifyStats:
+    """Accumulate the norm of the screen-space mean gradients of visible splats.
+
+    ``screen_grad`` is dL/d(mean2d) in pixels (``mean2d_bias``'s gradient).
+    The reference CUDA rasterizer's threshold (densify_grad_threshold 2e-4)
+    is calibrated to NDC units, so with the render's width and height the
+    gradient is scaled by 0.5 * [W, H] first."""
+    g = screen_grad[:, :2]
+    if width is not None:
+        g = g * constant((0.5 * width, 0.5 * height), g)
+    gnorm = torch.linalg.norm(g, dim=-1)
+    return DensifyStats(
+        xyz_gradient_accum=stats.xyz_gradient_accum + torch.where(visible, gnorm, 0.0),
+        denom=stats.denom + visible.to(torch.float32),
+        max_radii2d=torch.maximum(stats.max_radii2d, torch.where(visible, radii, 0.0)),
+    )

@@ -60,6 +60,11 @@ def make_linear(
     return lin
 
 
+def linear_params(lin: nn.Linear) -> dict:
+    """One layer's parameters under the reference's keys."""
+    return {"w": lin.weight, "b": lin.bias}
+
+
 class MLP(nn.Module):
     """Relu MLP with NeRF-style skip concats: after layer i in ``skips`` the
     trunk continues on ``[x, h]``. ``d_out == 0`` builds the trunk only."""
@@ -89,6 +94,15 @@ class MLP(nn.Module):
             if d_out > 0
             else None
         )
+
+    def params_dict(self) -> dict:
+        """The parameters under the reference's tree: {"layers": [{"w", "b"},
+        ...], "head": {"w", "b"}}. ``w`` is ``nn.Linear``'s (d_out, d_in)
+        weight, the transpose of the reference's (d_in, d_out)."""
+        p = {"layers": [linear_params(lin) for lin in self.layers]}
+        if self.head is not None:
+            p["head"] = linear_params(self.head)
+        return p
 
     def hidden(self, x: torch.Tensor) -> torch.Tensor:
         h = x

@@ -19,12 +19,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from riggs_tpu_torch.device import resolve_device
-from riggs_tpu_torch.models.mlp import MLP, embed_dim, make_linear, positional_embed
+from riggs_tpu_torch.device import constant, resolve_device, static_index
+from riggs_tpu_torch.models.mlp import MLP, embed_dim, linear_params, make_linear, positional_embed
 from riggs_tpu_torch.ops.fk import forward_kinematics
 from riggs_tpu_torch.ops.geometry import point_segment_dist2
 from riggs_tpu_torch.ops.knn import _small_k
 from riggs_tpu_torch.ops.quaternion import quat_to_rotmat, rotmat_to_quat
+from riggs_tpu_torch.train.optim import tree_map
 
 ROT_BIAS = (1.0, 0.0, 0.0, 0.0)
 
@@ -69,6 +70,12 @@ class PoseMLP(MLP):
         self.rotation = make_linear(net.pose_width, net.pose_out, "torch_default", generator=generator, device=device)
         self.translation = make_linear(net.pose_width, 3, "torch_default", generator=generator, device=device)
 
+    def params_dict(self) -> dict:
+        p = super().params_dict()
+        p["rotation"] = linear_params(self.rotation)
+        p["translation"] = linear_params(self.translation)
+        return p
+
 
 class SkeletonWarp(nn.Module):
     """Rest joints (fixed), per-joint log kernel radii and the three MLPs."""
@@ -106,6 +113,25 @@ class SkeletonWarp(nn.Module):
     @property
     def node_radius(self) -> torch.Tensor:
         return torch.exp(self.node_radius_log)
+
+    def params_dict(self) -> dict:
+        """The trainable parameters under the reference's tree (``radius``,
+        ``pose``, and ``skinning_mlp`` / ``detail_net`` where the net has
+        them); the leaves are this module's own ``nn.Parameter``s, linear
+        weights in ``nn.Linear``'s (d_out, d_in) layout."""
+        p = {"radius": self.node_radius_log, "pose": self.pose_mlp.params_dict()}
+        if self.net.use_skinning_mlp:
+            p["skinning_mlp"] = self.weight_mlp.params_dict()
+        if self.net.use_template_offsets:
+            p["detail_net"] = self.detail_mlp.params_dict()
+        return p
+
+    @torch.no_grad()
+    def replace_params(self, p: dict) -> "SkeletonWarp":
+        """Write a tree of the ``params_dict`` form into the parameters in
+        place (the optimizer's update) and return this module."""
+        tree_map(lambda dst, src: dst is src or dst.copy_(src), self.params_dict(), p)
+        return self
 
 
 def init_skeleton_warp(
@@ -149,13 +175,15 @@ def pose_at(warp: SkeletonWarp, t: torch.Tensor | float) -> dict:
     """PoseMLP(t) -> local rotations (J, 4) incl. the [1,0,0,0] bias, and the
     global translation (3,)."""
     net = warp.net
-    t = torch.as_tensor(t, dtype=torch.float32, device=warp.joints.device)
+    if isinstance(t, torch.Tensor):
+        t = t.to(device=warp.joints.device, dtype=torch.float32)
+    else:  # a fill on the card, not a blocking host-to-device copy
+        t = torch.full((), t, dtype=torch.float32, device=warp.joints.device)
     t_emb = positional_embed(t.reshape(1, 1), net.pose_multires)
     h = warp.pose_mlp.hidden(t_emb)
     rot = warp.pose_mlp.rotation(h).reshape(net.n_joints, 4)
     trans = warp.pose_mlp.translation(h)[0]
-    bias = torch.tensor(ROT_BIAS, dtype=torch.float32, device=rot.device)
-    return {"local_rotation": rot + bias, "global_trans": trans}
+    return {"local_rotation": rot + constant(ROT_BIAS, rot), "global_trans": trans}
 
 
 def skinning_mlp_weights(warp: SkeletonWarp, x: torch.Tensor) -> torch.Tensor:
@@ -175,8 +203,8 @@ def bone_dist2(warp: SkeletonWarp, x: torch.Tensor, joints: torch.Tensor | None 
     """Squared distance of each point to each bone segment (N, n_bones).
     Bone j (j = 1..J-1) runs from joints[parents[j]] to joints[j]."""
     joints = warp.joints if joints is None else joints
-    parents = list(warp.net.parents)
-    return point_segment_dist2(joints[parents[1:]], joints[1:], x)
+    parents = static_index(tuple(warp.net.parents[1:]), joints.device)
+    return point_segment_dist2(joints[parents], joints[1:], x)
 
 
 def _flag_in_graph(flag) -> bool:
@@ -211,7 +239,7 @@ def _dense_skin_weights(
     w = torch.exp(-d2 / (2.0 * radius_b[None, :] ** 2))
     if _flag_in_graph(use_sm):
         offs = skinning_mlp_weights(warp, x)
-        w_sm = torch.as_tensor(use_sm, dtype=torch.float32, device=w.device)
+        w_sm = use_sm.to(torch.float32) if isinstance(use_sm, torch.Tensor) else float(use_sm)
         w = w * (1.0 + w_sm * (offs - 1.0))
     if mask is not None:
         w = torch.where(mask, w + 1e-7, 0.0)
@@ -254,7 +282,7 @@ def deform_by_pose(
 
     if warp.detail_mlp is not None and _flag_in_graph(use_to):
         pose_vec = local_rotation.detach().reshape(-1)
-        w_to = torch.as_tensor(use_to, dtype=torch.float32, device=x.device)
+        w_to = use_to.to(torch.float32) if isinstance(use_to, torch.Tensor) else float(use_to)
         template_offsets = w_to * detail_offsets(warp, x, pose_vec)
     else:
         template_offsets = torch.zeros_like(x)

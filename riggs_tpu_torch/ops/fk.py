@@ -12,6 +12,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from riggs_tpu_torch.device import static_index
+
 
 @lru_cache(maxsize=64)
 def _levels(parents: tuple[int, ...]) -> tuple[tuple[int, ...], ...]:
@@ -33,8 +35,7 @@ def local_joint_transforms(
     """Per-joint local 4x4 transforms: R_j about the rest position of
     parent(j); the root rotates about its own rest position."""
     parents = tuple(int(p) for p in parents)
-    vparents = [0] + list(parents[1:])
-    pivot = rest_joints[vparents]
+    pivot = rest_joints[static_index((0,) + parents[1:], rest_joints.device)]
     trans = pivot - torch.einsum("kab,kb->ka", rot_mats, pivot)
     K = rot_mats.shape[0]
     T = torch.zeros((K, 4, 4), dtype=rot_mats.dtype, device=rot_mats.device)
@@ -54,8 +55,8 @@ def forward_kinematics(
     T = local_joint_transforms(rot_mats, rest_joints, parents)
     G = T.clone()
     for level in _levels(parents):
-        idx = list(level)
-        pidx = [parents[i] for i in level]
+        idx = static_index(level, G.device)
+        pidx = static_index(tuple(parents[i] for i in level), G.device)
         G[idx] = torch.einsum("lab,lbc->lac", G[pidx], T[idx])
     posed = torch.einsum("kab,kb->ka", G[:, :3, :3], rest_joints) + G[:, :3, 3]
     return posed, G

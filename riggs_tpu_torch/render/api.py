@@ -1,10 +1,10 @@
 """High-level render entry point: Gaussians (+ deformation residuals) -> image.
 
-Port of ``riggs_tpu/render/api.py`` for serving: ``render`` with the
-residuals, SH colour, override colours, motion-mask rendering, scale_const
-and scaling_modifier; ``tier_kwargs``; and ``render_auto``'s capacity
-escalation. The gradient-only arguments (``detach_*``, ``mean2d_bias``) come
-with the training slice and raise here.
+Port of ``riggs_tpu/render/api.py``: ``render`` with the residuals, SH
+colour, override colours, motion-mask rendering, scale_const,
+scaling_modifier, the per-attribute stop-gradients (``detach_*``) and
+``mean2d_bias``, whose gradient is dL/d(mean2d) for the densification
+statistics; ``tier_kwargs``; and ``render_auto``'s capacity escalation.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from typing import Any
 import torch
 
 from riggs_tpu_torch.camera.camera import Camera, camera_center
+from riggs_tpu_torch.device import constant
 from riggs_tpu_torch.models.gaussians import Gaussians
 from riggs_tpu_torch.ops.quaternion import quat_multiply, quat_normalize
 from riggs_tpu_torch.ops.sh import eval_sh
@@ -51,10 +52,6 @@ def render(
     tile_ladder: tuple | None = None,
     tile_shard_mesh=None,
 ) -> dict[str, Any]:
-    if detach_xyz or detach_scale or detach_rot or detach_opacity or mean2d_bias is not None:
-        raise NotImplementedError(
-            "detach_* and mean2d_bias are training arguments; they come with the training slice (ROADMAP A3)"
-        )
     means3d = gs.xyz + d_xyz
     if scale_const is not None:
         opacity = torch.ones_like(gs.get_opacity)
@@ -76,9 +73,20 @@ def render(
         if d_color is not None:
             feats = torch.cat([feats[:, :1] + d_color[:, None], feats[:, 1:]], dim=1)
         dirs = means3d - camera_center(cam)
-        dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-8)
-        colors = torch.clamp(eval_sh(int(active_sh_degree), feats, dirs) + 0.5, min=0.0)
+        # torch.maximum, not clamp: a tie splits its gradient as jnp.maximum's does
+        dirs = dirs / torch.maximum(torch.linalg.norm(dirs, dim=-1, keepdim=True), constant(1e-8, dirs))
+        colors = torch.maximum(eval_sh(int(active_sh_degree), feats, dirs) + 0.5, constant(0.0, dirs))
 
+    # after the colours, as the reference orders it: the SH view direction
+    # still carries a gradient to the means under detach_xyz
+    if detach_xyz:
+        means3d = means3d.detach()
+    if detach_rot:
+        rotations = rotations.detach()
+    if detach_scale:
+        scales = scales.detach()
+    if detach_opacity:
+        opacity = opacity.detach()
     if scale_const is not None:
         scales = scale_const * torch.ones_like(scales)
 
@@ -96,7 +104,7 @@ def render(
         fn = _oracle.rasterize_oracle
     out = fn(
         cam, means3d, colors, opacity[:, 0], scales, rotations, bg,
-        alive=gs.alive, scale_modifier=scaling_modifier, **kwargs,
+        alive=gs.alive, scale_modifier=scaling_modifier, mean2d_bias=mean2d_bias, **kwargs,
     )
     zero = torch.zeros((), dtype=torch.int32, device=means3d.device)
     return {

@@ -161,12 +161,15 @@ def _cell_cull(proj: Projected, opacity: torch.Tensor, tx: torch.Tensor, ty: tor
 
 def _nonzero_padded(sel: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     """``jnp.nonzero(sel, size=size, fill_value=fill)``: the first ``size``
-    indices in index order, padded with ``fill``."""
-    (idx,) = torch.nonzero(sel, as_tuple=True)
-    idx = idx[:size]
-    if idx.shape[0] < size:
-        idx = torch.cat([idx, idx.new_full((size - idx.shape[0],), fill)])
-    return idx
+    indices in index order, padded with ``fill``. A running count places
+    each selected index, so nothing waits for the card (``torch.nonzero``
+    would sync to learn its length)."""
+    pos = torch.cumsum(sel.to(torch.int64), 0) - 1
+    keep = sel & (pos < size)
+    out = torch.full((size + 1,), fill, dtype=torch.int64, device=sel.device)
+    # unselected entries all land in the extra slot ``size``, dropped below
+    out.scatter_(0, torch.where(keep, pos, size), torch.arange(sel.shape[0], device=sel.device))
+    return out[:size]
 
 
 def bin_gaussians_sorted(

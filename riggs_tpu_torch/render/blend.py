@@ -1,6 +1,6 @@
-"""Fused per-tile front-to-back blend: the two forward kernels of the slice.
+"""Fused per-tile front-to-back blend: the forward kernels and their backward.
 
-Port of the forward kernels of ``riggs_tpu/render/pallas_blend.py``:
+Port of the blend kernels of ``riggs_tpu/render/pallas_blend.py``:
 
   * ``blend_cm`` replaces ``_fwd_kernel`` (entry ``pallas_blend``): windows
     arrive channel-major, g (T, 16, MAX), opacity already masked by the
@@ -22,6 +22,17 @@ chunk (written for every chunk, skipped ones too). Per pixel and chunk:
 
 A chunk is skipped when it starts past the tile's count or when no pixel of
 the tile has T_entry >= 1e-4.
+
+Each entry is a ``torch.autograd.Function`` (``BlendFn``): the forward
+kernel, then, for the gradient, the backward kernel that replaces
+``_bwd_kernel`` / ``_bwd_kernel_gm`` (``blend_cm_bwd``,
+``blend_permuted_gm_bwd``). It walks each tile's chunks back to front with a
+running per-pixel suffix sum and writes d(mx, my, conic, opacity, rgb,
+depth) for every window row, exactly 0 for rows of skipped chunks, rows
+past the count and the channel-major padding rows. Only the first are
+needed (their true gradient); the window gathers' backward zeroes invalid
+slots, so the others are defensive: dg equals its plain version element for
+element.
 
 Each kernel is CUDA C++ (``riggs_tpu_torch/csrc/blend.cu``), built at first
 use with nvcc for sm_90a into ``.torch_ext/`` beside the package and called
@@ -56,12 +67,15 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / ".torch_ext"
 
 # launches of each kernel since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else
-launches = {"blend_cm": 0, "blend_permuted_gm": 0}
+launches = {"blend_cm": 0, "blend_permuted_gm": 0, "blend_cm_bwd": 0, "blend_permuted_gm_bwd": 0}
+# calls of the backward wrappers that ran the plain version (CPU tensors)
+plain_bwd_calls = {"blend_cm_bwd": 0, "blend_permuted_gm_bwd": 0}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for d in (launches, plain_bwd_calls):
+        for k in d:
+            d[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +140,91 @@ def blend_permuted_gm_plain(g: torch.Tensor, counts: torch.Tensor, tids: torch.T
     return _blend_plain(g, counts, tids, tiles_x, mask_rows=True)
 
 
+def _blend_bwd_plain(gt, counts, tids, tiles_x: int, tentry, dout, mask_rows: bool):
+    """Backward of ``_blend_plain`` (``_bwd_body`` / ``_bwd_body_gm``'s math):
+    gt (T, MAX, 10), tentry (T, C, P), dout (T, 8, P) -> dgt (T, MAX, 10).
+    Chunks run back to front, each vectorised over (active tiles, G, P)."""
+    T, MAX, _ = gt.shape
+    C = MAX // G_CHUNK
+    dev = gt.device
+    p = torch.arange(P_TILE, device=dev)
+    tids = tids.to(torch.int64)
+    px_all = ((tids % tiles_x) * TILE)[:, None].add(p % TILE).to(torch.float32)  # (T, P)
+    py_all = ((tids // tiles_x) * TILE)[:, None].add(p // TILE).to(torch.float32)
+    counts = counts.to(torch.int64)
+    row = torch.arange(G_CHUNK, device=dev)
+    dC_all = dout[:, :5]  # [rgb, depth, acc] cotangents; rows 5..7 meet zero values
+
+    dgt = torch.zeros((T, MAX, ROWS_GM), dtype=torch.float32, device=dev)
+    suffix = torch.zeros((T, P_TILE), dtype=torch.float32, device=dev)
+    for c in range(C - 1, -1, -1):
+        t_entry = tentry[:, c]
+        active = (c * G_CHUNK < counts) & (torch.amax(t_entry, dim=1) >= T_EPS)
+        a = torch.nonzero(active)[:, 0]
+        if a.numel() == 0:
+            continue
+        g = gt[a, c * G_CHUNK : (c + 1) * G_CHUNK]  # (A, G, 10)
+        mx, my = g[:, :, 0:1], g[:, :, 1:2]
+        ca, cb, cc, op = g[:, :, 2:3], g[:, :, 3:4], g[:, :, 4:5], g[:, :, 5:6]
+        dx = px_all[a][:, None, :] - mx  # (A, G, P)
+        dy = py_all[a][:, None, :] - my
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        raw = op * torch.exp(power)
+        raw = torch.where(power > 0.0, 0.0, raw)
+        alpha = torch.clamp(raw, max=ALPHA_MAX)
+        alpha = torch.where(alpha < ALPHA_MIN, 0.0, alpha)
+        ok = None
+        if mask_rows:
+            ok = ((c * G_CHUNK + row)[None, :] < counts[a][:, None])[:, :, None]  # (A, G, 1)
+            alpha = torch.where(ok, alpha, 0.0)
+            raw = torch.where(ok, raw, 0.0)
+        cum = torch.cumsum(torch.log1p(-alpha), dim=1)
+        t_in = t_entry[a][:, None, :] * torch.exp(cum)
+        inv_onem = 1.0 / (1.0 - alpha)
+        te = t_in * inv_onem * (t_in >= T_EPS)
+        w = alpha * te
+        dC = dC_all[a]  # (A, 5, P)
+        v = torch.cat([g[:, :, 6:10], torch.ones_like(op)], dim=2)  # (A, G, 5)
+        vdc = torch.bmm(v, dC)  # (A, G, P)
+        s_incl = torch.cumsum(w * vdc, dim=1)
+        s_total = s_incl[:, -1:, :]
+        suf = (s_total - s_incl) + suffix[a][:, None, :]
+        dalpha = te * vdc - suf * inv_onem
+        dpower = dalpha * ((raw >= ALPHA_MIN) & (raw < ALPHA_MAX)) * raw
+        dpx = dx * dpower
+        dpy = dy * dpower
+        m_x, m_y = dpx.sum(-1), dpy.sum(-1)  # (A, G)
+        m_xx, m_xy, m_yy = (dx * dpx).sum(-1), (dy * dpx).sum(-1), (dy * dpy).sum(-1)
+        m_p = dpower.sum(-1)
+        ca, cb, cc, op = ca[..., 0], cb[..., 0], cc[..., 0], op[..., 0]
+        d = torch.stack(
+            [ca * m_x + cb * m_y, cc * m_y + cb * m_x, -0.5 * m_xx, -m_xy, -0.5 * m_yy,
+             m_p / torch.clamp(op, min=1e-12)], dim=-1,
+        )
+        dv = torch.bmm(w, dC[:, :4].transpose(1, 2))  # (A, G, 4)
+        d = torch.cat([d, dv], dim=-1)
+        if ok is not None:
+            d = torch.where(ok, d, 0.0)
+        dgt[a, c * G_CHUNK : (c + 1) * G_CHUNK] = d
+        suffix[a] = suffix[a] + s_total[:, 0]
+    return dgt
+
+
+def blend_cm_bwd_plain(g, counts, tentry, dout, tiles_x: int):
+    """Plain version of ``blend_cm_bwd``: dg (T, 16, MAX), padding rows 0."""
+    T = g.shape[0]
+    tids = torch.arange(T, device=g.device)
+    dgt = _blend_bwd_plain(g[:, :ROWS_GM, :].transpose(1, 2), counts, tids, tiles_x, tentry, dout, mask_rows=False)
+    dg = torch.zeros_like(g)
+    dg[:, :ROWS_GM] = dgt.transpose(1, 2)
+    return dg
+
+
+def blend_permuted_gm_bwd_plain(g, counts, tids, tentry, dout, tiles_x: int):
+    """Plain version of ``blend_permuted_gm_bwd``: dg (T, MAX, 10)."""
+    return _blend_bwd_plain(g, counts, tids, tiles_x, tentry, dout, mask_rows=True)
+
+
 # ---------------------------------------------------------------------------
 # the kernels: build, load, launch
 # ---------------------------------------------------------------------------
@@ -171,6 +270,10 @@ def load_library() -> ctypes.CDLL:
     lib.riggs_blend_fwd_cm.restype = ci
     lib.riggs_blend_fwd_gm_permuted.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.riggs_blend_fwd_gm_permuted.restype = ci
+    lib.riggs_blend_bwd_cm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.riggs_blend_bwd_cm.restype = ci
+    lib.riggs_blend_bwd_gm_permuted.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.riggs_blend_bwd_gm_permuted.restype = ci
     return lib
 
 
@@ -204,9 +307,18 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def blend_cm(g: torch.Tensor, counts: torch.Tensor, tiles_x: int):
-    """Channel-major blend of plain windows. g: (T, 16, MAX) f32, counts:
-    (T,) int32 hit counts (chunk predication). Returns (out, tentry)."""
+def _check_bwd(g: torch.Tensor, tentry: torch.Tensor, dout: torch.Tensor, max_axis: int):
+    T, MAX = g.shape[0], g.shape[max_axis]
+    for name, a, shape in (("tentry", tentry, (T, MAX // G_CHUNK, P_TILE)), ("dout", dout, (T, OUT_ROWS, P_TILE))):
+        if a.dtype != torch.float32 or tuple(a.shape) != shape or a.device != g.device:
+            raise ValueError(f"{name} must be float32 {shape} on {g.device}, got {a.dtype} {tuple(a.shape)} on {a.device}")
+        if g.device.type == "cuda" and not a.is_contiguous():
+            raise ValueError("the blend kernels take contiguous tensors")
+
+
+def blend_cm_fwd(g: torch.Tensor, counts: torch.Tensor, tiles_x: int):
+    """Channel-major blend of plain windows, no gradient: the kernel on CUDA,
+    the plain version on the CPU. Returns (out, tentry)."""
     _check(g, counts, None, max_axis=2, rows=PACK_ROWS, rows_axis=1)
     if g.device.type == "cpu":
         return blend_cm_plain(g, counts, tiles_x)
@@ -225,10 +337,9 @@ def blend_cm(g: torch.Tensor, counts: torch.Tensor, tiles_x: int):
     return out, tentry
 
 
-def blend_permuted_gm(g: torch.Tensor, counts: torch.Tensor, tids: torch.Tensor, tiles_x: int):
-    """Gaussian-major blend of laddered windows. g: (T, MAX, 10) f32, counts:
-    (T,) int32 (rows past the count are masked), tids: (T,) int32 real tile
-    id per row. Returns (out, tentry)."""
+def blend_permuted_gm_fwd(g: torch.Tensor, counts: torch.Tensor, tids: torch.Tensor, tiles_x: int):
+    """Gaussian-major blend of laddered windows, no gradient: the kernel on
+    CUDA, the plain version on the CPU. Returns (out, tentry)."""
     _check(g, counts, tids, max_axis=1, rows=ROWS_GM, rows_axis=2)
     if g.device.type == "cpu":
         return blend_permuted_gm_plain(g, counts, tids, tiles_x)
@@ -245,3 +356,86 @@ def blend_permuted_gm(g: torch.Tensor, counts: torch.Tensor, tids: torch.Tensor,
     _raise_on(err, "blend_permuted_gm")
     launches["blend_permuted_gm"] += 1
     return out, tentry
+
+
+def blend_cm_bwd(g: torch.Tensor, counts: torch.Tensor, tentry: torch.Tensor, dout: torch.Tensor, tiles_x: int):
+    """dL/dg (T, 16, MAX) of ``blend_cm`` from the forward's tentry and
+    dL/dout: the kernel on CUDA, the plain version on the CPU."""
+    _check(g, counts, None, max_axis=2, rows=PACK_ROWS, rows_axis=1)
+    _check_bwd(g, tentry, dout, max_axis=2)
+    if g.device.type == "cpu":
+        plain_bwd_calls["blend_cm_bwd"] += 1
+        return blend_cm_bwd_plain(g, counts, tentry, dout, tiles_x)
+    T, _, MAX = g.shape
+    dg = torch.empty_like(g)
+    if T == 0:
+        return dg
+    lib = load_library()
+    with torch.cuda.device(g.device):
+        err = lib.riggs_blend_bwd_cm(
+            g.data_ptr(), counts.data_ptr(), tentry.data_ptr(), dout.data_ptr(), dg.data_ptr(),
+            T, MAX // G_CHUNK, tiles_x, torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    _raise_on(err, "blend_cm_bwd")
+    launches["blend_cm_bwd"] += 1
+    return dg
+
+
+def blend_permuted_gm_bwd(g: torch.Tensor, counts: torch.Tensor, tids: torch.Tensor, tentry: torch.Tensor,
+                          dout: torch.Tensor, tiles_x: int):
+    """dL/dg (T, MAX, 10) of ``blend_permuted_gm``: the kernel on CUDA, the
+    plain version on the CPU. Rows past the count get exactly 0."""
+    _check(g, counts, tids, max_axis=1, rows=ROWS_GM, rows_axis=2)
+    _check_bwd(g, tentry, dout, max_axis=1)
+    if g.device.type == "cpu":
+        plain_bwd_calls["blend_permuted_gm_bwd"] += 1
+        return blend_permuted_gm_bwd_plain(g, counts, tids, tentry, dout, tiles_x)
+    T, MAX, _ = g.shape
+    dg = torch.empty_like(g)
+    if T == 0:
+        return dg
+    lib = load_library()
+    with torch.cuda.device(g.device):
+        err = lib.riggs_blend_bwd_gm_permuted(
+            g.data_ptr(), counts.data_ptr(), tids.data_ptr(), tentry.data_ptr(), dout.data_ptr(),
+            dg.data_ptr(), T, MAX // G_CHUNK, tiles_x, torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    _raise_on(err, "blend_permuted_gm_bwd")
+    launches["blend_permuted_gm_bwd"] += 1
+    return dg
+
+
+class BlendFn(torch.autograd.Function):
+    """A blend with its gradient: ``apply(g, fwd, bwd, tiles_x, *index)``
+    returns ``fwd(g, *index, tiles_x)``'s (out, tentry); the gradient of g is
+    ``bwd(g, *index, tentry, dout, tiles_x)``. ``index`` is (counts,) or
+    (counts, tids); tentry and the index get no gradient."""
+
+    @staticmethod
+    def forward(ctx, g, fwd, bwd, tiles_x, *index):
+        out, tentry = fwd(g, *index, tiles_x)
+        ctx.mark_non_differentiable(tentry)
+        ctx.save_for_backward(g, tentry, *index)
+        ctx.bwd, ctx.tiles_x = bwd, tiles_x
+        return out, tentry
+
+    @staticmethod
+    def backward(ctx, dout, _dtentry):
+        g, tentry, *index = ctx.saved_tensors
+        # dout arrives strided from the untile transposes
+        dg = ctx.bwd(g, *index, tentry, dout.contiguous(), ctx.tiles_x)
+        return (dg, None, None, None) + (None,) * len(index)
+
+
+def blend_cm(g: torch.Tensor, counts: torch.Tensor, tiles_x: int):
+    """Channel-major blend of plain windows. g: (T, 16, MAX) f32, counts:
+    (T,) int32 hit counts (chunk predication). Returns (out, tentry);
+    differentiable in g."""
+    return BlendFn.apply(g, blend_cm_fwd, blend_cm_bwd, tiles_x, counts)
+
+
+def blend_permuted_gm(g: torch.Tensor, counts: torch.Tensor, tids: torch.Tensor, tiles_x: int):
+    """Gaussian-major blend of laddered windows. g: (T, MAX, 10) f32, counts:
+    (T,) int32 (rows past the count are masked), tids: (T,) int32 real tile
+    id per row. Returns (out, tentry); differentiable in g."""
+    return BlendFn.apply(g, blend_permuted_gm_fwd, blend_permuted_gm_bwd, tiles_x, counts, tids)

@@ -52,11 +52,12 @@ def rasterize_oracle(
     scale_modifier: float = 1.0,
     cov3d: torch.Tensor | None = None,
     pixel_chunk: int = 1024,
+    mean2d_bias: torch.Tensor | None = None,
 ) -> dict:
     """Render one view; returns image (H, W, 3), depth, alpha, radii, proj."""
     if cov3d is None:
         cov3d = build_cov3d_packed(scales, rotations, scale_modifier)
-    proj = project_gaussians(cam, means3d, cov3d, alive)
+    proj = project_gaussians(cam, means3d, cov3d, alive, mean2d_bias)
     order = _depth_rank_order(proj.depth, proj.mask)
     mean2d_s = proj.mean2d[order]
     conic_s = proj.conic[order]

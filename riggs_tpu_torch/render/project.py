@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from riggs_tpu_torch.camera.camera import Camera
+from riggs_tpu_torch.device import constant
 from riggs_tpu_torch.ops.quaternion import quat_normalize
 
 
@@ -58,8 +59,13 @@ def project_gaussians(
     means3d: torch.Tensor,
     cov3d: torch.Tensor,
     alive: torch.Tensor | None = None,
+    mean2d_bias: torch.Tensor | None = None,
 ) -> Projected:
-    """Project all Gaussians; cull those behind the near plane or off screen."""
+    """Project all Gaussians; cull those behind the near plane or off screen.
+
+    ``mean2d_bias`` (zeros (N, 2) from the caller) is added to the pixel
+    means before the on-screen test: its gradient is dL/d(mean2d), the input
+    of the densification statistics."""
     w2c = cam.w2c.to(torch.float32)
     view = means3d @ w2c[:3, :3].T + w2c[:3, 3]
     tx, ty, tz = view[:, 0], view[:, 1], view[:, 2]
@@ -67,7 +73,8 @@ def project_gaussians(
     cx, cy = cam.intrinsics[2], cam.intrinsics[3]
 
     in_front = tz > 0.2  # the CUDA rasterizer's near cull
-    tz_safe = torch.clamp(tz, min=1e-6)
+    # torch.maximum, not clamp: a tie splits its gradient as jnp.maximum's does
+    tz_safe = torch.maximum(tz, constant(1e-6, tz))
 
     # frustum clamp of the Jacobian evaluation point (1.3x fov guard band)
     limx = 1.3 * cam.tanfovx
@@ -103,14 +110,16 @@ def project_gaussians(
     c = v0 * t10 + v1 * t11 + v2 * t12 + 0.3
     det = a * c - b * b
     det_ok = det > 0.0
-    inv_det = torch.where(det_ok, 1.0 / torch.clamp(det, min=1e-12), 0.0)
+    inv_det = torch.where(det_ok, 1.0 / torch.maximum(det, constant(1e-12, det)), 0.0)
     conic = torch.stack([c * inv_det, -b * inv_det, a * inv_det], dim=-1)
 
     mid = 0.5 * (a + c)
-    lam = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+    lam = mid + torch.sqrt(torch.maximum(mid * mid - det, constant(0.1, det)))
     radius = torch.ceil(3.0 * torch.sqrt(lam))
 
     mean2d = torch.stack([fx * tx * inv_z + cx - 0.5, fy * ty * inv_z + cy - 0.5], dim=-1)
+    if mean2d_bias is not None:
+        mean2d = mean2d + mean2d_bias
 
     on_screen = (
         (mean2d[:, 0] + radius > 0)

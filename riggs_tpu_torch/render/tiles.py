@@ -1,11 +1,16 @@
 """Tiled rasterizer: project, bin, gather per-tile windows, blend, untile.
 
-Port of ``riggs_tpu/render/tiles.py:rasterize_tiled`` for the serving path:
-the sort binner (and the dense one), the plain-window blend
-(``blend.blend_cm``, ``tiles.py:399-437``), the laddered blend
-(``blend.blend_permuted_gm``, ``tiles.py:294-367``), the untile step and the
-overflow counters. The reference's XLA scan blend (``blend='jnp'``) has no
-separate port: the kernels' plain versions take its place on the CPU.
+Port of ``riggs_tpu/render/tiles.py:rasterize_tiled``: the sort binner
+(and the dense one), the plain-window blend (``blend.blend_cm``,
+``tiles.py:399-437``), the laddered blend (``blend.blend_permuted_gm``,
+``tiles.py:294-367``), the untile step and the overflow counters. The
+reference's XLA scan blend (``blend='jnp'``) has no separate port: the
+kernels' plain versions take its place on the CPU.
+
+The result is differentiable in means3d, colors, opacity, scales, rotations
+and ``mean2d_bias``: the blends are autograd Functions with backward
+kernels, and the window gathers (``_gather_windows``) get their scatter-add
+backward from autograd, as XLA gave the reference's.
 """
 from __future__ import annotations
 
@@ -26,6 +31,22 @@ G_CHUNK = _blend.G_CHUNK
 
 def _round_up(n: int) -> int:
     return -(-n // G_CHUNK) * G_CHUNK
+
+
+def _gather_windows(packed: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Window rows ``packed[idx]`` at the valid slots, zeros at the others.
+
+    The reference gathers every slot, its invalid ones reading row 0. Torch's
+    index backward accumulates the duplicates of one row serially, so those
+    millions of row-0 reads made the scatter-add most of a training step.
+    Here an invalid slot reads row (slot number mod N) instead, which spreads
+    its zero gradient over all rows, and is then zeroed: no row has more
+    duplicates than the tiles it covers plus a few, and no ``nonzero`` stops
+    the host. An invalid slot's zero opacity keeps it out of the plain-window
+    blend; the ladder's blend masks rows past the count."""
+    spread = torch.arange(valid.numel(), device=idx.device).reshape(valid.shape) % packed.shape[0]
+    rows = packed[torch.where(valid, idx, spread)]
+    return torch.where(valid[..., None], rows, 0.0)
 
 
 def rasterize_tiled(
@@ -58,8 +79,6 @@ def rasterize_tiled(
     Returns image (H, W, 3), depth, alpha, radii, proj, the overflow
     counters and the true per-tile hit counts.
     """
-    if mean2d_bias is not None:
-        raise NotImplementedError("mean2d_bias (densification gradients) comes with the training slice (ROADMAP A3)")
     if tile_shard_mesh is not None:
         raise NotImplementedError("tile-sharded rendering comes with the multi-device port (ROADMAP A11)")
     if binning not in ("sort", "dense"):
@@ -68,13 +87,13 @@ def rasterize_tiled(
     if cov3d is None:
         cov3d = build_cov3d_packed(scales, rotations, scale_modifier)
     max_per_tile = _round_up(max_per_tile)
-    proj = project_gaussians(cam, means3d, cov3d, alive)
+    proj = project_gaussians(cam, means3d, cov3d, alive, mean2d_bias)
     op_masked = torch.where(proj.mask, opacity, 0.0)
     if binning == "sort":
         bins = bin_gaussians_sorted(
             proj, cam.width, cam.height, max_per_tile=max_per_tile,
             max_tiles_per_gaussian=max_tiles_per_gaussian,
-            opacity=op_masked, giant_cap=giant_cap, giant_side=giant_side,
+            opacity=op_masked.detach(), giant_cap=giant_cap, giant_side=giant_side,
             mid_cap=mid_cap, mid_side=mid_side,
         )
     else:
@@ -109,7 +128,7 @@ def rasterize_tiled(
             cap = _round_up(cap)
             win = _extract_windows(gid_pad, bins.starts[tids_b], cap)
             valid = torch.arange(cap, device=win.device)[None, :] < torch.clamp(counts_b, max=cap)[:, None]
-            g_b = packed[torch.where(valid, win, 0)]  # (nb, cap, 10); invalid slots read row 0
+            g_b = _gather_windows(packed, win, valid)  # (nb, cap, 10)
             out_b, _ = _blend.blend_permuted_gm(
                 g_b, torch.clamp(counts_b, max=cap).to(torch.int32),
                 tids_b.to(torch.int32), bins.tiles_x,
@@ -119,8 +138,9 @@ def rasterize_tiled(
         out = torch.cat(outs, dim=0)[inv]  # (T, 8, P) back in tile order
         overflow_tiles = ladder_overflow
     else:
-        g = packed[bins.idx]  # (T, MAX, 10)
-        g[..., 5] = torch.where(bins.valid, g[..., 5], 0.0)
+        # invalid slots are all zero, their opacity included: the reference's
+        # opacity mask (tiles.py:402) is the gather's zeros here
+        g = _gather_windows(packed, bins.idx, bins.valid)  # (T, MAX, 10)
         gp = torch.nn.functional.pad(g, (0, _blend.PACK_ROWS - g.shape[-1]))
         gp = gp.transpose(1, 2).contiguous()  # (T, 16, MAX)
         counts = torch.clamp(bins.count, max=max_per_tile).to(torch.int32)

@@ -22,7 +22,7 @@ from riggs_tpu_torch.render import binning as TB
 from riggs_tpu_torch.render import ladder as TL
 from riggs_tpu_torch.render.oracle import rasterize_oracle as t_oracle
 from riggs_tpu_torch.render.project import Projected, build_cov3d_packed as t_cov, project_gaussians as t_project
-from riggs_tpu_torch.render.tiles import rasterize_tiled as t_rasterize
+from riggs_tpu_torch.render.tiles import _gather_windows, rasterize_tiled as t_rasterize
 
 
 def _scene(rng, n, extent=1.0, log_scale=(-3.5, -2.0)):
@@ -227,12 +227,32 @@ def test_rasterize_tiled_matches_oracles():
     _assert_images(jo, d)
 
 
+def test_gather_windows_is_the_masked_gather():
+    """_gather_windows against the reference's window gather (invalid slots
+    read row 0, then are masked): the same rows, zeros at invalid slots, and
+    the same gradient into every packed row."""
+    rng = np.random.default_rng(5)
+    packed = torch.tensor(rng.normal(size=(50, 10)), dtype=torch.float32, requires_grad=True)
+    idx = torch.tensor(rng.integers(0, 50, size=(6, 128)))
+    valid = torch.tensor(rng.uniform(size=(6, 128)) < 0.3)
+    out = _gather_windows(packed, idx, valid)
+    ref = torch.where(valid[..., None], packed[torch.where(valid, idx, 0)], 0.0)
+    cot = torch.tensor(rng.normal(size=tuple(out.shape)), dtype=torch.float32)
+    (g_out,) = torch.autograd.grad(out, packed, cot)
+    (g_ref,) = torch.autograd.grad(ref, packed, cot)
+    assert torch.equal(out, ref)
+    np.testing.assert_allclose(g_out.numpy(), g_ref.numpy(), rtol=0, atol=1e-6)
+
+
 def test_deferred_arguments_raise():
     rng = np.random.default_rng(11)
     means, colors, opacity, scales, rots = _t(*_scene(rng, 10))
     _, tc = _cams(32, 32)
     bg = torch.zeros(3)
-    for kw in (dict(binning="runs"), dict(binning="compact"), dict(tile_shard_mesh=object()),
-               dict(mean2d_bias=torch.zeros(10, 2))):
+    for kw in (dict(binning="runs"), dict(binning="compact"), dict(tile_shard_mesh=object())):
         with pytest.raises(NotImplementedError):
             t_rasterize(tc, means, colors, opacity, scales, rots, bg, **kw)
+    # mean2d_bias is ported: a zero bias renders the same image
+    a = t_rasterize(tc, means, colors, opacity, scales, rots, bg)
+    b = t_rasterize(tc, means, colors, opacity, scales, rots, bg, mean2d_bias=torch.zeros(10, 2))
+    assert torch.equal(a["image"], b["image"])

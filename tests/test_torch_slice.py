@@ -5,6 +5,7 @@ functions and carried across with riggs_tpu_torch.convert).
 Tolerances: deformation outputs 1e-5 absolute; image and alpha 3e-5, depth
 2e-4 (tests/test_pallas_blend.py's bounds); overflow counters exact.
 """
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -214,12 +215,26 @@ def test_random_motion_quats_match():
 
 
 def test_deferred_render_arguments_raise(avatar):
+    """with_skinning_vis is still deferred. detach_xyz and mean2d_bias are
+    ported: detach_xyz stops the image's gradient to gs.xyz (at SH degree 0
+    the colours do not see the view direction), and a zero mean2d_bias
+    leaves the image as it is and receives the screen-space gradient."""
     _, _, tgs, tsk, _, tc = avatar
-    for kw in (dict(detach_xyz=True), dict(mean2d_bias=torch.zeros(CAP, 2))):
-        with pytest.raises(NotImplementedError):
-            t_render(tc, tgs, torch.zeros(3), **kw)
     with pytest.raises(NotImplementedError):
         TS.render_rigged(tgs, tsk, tc, t=0.0, with_skinning_vis=True)
+    xyz = tgs.xyz.detach().requires_grad_(True)
+    gs = dataclasses.replace(tgs, xyz=xyz, opacity=tgs.opacity.detach().requires_grad_(True))
+    img = t_render(tc, gs, torch.zeros(3), detach_xyz=True)["render"]
+    g, g_op = torch.autograd.grad(img.sum(), (xyz, gs.opacity), allow_unused=True)
+    assert (g is None or not bool(g.any())) and bool(g_op.any())
+    (g,) = torch.autograd.grad(t_render(tc, gs, torch.zeros(3))["render"].sum(), xyz)
+    assert bool(g.any())  # without detach_xyz the image does reach xyz
+    bias = torch.zeros(CAP, 2, requires_grad=True)
+    out = t_render(tc, gs, torch.zeros(3), mean2d_bias=bias)
+    with torch.no_grad():
+        assert torch.equal(out["render"], t_render(tc, gs, torch.zeros(3))["render"])
+    (gb,) = torch.autograd.grad(out["render"].sum(), bias)
+    assert float(gb.abs().max()) > 0
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
