@@ -32,7 +32,22 @@ Phases, each printed as it runs:
      against its plain version on the inputs it got in a real step, with its
      time beside its bound; the step time, its three parts (the ranges
      stage2_step names for the profiler), and the device's busy time and
-     idle share per step.
+     idle share per step;
+  7. runs: the same avatar through render_auto(binning="runs") and the
+     gradient of a photometric loss through the aligned-runs path, with the
+     counters zeroed just before and read just after; the frame against the
+     plain-window frame, the gradient per group against the plain-window
+     gradient, each runs kernel against its plain version on the frame's
+     real g_runs, and the runs frame and gradient timed against the
+     plain-window ones;
+  8. stage1: init_stage1 from the avatar's canonical points (131072-slot
+     capacity, 512 nodes, hyper_dim 8, the 8x256 blender DeformNetwork, SH 3,
+     the motion mask; the log-scales jittered) and make_phase_b_auto steps
+     at it = 0 (warm-up) and 5000 (chamfer and the motion-mask loss on) on
+     plain windows and on a fitted ladder, with the counters zeroed just
+     before and read just after; gradients finite and nonzero where the
+     flags give one, kernel path against plain-version path; step time,
+     busy time and idle share; the node warp timed alone.
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without CUDA
 it exits 2 and prints no result. Imports nothing of JAX or riggs_tpu.
@@ -100,6 +115,9 @@ BWD_TOL = 1e-3
 TRAIN_ITS = (0, 15001)  # warmup; everything unlocked (optimize_template_offsets_iters 15000)
 TRAIN_STEPS = 2  # counted steps per (it, path)
 UID, N_FRAMES, N_THIN = 0, 4, 256  # the template frame; pre_d_* frames; padded thinned points
+RUNS_T = 0.3  # the [runs] frame's time
+STAGE1_ITS = (0, 5000)  # warm-up; past warm_up with the ARAP and motion-mask lambdas on
+STAGE1_STEPS = 2  # counted steps per (it, path)
 
 
 def build_avatar(seed: int, n_alive: int, capacity: int, size: int, device: str):
@@ -201,14 +219,17 @@ class _PlainBlend:
 
     def __enter__(self):
         b = self.blend
-        self.orig = (b.blend_cm, b.blend_permuted_gm)
+        self.orig = (b.blend_cm, b.blend_permuted_gm, b.blend_runs)
         b.blend_cm = lambda g, counts, tx: b.BlendFn.apply(g, b.blend_cm_plain, b.blend_cm_bwd_plain, tx, counts)
         b.blend_permuted_gm = lambda g, counts, tids, tx: b.BlendFn.apply(
             g, b.blend_permuted_gm_plain, b.blend_permuted_gm_bwd_plain, tx, counts, tids)
+        b.blend_runs = lambda g, counts, sblk, chunks, tx: b.BlendFn.apply(
+            g, lambda g_, c_, s_, tx_: b.blend_runs_plain(g_, c_, s_, chunks, tx_), b.blend_runs_bwd_plain,
+            tx, counts, sblk)
         return self
 
     def __exit__(self, *exc):
-        self.blend.blend_cm, self.blend.blend_permuted_gm = self.orig
+        self.blend.blend_cm, self.blend.blend_permuted_gm, self.blend.blend_runs = self.orig
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -233,11 +254,16 @@ def _work(name, calls, outs):
     that start before the count (the only ones the backward reads)."""
     import torch
 
+    from riggs_tpu_torch.render import blend as B
+
     pairs = hits = nbytes = 0
     for args, (out, tentry) in zip(calls, outs):
         g, counts, tiles_x = args[0], args[1].to(torch.int64), args[-1]
         if name == "blend_cm":
             g = g[:, :10].transpose(1, 2)  # (T, MAX, 10) view
+            tids = torch.arange(g.shape[0], device=g.device)
+        elif name == "blend_runs":  # the (T, chunks * 128, 10) windows of the blocks read
+            g = B._runs_windows(g, B.runs_blocks(args[1], args[2], args[3], g.shape[1] // 128))
             tids = torch.arange(g.shape[0], device=g.device)
         else:
             tids = args[2].to(torch.int64)
@@ -260,7 +286,7 @@ def _work(name, calls, outs):
             pairs += n_rows * 1024
             hits += int(hit.sum())
             nbytes += n_rows * 10 * 4
-        nbytes += counts.numel() * 4 * (2 if name == "blend_permuted_gm" else 1)
+        nbytes += counts.numel() * 4 * (1 if name == "blend_cm" else 2)  # counts (and tids or sblk)
         nbytes += out.shape[0] * 5 * out.shape[2] * 4
     ops = pairs * OPS_PER_PAIR + hits * OPS_PER_HIT
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
@@ -268,13 +294,14 @@ def _work(name, calls, outs):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def check_kernels(blend, captured):
+def check_kernels(blend, captured, tag="[kernels]"):
     """Phase 3: each kernel against its plain version on the captured
     full-width inputs; times in turns plain, kernel, kernel, plain."""
     import torch
 
-    kern = {"blend_cm": blend.blend_cm, "blend_permuted_gm": blend.blend_permuted_gm}
-    plain = {"blend_cm": blend.blend_cm_plain, "blend_permuted_gm": blend.blend_permuted_gm_plain}
+    kern = {"blend_cm": blend.blend_cm, "blend_permuted_gm": blend.blend_permuted_gm, "blend_runs": blend.blend_runs}
+    plain = {"blend_cm": blend.blend_cm_plain, "blend_permuted_gm": blend.blend_permuted_gm_plain,
+             "blend_runs": blend.blend_runs_plain}
     results = {}
     for name, calls in captured.items():
         if not calls:
@@ -293,7 +320,7 @@ def check_kernels(blend, captured):
                 raise RuntimeError(f"{name}: padding rows of out are not zero")
             outs.append((ko, kt))
         shapes = [tuple(a[0].shape) for a in calls]
-        print(f"[kernels] {name}: {len(calls)} launch(es) per frame, shapes {shapes}, "
+        print(f"{tag} {name}: {len(calls)} launch(es) per frame, shapes {shapes}, "
               f"max|d| rgb/acc {err['rgb_acc']:.3e} depth {err['depth']:.3e} tentry {err['tentry']:.3e}")
         for k, tol in KERNEL_TOL.items():
             if not err[k] <= tol:
@@ -311,7 +338,7 @@ def check_kernels(blend, captured):
         p2 = _event_ms(run(plain), 3)
         work = _work(name, calls, outs)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        print(f"[kernels] {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms per frame; "
+        print(f"{tag} {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms per frame; "
               f"{work['pairs']} (Gaussian, pixel) pairs ({work['hits']} with alpha >= 1/255), "
               f"{work['ops']} operations, {work['bytes']} bytes, "
               f"bound {work['bound_ms']:.4f} ms by {work['bound_by']}")
@@ -349,10 +376,11 @@ def check_oracle(device):
         raise RuntimeError("oracle scene: overflow or nothing in view")
 
 
-def _compare(a, b, what):
+def _compare(a, b, what, tag="[slice]"):
+    """Two renders of one frame held to PATH_TOL."""
     errs = {k: float((a[k2] - b[k2]).abs().max()) for k, k2 in
             (("image", "render"), ("alpha", "alpha"), ("depth", "depth"))}
-    print(f"[slice] {what}: max|d| image {errs['image']:.3e} alpha {errs['alpha']:.3e} depth {errs['depth']:.3e}")
+    print(f"{tag} {what}: max|d| image {errs['image']:.3e} alpha {errs['alpha']:.3e} depth {errs['depth']:.3e}")
     for k, tol in PATH_TOL.items():
         if not errs[k] <= tol:
             raise RuntimeError(f"{what}: max |d| {k} {errs[k]:.3e} > {tol}")
@@ -442,19 +470,25 @@ def _work_bwd(name, calls):
     count (the window gathers' backward passes those on and zeroes the rest)."""
     import torch
 
+    from riggs_tpu_torch.render import blend as B
+
     pairs = hits = nbytes = 0
     for args in calls:
         if name == "blend_cm_bwd":
             g, counts, tentry, dout, tiles_x = args
             gt = g[:, :10].transpose(1, 2)
             tids = torch.arange(g.shape[0], device=g.device)
+        elif name == "blend_runs_bwd":
+            g, counts, sblk, tentry, dout, tiles_x = args
+            gt = B._runs_windows(g, B.runs_blocks(counts, sblk, tentry.shape[1], g.shape[1] // 128))
+            tids = torch.arange(gt.shape[0], device=g.device)
         else:
             g, counts, tids, tentry, dout, tiles_x = args
             gt, tids = g, tids.to(torch.int64)
         counts = torch.clamp(counts.to(torch.int64), max=gt.shape[1])
         p = torch.arange(1024, device=g.device)
         r = torch.arange(128, device=g.device)
-        used = torch.zeros(g.shape[0], dtype=torch.bool, device=g.device)
+        used = torch.zeros(gt.shape[0], dtype=torch.bool, device=g.device)
         for c in range(tentry.shape[1]):
             started = c * 128 < counts
             nbytes += int(started.sum()) * 1024 * 4  # tentry
@@ -474,7 +508,7 @@ def _work_bwd(name, calls):
             pairs += int(pair.sum())
             hits += int(((power <= 0) & (alpha >= 1.0 / 255.0) & pair).sum())
             nbytes += int(rows.sum()) * 10 * 4  # g rows
-        nbytes += counts.numel() * 4 * (2 if name == "blend_permuted_gm_bwd" else 1)
+        nbytes += counts.numel() * 4 * (1 if name == "blend_cm_bwd" else 2)  # counts (and tids or sblk)
         nbytes += int(used.sum()) * 5 * dout.shape[2] * 4  # dout
         nbytes += int(counts.sum()) * 10 * 4  # dg
     ops = pairs * OPS_PER_PAIR_BWD + hits * OPS_PER_HIT_BWD
@@ -489,30 +523,32 @@ def _column_err(a, b, axis):
     return (a - b).abs().amax(dim=dims), b.abs().amax(dim=dims)
 
 
-def check_bwd_kernels(blend, captured):
+def check_bwd_kernels(blend, captured, tag="[train]"):
     """Each backward kernel against its plain version on the inputs it got
     in a real full-width step (one call per blend call of the step): per dg
     column max |delta| <= 1e-3 * max |plain column|, exact zeros where the
     kernel must write them; times in turns plain, kernel, kernel, plain."""
     import torch
 
-    kern = {"blend_cm_bwd": blend.blend_cm_bwd, "blend_permuted_gm_bwd": blend.blend_permuted_gm_bwd}
-    plain = {"blend_cm_bwd": blend.blend_cm_bwd_plain, "blend_permuted_gm_bwd": blend.blend_permuted_gm_bwd_plain}
+    kern = {"blend_cm_bwd": blend.blend_cm_bwd, "blend_permuted_gm_bwd": blend.blend_permuted_gm_bwd,
+            "blend_runs_bwd": blend.blend_runs_bwd}
+    plain = {"blend_cm_bwd": blend.blend_cm_bwd_plain, "blend_permuted_gm_bwd": blend.blend_permuted_gm_bwd_plain,
+             "blend_runs_bwd": blend.blend_runs_bwd_plain}
     results = {}
     with torch.no_grad():  # the captured g is a saved tensor of the step's graph
         for name, calls in captured.items():
-            results[name] = _check_bwd_kernel(name, calls, kern, plain)
+            results[name] = _check_bwd_kernel(name, calls, kern, plain, tag)
     return results
 
 
-def _check_bwd_kernel(name, calls, kern, plain):
+def _check_bwd_kernel(name, calls, kern, plain, tag="[train]"):
     """One backward kernel of check_bwd_kernels."""
     import torch
 
     if not calls:
         raise RuntimeError(f"the step made no {name} call")
-    axis = 1 if name == "blend_cm_bwd" else 2
-    err = torch.zeros(16 if axis == 1 else 10, dtype=torch.float64)
+    axis = {"blend_cm_bwd": 1, "blend_permuted_gm_bwd": 2, "blend_runs_bwd": 0}[name]
+    err = torch.zeros(10 if axis == 2 else 16, dtype=torch.float64)
     scale = torch.zeros_like(err)
     for args in calls:
         kd, pd = kern[name](*args), plain[name](*args)
@@ -522,6 +558,9 @@ def _check_bwd_kernel(name, calls, kern, plain):
         if name == "blend_cm_bwd":
             if bool(kd[:, 10:].any()):
                 raise RuntimeError(f"{name}: padding rows of dg are not zero")
+        elif name == "blend_runs_bwd":
+            if bool(kd[10:].any()) or bool(kd[:, -128:].any()):
+                raise RuntimeError(f"{name}: padding rows or the spare block of dg are not zero")
         else:
             counts = args[1].to(torch.int64)
             past = torch.arange(kd.shape[1], device=kd.device)[None, :] >= counts[:, None]
@@ -531,7 +570,7 @@ def _check_bwd_kernel(name, calls, kern, plain):
         err = torch.maximum(err, e.double().cpu())
         scale = torch.maximum(scale, s.double().cpu())
     rel = torch.where(scale > 0, err / scale.clamp(min=1e-300), err)
-    print(f"[train] {name}: {len(calls)} launch(es) per step, shapes {[tuple(a[0].shape) for a in calls]}; "
+    print(f"{tag} {name}: {len(calls)} launch(es) per step, shapes {[tuple(a[0].shape) for a in calls]}; "
           f"per dg column max|d| / max|plain|: " + " ".join(f"{v:.2e}" for v in rel[:10].tolist())
           + f"; max|d| {float(err.max()):.3e}")
     if not float(rel.max()) <= BWD_TOL:
@@ -548,7 +587,7 @@ def _check_bwd_kernel(name, calls, kern, plain):
     k2 = _event_ms(run(kern), 10)
     p2 = _event_ms(run(plain), 2)
     work = _work_bwd(name, calls)
-    print(f"[train] {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms per step; "
+    print(f"{tag} {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms per step; "
           f"{work['pairs']} live (Gaussian, pixel) pairs ({work['hits']} with alpha >= 1/255), "
           f"{work['ops']} operations, {work['bytes']} bytes, bound {work['bound_ms']:.4f} ms by {work['bound_by']}")
     return dict(err=float(err.max()), rel=float(rel.max()), ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
@@ -573,20 +612,22 @@ def build_training(gs, skel, cam, bg, device):
     skel2 = SW.init_skeleton_warp(skel.joints.cpu().numpy(), PARENTS, K=-1, use_skinning_mlp=True,
                                   use_template_offsets=True, generator=gen, device=device)
     target = eval_image(gs, skel2, cam, 0.5, bg)
+    # the [stage1] phase's motion-mask loss reads the target's silhouette
+    alpha_mask = (frame(gs, skel2, cam, bg, t=0.5, max_per_tile=8192)["alpha"] > 0.5).to(torch.float32)
     with torch.no_grad():
         d = SW.skeleton_forward(skel2, gs.xyz, 0.5, gs.motion_mask)
         pix = project_nodes_2d(cam, sample_skeleton_points(d["d_nodes"], PARENTS))
         thinned = torch.zeros((N_THIN, 2), device=device)
         thinned[: pix.shape[0]] = pix
         pre = [SW.skeleton_forward(skel2, gs.xyz, t, gs.motion_mask) for t in np.linspace(0.0, 1.0, N_FRAMES)]
-    frame = Frame(cam=dataclasses.replace(cam, fid=torch.tensor(0.5, device=device)), image=target,
-                  thinned=thinned, thinned_mask=torch.arange(N_THIN, device=device) < pix.shape[0])
+    fr = Frame(cam=dataclasses.replace(cam, fid=torch.tensor(0.5, device=device)), image=target,
+               alpha_mask=alpha_mask, thinned=thinned, thinned_mask=torch.arange(N_THIN, device=device) < pix.shape[0])
     pre_d_xyz = torch.stack([p["d_xyz"] for p in pre])
     pre_d_joints = torch.stack([p["d_nodes"] for p in pre])
     cfg = Config()
     cfg.model.sh_degree = SH_DEGREE
     cfg.model.use_template_offsets = cfg.model.use_skinning_weight_mlp = True
-    return frame, pre_d_xyz, pre_d_joints, cfg
+    return fr, pre_d_xyz, pre_d_joints, cfg
 
 
 def fresh_state(gs, skel, it, device):
@@ -649,22 +690,25 @@ def check_grads(grads, it):
             raise RuntimeError(f"it={it}: gradient of {name} is {'nonzero' if nonzero else 'zero'}, the flags say otherwise")
 
 
-def compare_grads(gk, gp, label):
-    """Kernel-path vs plain-version-path gradient: per parameter leaf, max
-    |delta| over max |plain|; the worst leaf of each group is printed."""
+def compare_grads(gk, gp, label, groups=None, tag="[train]"):
+    """Two gradients of one loss (gp the reference path's): per parameter
+    leaf, max |delta| over max |plain|; the worst leaf of each group
+    (``groups`` maps a gradient tree to {group: leaves}, the stage-2 groups
+    by default) is printed and held to BWD_TOL."""
+    groups = groups or _groups
     worst = {}
-    plain = _groups(gp)
-    for name, lk in _groups(gk).items():
+    plain = groups(gp)
+    for name, lk in groups(gk).items():
         r = 0.0
         for a, b in zip(lk, plain[name]):
             s, e = float(b.abs().max()), float((a - b).abs().max())
             r = max(r, e / s if s > 0 else e)
         worst[name] = r
-    print(f"[train] step gradient, kernel vs plain-version path, {label}: per group max|d| / max|plain| "
+    print(f"{tag} gradient, {label}: per group max|d| / max|plain| "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
     bad = {k: v for k, v in worst.items() if not v <= BWD_TOL}
     if bad:
-        raise RuntimeError(f"{label}: gradient kernel vs plain path above {BWD_TOL}: {bad}")
+        raise RuntimeError(f"{tag} gradient, {label}: above {BWD_TOL}: {bad}")
 
 
 def _host_ms(fn, reps):
@@ -762,8 +806,8 @@ def train_phase(blend, gs, skel, cam, bg, cap, ladder):
     torch.cuda.synchronize()
     launches = dict(blend.launches)
     print(f"[train] launch counters over the training main path: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("blend_cm", "blend_permuted_gm", "blend_cm_bwd", "blend_permuted_gm_bwd"):
+        if launches[name] <= 0:
             raise RuntimeError(f"the training path never launched {name}")
 
     # gradients: finite, nonzero where the flags give one, kernel vs plain path
@@ -776,7 +820,7 @@ def train_phase(blend, gs, skel, cam, bg, cap, ladder):
             if it == TRAIN_ITS[-1]:
                 with _PlainBlend(blend):
                     _, _, gp = frame_grads(gs, skel, frame, pre_d_xyz, pre_d_joints, bg, cfg, it, kw)
-                compare_grads(gk, gp, f"it={it} {label}")
+                compare_grads(gk, gp, f"kernel vs plain-version path, it={it} {label}")
             del gk
     print(f"[train] gradients finite and nonzero exactly where the flags give one, at it {TRAIN_ITS}")
 
@@ -803,7 +847,323 @@ def train_phase(blend, gs, skel, cam, bg, cap, ladder):
         full = _host_ms(full_step, 5)
         print(f"[train] {label}: step {full:.2f} ms (host clock, synchronized, it={int(st.it)}, {SIZE}x{SIZE})")
         profile_steps(step, gs, skel, frame, pre_d_xyz, pre_d_joints, bg, kw, label, full)
-    return launches, bres
+    return launches, bres, frame
+
+
+def _turns(fa, fb, reps):
+    """Host ms per call of fa and fb in turns a, b, b, a (synchronized)."""
+    a1 = _host_ms(fa, reps)
+    b1 = _host_ms(fb, reps)
+    b2 = _host_ms(fb, reps)
+    a2 = _host_ms(fa, reps)
+    return (a1, a2), (b1, b2)
+
+
+def runs_phase(blend, gs, skel, cam, bg, cap, target):
+    """Phase 7: the aligned-runs render path. The main path, counted:
+    render_auto(binning="runs") of the frame at RUNS_T, then the gradient of
+    a photometric loss against the [train] target through render with the
+    caps render_auto settled on. Then the frame and the gradient against the
+    plain-window path's, each runs kernel against its plain version on the
+    frame's real inputs, and both paths timed in turns."""
+    import torch
+
+    from riggs_tpu_torch.models import skeleton_warp as SW
+    from riggs_tpu_torch.render import api
+    from riggs_tpu_torch.train import losses as L
+
+    with torch.no_grad():
+        d = SW.skeleton_forward(skel, gs.xyz, RUNS_T, gs.motion_mask)
+    deform = dict(d_xyz=d["d_xyz"], d_rotation=d["d_rotation"], d_scaling=torch.zeros_like(d["d_scaling"]),
+                  active_sh_degree=gs.max_sh_degree)
+    params = {k: v.detach().requires_grad_(True) for k, v in gs.params_dict().items()}
+
+    def grads(**kw):
+        m2b = torch.zeros_like(gs.xyz[:, :2], requires_grad=True)
+        out = api.render(cam, gs.replace_params(params), bg, mean2d_bias=m2b, **deform, **kw)
+        loss = L.photometric_loss(out["render"], target)
+        g = torch.autograd.grad(loss, list(params.values()) + [m2b], allow_unused=True)
+        # the feature (motion mask) reaches the frame only through d_xyz, a constant here
+        return out, {k: v for k, v in zip([f"gs.{k}" for k in params] + ["mean2d_bias"], g) if v is not None}
+
+    caps = []
+    orig = api.render
+
+    def recording(*a, **k):
+        caps.append({n: k[n] for n in ("max_per_tile", "max_tiles_per_gaussian", "max_instances")})
+        return orig(*a, **k)
+
+    # the main path, counters zeroed just before and read just after
+    torch.cuda.synchronize()
+    blend.reset_launches()
+    api.render = recording
+    try:
+        with torch.no_grad():
+            ra = api.render_auto(cam, gs, bg, binning="runs", max_per_tile=cap, **deform)
+    finally:
+        api.render = orig
+    runs_kw = dict(binning="runs", **caps[-1])
+    out_r, g_runs = grads(**runs_kw)
+    torch.cuda.synchronize()
+    launches = dict(blend.launches)
+    print(f"[runs] render_auto(binning='runs') settled on {caps[-1]} after {len(caps)} render(s); "
+          f"launch counters over the runs path: {launches}")
+    for name in ("blend_runs", "blend_runs_bwd"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"the runs path never launched {name}")
+    _check_frame(ra, SIZE, "runs frame")
+    if int(ra["overflow_budget"]):
+        raise RuntimeError(f"runs frame: overflow_budget {int(ra['overflow_budget'])}")
+
+    # the same function as the plain windows: frame and gradient
+    plain_kw = dict(max_per_tile=cap)
+    with torch.no_grad():
+        pa = api.render(cam, gs, bg, **deform, **plain_kw)
+    _compare(ra, pa, f"runs vs plain-window frame t={RUNS_T}", tag="[runs]")
+    _, g_plain = grads(**plain_kw)
+    if not all(bool(torch.isfinite(v).all()) for v in g_runs.values()):
+        raise RuntimeError("[runs] non-finite gradient")
+    as_groups = lambda g: {k: [v] for k, v in g.items()}
+    compare_grads(g_runs, g_plain, "runs vs plain-window path", groups=as_groups, tag="[runs]")
+
+    # each runs kernel against its plain version on the frame's real inputs
+    with _Capture(blend, ("blend_runs", "blend_runs_bwd")) as c:
+        grads(**runs_kw)
+    fwd_calls = [(a[0].detach(),) + tuple(a[1:]) for a in c.calls["blend_runs"]]
+    with torch.no_grad():
+        kres = check_kernels(blend, {"blend_runs": fwd_calls}, tag="[runs]")["blend_runs"]
+    bres = check_bwd_kernels(blend, {"blend_runs_bwd": c.calls["blend_runs_bwd"]}, tag="[runs]")["blend_runs_bwd"]
+    g_shape = tuple(fwd_calls[0][0].shape)
+    del c, fwd_calls
+
+    # which layout wins on this card: frame and gradient, in turns
+    def frame_fn(kw):
+        return lambda: frame(gs, skel, cam, bg, t=RUNS_T, **kw)
+
+    (p1, p2), (r1, r2) = _turns(frame_fn(plain_kw), frame_fn(runs_kw), 10)
+    print(f"[runs] frame (skeleton_forward + render, {SIZE}x{SIZE}): runs {r1:.2f}/{r2:.2f} ms, plain windows "
+          f"{p1:.2f}/{p2:.2f} ms (host clock, synchronized, in turns plain, runs, runs, plain); "
+          f"g_runs {g_shape} vs windows ({out_r['tile_counts'].numel()}, 16, {cap})")
+    (q1, q2), (s1, s2) = _turns(lambda: grads(**plain_kw), lambda: grads(**runs_kw), 5)
+    print(f"[runs] gradient (render + photometric loss + backward): runs {s1:.2f}/{s2:.2f} ms, "
+          f"plain windows {q1:.2f}/{q2:.2f} ms")
+    for what, fa, fb in (("frame", frame_fn(plain_kw), frame_fn(runs_kw)),
+                         ("gradient", lambda: grads(**plain_kw), lambda: grads(**runs_kw))):
+        profile_runs(what, {"plain windows": fa, "runs": fb})
+    return launches, kres, bres
+
+
+def _by_kind(prof, n):
+    """Device ms per call by kind of kernel, from a profile of n calls."""
+    import torch
+
+    groups = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        k = e.key.lower()
+        g = ("gemm" if "gemm" in k else "blend" if "blend_" in k else "sort" if "sort" in k
+             else "scatter/index" if "index" in k or "scatter" in k else "other")
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3 / n
+    return groups
+
+
+def profile_runs(what, fns, n=3):
+    """Device busy ms per call of each of ``fns`` (torch.profiler), by kind
+    of kernel: the two layouts' device time side by side."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    parts = []
+    for label, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        groups = _by_kind(prof, n)
+        busy = sum(groups.values())
+        if busy <= 0:
+            raise RuntimeError("the profiler saw no device time")
+        parts.append(f"{label} {busy:.3f} ms (" + ", ".join(f"{k} {v:.3f}" for k, v in sorted(groups.items())) + ")")
+    print(f"[runs] device busy per {what}: " + "; ".join(parts))
+
+
+def _stage1_groups(g):
+    """Parameter group -> gradient leaves of a phase-B gradient tree."""
+    from riggs_tpu_torch.train.optim import tree_leaves
+
+    out = {f"gs.{k}": [v] for k, v in g["gs"].items()}
+    w = g["warp"]
+    out.update({"warp.nodes_xyz": [w["nodes"][:, :3]], "warp.nodes_hyper": [w["nodes"][:, 3:]],
+                "warp.radius": [w["radius"]], "warp.weight": [w["weight"]], "warp.mlp": tree_leaves(w["mlp"])})
+    out["mean2d_bias"] = [g["m2b"]]
+    return out
+
+
+def stage1_phase(blend, gs, cam, bg, frame_train):
+    """Phase 8: the stage-1 phase-B step at full width. Returns the launch
+    counts of its counted run."""
+    import torch
+
+    from riggs_tpu_torch.data.dataset import SceneData
+    from riggs_tpu_torch.models import node_warp as NW
+    from riggs_tpu_torch.ops.sh import C0
+    from riggs_tpu_torch.render.api import render, tier_kwargs
+    from riggs_tpu_torch.render.ladder import make_tile_ladder
+    from riggs_tpu_torch.train.config import Config
+    from riggs_tpu_torch.train.optim import grad_tree, tree_leaves
+    from riggs_tpu_torch.train.stage1 import init_stage1, make_phase_b_auto, phase_b_flags, stage1_frame_loss
+
+    t0 = time.perf_counter()
+    cfg = Config()
+    cfg.model.capacity, cfg.model.sh_degree, cfg.model.gs_with_motion_mask = gs.capacity, SH_DEGREE, True
+    n = int(gs.num_alive)
+    pts = gs.xyz[:n].cpu().numpy()
+    cols = np.clip(gs.features_dc[:n, 0].cpu().numpy() * C0 + 0.5, 0.0, 1.0)
+    state0 = init_stage1(SceneData(pts, cols), cfg, generator=torch.Generator(device=DEVICE).manual_seed(2),
+                         device=DEVICE)
+    # create_from_pcd's splats are isotropic, which leaves the gradient of
+    # every rotation (the Gaussians', the warp's d_rotation head) at
+    # cancellation noise: shrink the log-scales per axis by a seeded jitter,
+    # as training soon makes them anisotropic (no splat grows, so the
+    # tiers' rect caps still hold)
+    jitter = torch.randn(state0.gs.scaling.shape, generator=torch.Generator(device=DEVICE).manual_seed(4),
+                         device=DEVICE)
+    state0.gs.scaling = state0.gs.scaling - 0.5 * jitter.abs()
+    fr = frame_train
+    tiers = (cfg.pipe.max_tiles_per_gaussian, cfg.pipe.mid_cap, cfg.pipe.mid_side)
+    with torch.no_grad():
+        d = NW.warp_forward(state0.warp, state0.gs.xyz, fr.fid, state0.gs.feature, state0.gs.motion_mask)
+        probe = render(fr.cam, state0.gs, bg, d_xyz=d["d_xyz"], d_rotation=d["d_rotation"], max_per_tile=8192,
+                       **tier_kwargs(tiers))
+    if int(probe["overflow_rect"]):
+        raise RuntimeError(f"[stage1] the initial state overflows the rect caps: {int(probe['overflow_rect'])}")
+    counts = probe["tile_counts"].cpu().numpy()
+    cap1 = int(-(-int(counts.max() * 1.25) // 128) * 128)  # headroom: the steps move the Gaussians
+    ladder1 = make_tile_ladder(counts[None])
+    torch.cuda.synchronize()
+    print(f"[stage1] init_stage1 {time.perf_counter() - t0:.1f} s: {n} Gaussians of {state0.gs.capacity}, "
+          f"{state0.warp.node_num} nodes, hyper_dim {state0.warp.hyper_dim}, DeformNetwork "
+          f"{state0.warp.net.depth}x{state0.warp.net.width} (blender {state0.warp.net.is_blender}); "
+          f"max tile count {int(counts.max())} -> window {cap1}; ladder {ladder1}")
+    step = make_phase_b_auto(cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    paths = (("plain windows", dict(max_per_tile=cap1)), ("ladder", dict(max_per_tile=cap1, tile_ladder=ladder1)))
+    flags = dict(use_chamfer=True, use_motion_loss=True)
+
+    def fresh(it):
+        st = copy.deepcopy(state0)
+        return dataclasses.replace(st, it=torch.tensor(it, dtype=torch.int32, device=DEVICE))
+
+    # the main path: make_phase_b_auto steps, counters zeroed just before
+    torch.cuda.synchronize()
+    blend.reset_launches()
+    for it in STAGE1_ITS:
+        for label, kw in paths:
+            st = fresh(it)
+            for _ in range(STAGE1_STEPS):
+                st, m = step(st, fr, bg, NW.arap_sample_times(gen, device=DEVICE), **flags, **kw)
+                if not all(bool(torch.isfinite(v).all()) for k, v in m.items() if v.is_floating_point()):
+                    raise RuntimeError(f"[stage1] it={it} {label}: non-finite metric")
+                if int(m["overflow_tiles"]) or int(m["overflow_rect"]):
+                    raise RuntimeError(f"[stage1] it={it} {label}: overflow {int(m['overflow_tiles'])}/"
+                                       f"{int(m['overflow_rect'])}")
+            leaves = tree_leaves(st.gs.params_dict()) + tree_leaves(st.warp.params_dict())
+            if not all(bool(torch.isfinite(v).all()) for v in leaves) or int(st.it) != it + STAGE1_STEPS:
+                raise RuntimeError(f"[stage1] it={it} {label}: non-finite parameters or wrong it")
+            print(f"[stage1] it={it} {label}: {STAGE1_STEPS} steps, loss {float(m['loss']):.5f} psnr "
+                  f"{float(m['psnr']):.2f} arap {float(m['arap']):.3e} chamfer {float(m['chamfer']):.2f}")
+    torch.cuda.synchronize()
+    launches = dict(blend.launches)
+    print(f"[stage1] launch counters over the stage-1 main path: {launches}")
+    for name in ("blend_cm", "blend_permuted_gm", "blend_cm_bwd", "blend_permuted_gm_bwd"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"the stage-1 path never launched {name}")
+
+    # gradients: finite, nonzero where the flags give one, kernel vs plain path
+    arap_t = NW.arap_sample_times(gen, device=DEVICE)
+
+    def frame_grads(it, kw):
+        st = fresh(it)
+        params = {"gs": {k: v.detach().requires_grad_(True) for k, v in st.gs.params_dict().items()},
+                  "warp": st.warp.params_dict(), "m2b": torch.zeros_like(st.gs.xyz[:, :2], requires_grad=True)}
+        loss, _ = stage1_frame_loss(params, st, fr, bg, params["m2b"], arap_t, **flags, **kw,
+                                    **phase_b_flags(cfg, it))
+        return loss, grad_tree(loss, params)
+
+    # in warm-up d_xyz and d_rotation are detached: nothing reaches the
+    # warp's blend (radius, weight, the nodes' hyper coords) and, at SH 0, no f_rest
+    warm_zero = {"gs.f_rest", "warp.nodes_hyper", "warp.radius", "warp.weight"}
+    for it in STAGE1_ITS:
+        for label, kw in paths:
+            loss, gk = frame_grads(it, kw)
+            if not bool(torch.isfinite(loss)):
+                raise RuntimeError(f"[stage1] it={it} {label}: non-finite loss")
+            for name, lv in _stage1_groups(gk).items():
+                if not all(bool(torch.isfinite(v).all()) for v in lv):
+                    raise RuntimeError(f"[stage1] it={it}: non-finite gradient in {name}")
+                nonzero = any(bool(v.any()) for v in lv)
+                if nonzero != (it >= cfg.opt.warm_up or name not in warm_zero):
+                    raise RuntimeError(f"[stage1] it={it}: gradient of {name} is "
+                                       f"{'nonzero' if nonzero else 'zero'}, the flags say otherwise")
+            if it == STAGE1_ITS[-1]:
+                with _PlainBlend(blend):
+                    _, gp = frame_grads(it, kw)
+                compare_grads(gk, gp, f"kernel vs plain-version path, it={it} {label}", groups=_stage1_groups,
+                              tag="[stage1]")
+            del gk
+    print(f"[stage1] gradients finite and nonzero exactly where the flags give one, at it {STAGE1_ITS}")
+
+    # step time and the device's share of it
+    for label, kw in paths:
+        st = fresh(STAGE1_ITS[-1])
+
+        def one():
+            nonlocal st
+            st, _ = step(st, fr, bg, NW.arap_sample_times(gen, device=DEVICE), **flags, **kw)
+
+        one()  # warm-up
+        ms = _host_ms(one, 5)
+        profile_stage1(one, label, ms)
+
+    # the node warp alone: warp_forward and its backward at the step's shapes
+    st = fresh(STAGE1_ITS[-1])
+    feat = st.gs.feature.detach().requires_grad_(True)
+    leaves = [feat] + tree_leaves(st.warp.params_dict())
+
+    def warp_fb():
+        d = NW.warp_forward(st.warp, st.gs.xyz, fr.fid, feat, st.gs.motion_mask)
+        torch.autograd.grad(d["d_xyz"].sum() + d["d_rotation"].sum() + d["d_nodes"].sum(), leaves,
+                            allow_unused=True)
+
+    warp_fb()
+    print(f"[stage1] node warp (warp_forward + its backward, {st.gs.capacity} x {st.warp.node_num}): "
+          f"{_event_ms(warp_fb, 5):.3f} ms (CUDA events)")
+    return launches
+
+
+def profile_stage1(one, label, step_ms, n=3):
+    """Device busy time per stage-1 step (torch.profiler), its idle share
+    beside the unprofiled step time, and the six costliest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            one()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    if busy <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    print(f"[stage1] {label}: step {step_ms:.2f} ms (host clock, synchronized, it={STAGE1_ITS[-1]}, {SIZE}x{SIZE}); "
+          f"device busy {busy:.2f} ms (idle share {1 - busy / step_ms:.3f}), "
+          f"{sum(e.count for e in kernels) // n} kernel launches per step; device ms per step by kind "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(_by_kind(prof, n).items(), key=lambda kv: -kv[1])))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"[stage1]   {e.self_device_time_total / 1e3 / n:8.3f} ms  {e.count // n:4d} launches  {e.key[:90]}")
 
 
 def main() -> int:
@@ -920,7 +1280,13 @@ def main() -> int:
         profile_frames(gs, skel, cam, bg, cap, kw, label, frame_ms[label])
 
     # 6. the training slice (its own counted run)
-    train_launches, bres = train_phase(blend, gs, skel, cam, bg, cap, ladder)
+    train_launches, bres, frame_train = train_phase(blend, gs, skel, cam, bg, cap, ladder)
+
+    # 7. the aligned-runs render path (its own counted run)
+    runs_launches, runs_fwd, runs_bwd = runs_phase(blend, gs, skel, cam, bg, cap, frame_train.image)
+
+    # 8. the stage-1 phase-B step (its own counted run)
+    stage1_launches = stage1_phase(blend, gs, cam, bg, frame_train)
 
     # forward kernels: times per frame, launches of the serving run; backward
     # kernels: times per training step, launches of the training run
@@ -934,6 +1300,7 @@ def main() -> int:
             "max_abs_err": max(r["err"].values()), "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "launches_per_frame": r["launches_per_frame"], "ms_per_launch": r["ms"] / r["launches_per_frame"],
+            "launches_stage1": stage1_launches[name],
         })
     for name, replaces in (("blend_cm_bwd", "riggs_tpu/render/pallas_blend.py:221"),
                            ("blend_permuted_gm_bwd", "riggs_tpu/render/pallas_blend.py:638")):
@@ -944,8 +1311,26 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "launches_per_step": r["launches_per_step"], "ms_per_launch": r["ms"] / r["launches_per_step"],
-            "max_rel_column_err": r["rel"],
+            "max_rel_column_err": r["rel"], "launches_stage1": stage1_launches[name],
         })
+    # the runs pair: the forward per frame, the backward per gradient, the
+    # launches of the [runs] run
+    r = runs_fwd
+    rows.append({
+        "name": "blend_runs", "route": "cuda", "source": "riggs_tpu_torch/csrc/blend.cu",
+        "replaces": "riggs_tpu/render/pallas_blend.py:347", "launches": runs_launches["blend_runs"],
+        "max_abs_err": max(r["err"].values()), "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+        "launches_per_frame": r["launches_per_frame"],
+    })
+    r = runs_bwd
+    rows.append({
+        "name": "blend_runs_bwd", "route": "cuda", "source": "riggs_tpu_torch/csrc/blend.cu",
+        "replaces": "riggs_tpu/render/pallas_blend.py:379", "launches": runs_launches["blend_runs_bwd"],
+        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+        "launches_per_step": r["launches_per_step"], "max_rel_column_err": r["rel"],
+    })
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,9 +12,12 @@ import torch
 from riggs_tpu_torch.camera.camera import Camera
 from riggs_tpu_torch.data.dataset import Frame
 from riggs_tpu_torch.device import resolve_device
+from riggs_tpu_torch.models.deform_mlp import DeformNetworkDef
 from riggs_tpu_torch.models.gaussians import DensifyStats, Gaussians
+from riggs_tpu_torch.models.node_warp import NodeWarp
 from riggs_tpu_torch.models.skeleton_warp import init_skeleton_warp
 from riggs_tpu_torch.train.optim import AdamState
+from riggs_tpu_torch.train.stage1 import Stage1State
 from riggs_tpu_torch.train.stage2 import Stage2State
 
 
@@ -71,6 +74,37 @@ def _load_mlp(mlp, p: dict):
 
 
 @torch.no_grad()
+def node_warp_from_numpy(
+    params: dict,
+    net: DeformNetworkDef,
+    K: int = 3,
+    hyper_dim: int = 2,
+    d_rot_as_res: bool = True,
+    with_node_weight: bool = True,
+    device: str | torch.device | None = None,
+) -> NodeWarp:
+    """``params`` is the reference's ``NodeWarp.params_dict()``: nodes,
+    radius, weight and the DeformNetwork tree under ``mlp`` (trunk layers,
+    the heads, the blender timenet)."""
+    dev = resolve_device(device)
+    warp = NodeWarp(_t(params["nodes"], dev), _t(params["radius"], dev), _t(params["weight"], dev), net,
+                    K=K, hyper_dim=hyper_dim, d_rot_as_res=d_rot_as_res, with_node_weight=with_node_weight,
+                    generator=torch.Generator(device=dev).manual_seed(0))  # weights overwritten below
+    mp = params["mlp"]
+    mods = warp.mlp.params_dict()
+    if set(mp) != set(mods):
+        raise ValueError(f"DeformNetwork parameters {sorted(mp)} given, the module has {sorted(mods)}")
+    _load_mlp(warp.mlp.trunk, mp["trunk"])
+    for name, p in mp.items():
+        if name == "timenet":
+            for lin, lp in zip(warp.mlp.timenet, p):
+                _load_linear(lin, lp)
+        elif name != "trunk":
+            _load_linear(getattr(warp.mlp, name), p)
+    return warp
+
+
+@torch.no_grad()
 def skeleton_warp_from_numpy(
     params: dict,
     joints,
@@ -121,16 +155,23 @@ def frame_from_numpy(w2c, intrinsics, fid, width: int, height: int, image, alpha
     )
 
 
-def _skel_tree(tree, dev):
-    """A reference skeleton tree (Adam moments) in the port's layout: every
-    linear ``w`` (d_in, d_out) becomes (d_out, d_in)."""
+def _module_tree(tree, dev):
+    """A reference tree of an MLP module's parameters (Adam moments) in the
+    port's layout: every linear ``w`` (d_in, d_out) becomes (d_out, d_in)."""
     if isinstance(tree, dict):
         if set(tree) == {"w", "b"}:
             return {"w": _t(np.asarray(tree["w"]).T.copy(), dev), "b": _t(tree["b"], dev)}
-        return {k: _skel_tree(v, dev) for k, v in tree.items()}
+        return {k: _module_tree(v, dev) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_skel_tree(v, dev) for v in tree]
+        return [_module_tree(v, dev) for v in tree]
     return _t(tree, dev)
+
+
+def _adam(state: tuple, tree, dev) -> AdamState:
+    """An ``AdamState`` from the reference's (mu, nu, count)."""
+    mu, nu, count = state
+    return AdamState(mu=tree(mu, dev), nu=tree(nu, dev),
+                     count=torch.tensor(int(count), dtype=torch.int32, device=dev))
 
 
 def stage2_state_from_numpy(
@@ -161,17 +202,49 @@ def stage2_state_from_numpy(
     skel = skeleton_warp_from_numpy(skel_params, joints, parents, K=K, use_skinning_mlp=use_skinning_mlp,
                                     use_template_offsets=use_template_offsets, device=dev)
 
-    def adam(state, tree):
-        mu, nu, count = state
-        return AdamState(mu=tree(mu), nu=tree(nu), count=torch.tensor(int(count), dtype=torch.int32, device=dev))
-
-    gs_tree = lambda d: {k: _t(v, dev) for k, v in d.items()}
     return Stage2State(
         gs=gs,
         skel=skel,
-        opt_gs=adam(opt_gs, gs_tree),
-        opt_skel=adam(opt_skel, lambda d: _skel_tree(d, dev)),
+        opt_gs=_adam(opt_gs, _module_tree, dev),
+        opt_skel=_adam(opt_skel, _module_tree, dev),
         stats_gs=DensifyStats(*(_t(a, dev) for a in stats)),
         proj_loss=_t(proj_loss, dev),
+        it=torch.tensor(int(it), dtype=torch.int32, device=dev),
+    )
+
+
+def stage1_state_from_numpy(
+    gs: dict,
+    node_gs: dict,
+    warp_params: dict,
+    net: DeformNetworkDef,
+    opt_gs: tuple,
+    opt_node: tuple,
+    opt_warp: tuple,
+    stats_gs: tuple,
+    stats_node: tuple,
+    it: int = 0,
+    hyper_dim: int = 2,
+    K: int = 3,
+    d_rot_as_res: bool = True,
+    device: str | torch.device | None = None,
+) -> Stage1State:
+    """A ``Stage1State`` from the reference's. ``gs`` and ``node_gs`` are
+    dicts of ``gaussians_from_numpy``'s arguments (``params``, ``alive``,
+    ``max_sh_degree`` and the flags); ``warp_params`` the warp's
+    ``params_dict`` tree; the Adam states (mu, nu, count) with mu and nu in
+    the params' trees; the statistics (xyz_gradient_accum, denom,
+    max_radii2d)."""
+    dev = resolve_device(device)
+    return Stage1State(
+        gs=gaussians_from_numpy(**gs, device=dev),
+        node_gs=gaussians_from_numpy(**node_gs, device=dev),
+        warp=node_warp_from_numpy(warp_params, net, K=K, hyper_dim=hyper_dim, d_rot_as_res=d_rot_as_res,
+                                  device=dev),
+        opt_gs=_adam(opt_gs, _module_tree, dev),
+        opt_node=_adam(opt_node, _module_tree, dev),
+        opt_warp=_adam(opt_warp, _module_tree, dev),
+        stats_gs=DensifyStats(*(_t(a, dev) for a in stats_gs)),
+        stats_node=DensifyStats(*(_t(a, dev) for a in stats_node)),
         it=torch.tensor(int(it), dtype=torch.int32, device=dev),
     )

@@ -1,10 +1,12 @@
 // Fused per-tile front-to-back Gaussian blend and its backward, for Hopper (sm_90a).
 //
-// Replaces the two forward Pallas kernels of riggs_tpu/render/pallas_blend.py:
+// Replaces the three forward Pallas kernels of riggs_tpu/render/pallas_blend.py:
 //   riggs_blend_fwd_cm          <- _fwd_kernel      (:179, entry pallas_blend)
 //   riggs_blend_fwd_gm_permuted <- _fwd_kernel_gm   (:602, entry pallas_blend_permuted_gm)
-// One template gives both; each instantiation is its own kernel. The two
-// backward kernels follow below the forward.
+//   riggs_blend_fwd_runs        <- _fwd_kernel_runs (:347, entry pallas_blend_runs)
+// One template, over the layout of the attribute rows, gives all three; each
+// instantiation is its own kernel. The three backward kernels follow below
+// the forward.
 //
 // Design. One thread block per 32x32 tile, one thread per pixel (1024). The
 // TPU kernel walked a (tile, chunk) grid sequentially and kept the
@@ -46,19 +48,49 @@ constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float T_EPS = 1e-4f;
 
-// GM = false: g is (T, 16, MAX) channel-major, tile t renders tile t, every
-//             row of an active chunk is blended (the caller masked opacity).
-// GM = true:  g is (T, MAX, 10) gaussian-major, tile t renders tids[t], rows
-//             at or past counts[t] are masked.
-template <bool GM>
+// The layout of the attribute rows (the template parameter L):
+// kCM:   g is (T, 16, MAX) channel-major, tile t renders tile t, every row
+//        of an active chunk is blended (the caller masked opacity).
+// kGM:   g is (T, MAX, 10) gaussian-major, tile t renders tids[t], rows at
+//        or past counts[t] are masked.
+// kRuns: g is (16, M2) channel-major over one aligned-runs slot array (row
+//        stride M2 = m2b * G); chunk c of tile t reads the 128-slot block
+//        runs_block(...), tile t renders tile t, and every row of an active
+//        chunk is blended (slots past the count are zero rows).
+enum Layout : int { kCM, kGM, kRuns };
+
+// pallas_blend.py:_runs_gidx: the run's block sblk[t] + c while the chunk
+// starts before the count, else the spare last block; clamped to it, so an
+// instance-budget overflow never reads past M2
+__device__ __forceinline__ int runs_block(const int* sblk, int t, int c, int count, int m2b) {
+  const int nblk = (count + G - 1) / G;
+  return min(c < nblk ? sblk[t] + c : m2b - 1, m2b - 1);
+}
+
+// Stage chunk c's ten attribute rows in shared memory, coalesced.
+template <int L>
+__device__ __forceinline__ void load_chunk(float (*sg)[G], const float* __restrict__ g, int t, int c,
+                                           size_t MAX, int blk, int m2b, int p) {
+  for (int k = p; k < ATTRS * G; k += P) {
+    if (L == kGM) {
+      sg[k % ATTRS][k / ATTRS] = g[((size_t)t * MAX + (size_t)c * G) * ATTRS + k];
+    } else if (L == kCM) {
+      sg[k / G][k % G] = g[((size_t)t * PACK_ROWS + k / G) * MAX + (size_t)c * G + k % G];
+    } else {
+      sg[k / G][k % G] = g[(size_t)(k / G) * m2b * G + (size_t)blk * G + k % G];
+    }
+  }
+}
+
+template <int L>
 __global__ void __launch_bounds__(P)
 blend_fwd(const float* __restrict__ g, const int* __restrict__ counts,
-          const int* __restrict__ tids, float* __restrict__ out,
-          float* __restrict__ tentry, int C, int tiles_x) {
+          const int* __restrict__ tids, const int* __restrict__ sblk, int m2b,
+          float* __restrict__ out, float* __restrict__ tentry, int C, int tiles_x) {
   __shared__ float sg[ATTRS][G];
   const int t = blockIdx.x;
   const int p = threadIdx.x;
-  const int tile = GM ? tids[t] : t;
+  const int tile = L == kGM ? tids[t] : t;
   const int count = counts[t];
   const size_t MAX = (size_t)C * G;
   const float px = (float)((tile % tiles_x) * TILE + p % TILE);
@@ -72,16 +104,10 @@ blend_fwd(const float* __restrict__ g, const int* __restrict__ counts,
     if (c * G >= count) continue;
     if (!__syncthreads_or(trun >= T_EPS)) continue;
 
-    for (int k = p; k < ATTRS * G; k += P) {
-      if (GM) {
-        sg[k % ATTRS][k / ATTRS] = g[((size_t)t * MAX + (size_t)c * G) * ATTRS + k];
-      } else {
-        sg[k / G][k % G] = g[((size_t)t * PACK_ROWS + k / G) * MAX + (size_t)c * G + k % G];
-      }
-    }
+    load_chunk<L>(sg, g, t, c, MAX, L == kRuns ? runs_block(sblk, t, c, count, m2b) : 0, m2b, p);
     __syncthreads();
 
-    const int n = GM ? min(G, count - c * G) : G;
+    const int n = L == kGM ? min(G, count - c * G) : G;
     const float t0 = trun;
     float cum = 0.0f;
     for (int j = 0; j < n; ++j) {
@@ -119,19 +145,25 @@ blend_fwd(const float* __restrict__ g, const int* __restrict__ counts,
 }
 
 // ---------------------------------------------------------------------------
-// Backward. Replaces the two backward Pallas kernels:
-//   riggs_blend_bwd_cm          <- _bwd_kernel / _bwd_body       (:221/:251)
-//   riggs_blend_bwd_gm_permuted <- _bwd_kernel_gm / _bwd_body_gm (:638/:666)
+// Backward. Replaces the three backward Pallas kernels:
+//   riggs_blend_bwd_cm          <- _bwd_kernel / _bwd_body           (:221/:251)
+//   riggs_blend_bwd_gm_permuted <- _bwd_kernel_gm / _bwd_body_gm     (:638/:666)
+//   riggs_blend_bwd_runs        <- _bwd_kernel_runs / _bwd_body_runs (:379/:404)
 //
 // Math (per pixel, for the Gaussians j of a chunk in blend order):
 //   te_j  = t_in_j / (1 - alpha_j) * [t_in_j >= 1e-4],  w_j = alpha_j * te_j
 //   vdc_j = [rgb, depth, 1]_j . dC
 //   suf_j = sum over later Gaussians of w * vdc (this chunk and later ones)
 //   dalpha_j = te_j * vdc_j - suf_j / (1 - alpha_j)
-//   dpower_j = dalpha_j * raw_j * [1/255 <= raw_j < 0.99]
-// and per Gaussian, summed over the tile's pixels: the five moments
-// dx*dpower, dy*dpower, dx*dx*dpower, dx*dy*dpower, dy*dy*dpower and dpower
-// give d(mx, my, conic a b c, opacity); w * dC[0:4] gives d(rgb, depth).
+//   draw_j = dalpha_j * [1/255 <= raw_j < 0.99],  dpower_j = draw_j * raw_j
+// and per Gaussian, summed over the tile's pixels. kCM and kGM take the five
+// moments dx*dpower, dy*dpower, dx*dx*dpower, dx*dy*dpower, dy*dy*dpower and
+// dpower, then d(mx, my, conic a b c, opacity) from them per Gaussian, as
+// _bwd_body does. kRuns sums _bwd_body_runs's own six terms directly:
+// (a dx + b dy) dpower, (c dy + b dx) dpower, -dx dx dpower / 2,
+// -dx dy dpower, -dy dy dpower / 2 and draw * exp(power) (raw >= 1/255
+// implies power <= 0, _bwd_body_runs's extra pass condition). All three take
+// w * dC[0:4] for d(rgb, depth).
 //
 // Design. One block per tile, one thread per pixel, chunks walked from last
 // to first with the suffix of later chunks in a register (the TPU carried it
@@ -144,13 +176,25 @@ blend_fwd(const float* __restrict__ g, const int* __restrict__ counts,
 // warp shuffles (skipped when no lane of the warp touches the Gaussian),
 // then per-warp partials in shared memory summed in warp order, so the
 // result is deterministic. Each (tile, row) of dg belongs to one block: no
-// global atomics. Every element of dg is written. Rows before the count in a
-// chunk that no pixel enters with T >= 1e-4 get zeros as their true
-// gradient. The zeros of chunks past the count and of the channel-major
-// padding rows are defensive (the window gathers' backward zeroes invalid
-// slots, pad's backward drops the padding rows): they keep dg equal to its
-// plain version element for element. Together they cost one write of the
-// skipped chunks' rows, most of the 230 MB of a channel-major dg at 800x800.
+// global atomics. Rows before the count in a chunk that no pixel enters with
+// T >= 1e-4 get zeros as their true gradient.
+//
+// kCM and kGM write every element of dg. The zeros of chunks past the count
+// and of the channel-major padding rows are defensive (the window gathers'
+// backward zeroes invalid slots, pad's backward drops the padding rows):
+// they keep dg equal to its plain version element for element. Together they
+// cost one write of the skipped chunks' rows, most of the 230 MB of a
+// channel-major dg at 800x800.
+//
+// kRuns: the Pallas kernel writes zeros to the blocks of inactive chunks,
+// revisits the spare block with them, and never writes the blocks past the
+// last run, whose slots carry the sentinel id that the gather's backward
+// drops. Here the C entry zeroes the whole dg with one cudaMemsetAsync on
+// the stream, and each active (tile, chunk) writes its own block once; the
+// runs are disjoint, so no two blocks share one. A chunk that resolves to
+// the spare block (only past an instance-budget overflow, a truncated render
+// that render_auto escalates) writes nothing, where the TPU's last visitor
+// won: the spare block stays zero.
 //
 // What bounds it on an H100: like the forward, operations (two sweeps of
 // the EWA power and alpha per pair, three special-function operations per
@@ -170,22 +214,23 @@ __device__ __forceinline__ float value_dot(float r, float g, float b, float d, f
                                        __fmul_rn(b, c2)), __fmul_rn(d, c3)), c4);
 }
 
-template <bool GM>
+template <int L>
 __device__ __forceinline__ void zero_chunk(float* dg, int t, int c, size_t MAX, int p) {
-  if (GM) {
+  if (L == kGM) {
     float* d = dg + ((size_t)t * MAX + (size_t)c * G) * ATTRS;
     for (int k = p; k < G * ATTRS; k += P) d[k] = 0.0f;
-  } else {
+  } else if (L == kCM) {
     for (int k = p; k < PACK_ROWS * G; k += P)
       dg[((size_t)t * PACK_ROWS + k / G) * MAX + (size_t)c * G + k % G] = 0.0f;
-  }
+  }  // kRuns: dg was zeroed before the launch
 }
 
-template <bool GM>
+template <int L>
 __global__ void __launch_bounds__(P)
 blend_bwd(const float* __restrict__ g, const int* __restrict__ counts,
-          const int* __restrict__ tids, const float* __restrict__ tentry,
-          const float* __restrict__ dout, float* __restrict__ dg, int C, int tiles_x) {
+          const int* __restrict__ tids, const int* __restrict__ sblk, int m2b,
+          const float* __restrict__ tentry, const float* __restrict__ dout,
+          float* __restrict__ dg, int C, int tiles_x) {
   __shared__ float sg[ATTRS][G];
   __shared__ float part[NW][SUB][NV];  // per-warp partial sums of one round
   __shared__ float msum[SUB][NV];      // block sums of one round
@@ -193,7 +238,7 @@ blend_bwd(const float* __restrict__ g, const int* __restrict__ counts,
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
-  const int tile = GM ? tids[t] : t;
+  const int tile = L == kGM ? tids[t] : t;
   const int count = counts[t];
   const size_t MAX = (size_t)C * G;
   const float px = (float)((tile % tiles_x) * TILE + p % TILE);
@@ -206,23 +251,19 @@ blend_bwd(const float* __restrict__ g, const int* __restrict__ counts,
     // both conditions are uniform over the block; tentry is read only for
     // chunks that start before the count
     if (c * G >= count) {
-      zero_chunk<GM>(dg, t, c, MAX, p);
+      zero_chunk<L>(dg, t, c, MAX, p);
       continue;
     }
     const float t0 = tentry[((size_t)t * C + c) * P + p];
     if (!__syncthreads_or(t0 >= T_EPS)) {
-      zero_chunk<GM>(dg, t, c, MAX, p);
+      zero_chunk<L>(dg, t, c, MAX, p);
       continue;
     }
-    for (int k = p; k < ATTRS * G; k += P) {
-      if (GM) {
-        sg[k % ATTRS][k / ATTRS] = g[((size_t)t * MAX + (size_t)c * G) * ATTRS + k];
-      } else {
-        sg[k / G][k % G] = g[((size_t)t * PACK_ROWS + k / G) * MAX + (size_t)c * G + k % G];
-      }
-    }
+    const int blk = L == kRuns ? runs_block(sblk, t, c, count, m2b) : 0;
+    const bool store = L != kRuns || blk < m2b - 1;
+    load_chunk<L>(sg, g, t, c, MAX, blk, m2b, p);
     __syncthreads();
-    const int n = GM ? min(G, count - c * G) : G;
+    const int n = L == kGM ? min(G, count - c * G) : G;
     // a pixel entering below 1e-4 blends nothing here (t_in <= t0) and has a
     // zero suffix: it only joins the reductions
     const bool live = t0 >= T_EPS;
@@ -264,7 +305,8 @@ blend_bwd(const float* __restrict__ g, const int* __restrict__ counts,
           const float quad = __fadd_rn(__fmul_rn(__fmul_rn(sg[2][j], dx), dx),
                                        __fmul_rn(__fmul_rn(sg[4][j], dy), dy));
           const float power = __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(sg[3][j], dx), dy));
-          const float raw = power > 0.0f ? 0.0f : __fmul_rn(sg[5][j], expf(power));
+          const float e = power > 0.0f ? 0.0f : expf(power);
+          const float raw = __fmul_rn(sg[5][j], e);
           const float alpha = fminf(raw, ALPHA_MAX);
           if (alpha >= ALPHA_MIN) {
             cum = __fadd_rn(cum, log1pf(-alpha));
@@ -277,20 +319,30 @@ blend_bwd(const float* __restrict__ g, const int* __restrict__ counts,
             const float suf = __fadd_rn(__fsub_rn(s_total, s_incl), suffix);
             const float dalpha = __fsub_rn(__fmul_rn(te, vdc), __fmul_rn(suf, inv_onem));
             // raw >= alpha >= 1/255 here; at raw >= 0.99 the clamp stops the gradient
-            const float dpower = raw < ALPHA_MAX ? __fmul_rn(dalpha, raw) : 0.0f;
-            const float dpx = dx * dpower;
-            const float dpy = dy * dpower;
-            v[0] = dpx;
-            v[1] = dpy;
-            v[2] = dx * dpx;
-            v[3] = dy * dpx;
-            v[4] = dy * dpy;
-            v[5] = dpower;
+            const float draw = raw < ALPHA_MAX ? dalpha : 0.0f;
+            const float dpower = __fmul_rn(draw, raw);
+            if (L == kRuns) {
+              v[0] = (sg[2][j] * dx + sg[3][j] * dy) * dpower;
+              v[1] = (sg[4][j] * dy + sg[3][j] * dx) * dpower;
+              v[2] = -0.5f * dx * dx * dpower;
+              v[3] = -dx * dy * dpower;
+              v[4] = -0.5f * dy * dy * dpower;
+              v[5] = draw * e;
+            } else {
+              const float dpx = dx * dpower;
+              const float dpy = dy * dpower;
+              v[0] = dpx;
+              v[1] = dpy;
+              v[2] = dx * dpx;
+              v[3] = dy * dpx;
+              v[4] = dy * dpy;
+              v[5] = dpower;
+            }
             v[6] = w * dc0;
             v[7] = w * dc1;
             v[8] = w * dc2;
             v[9] = w * dc3;
-            nz = (w != 0.0f) || (dpower != 0.0f);
+            nz = (w != 0.0f) || (dpower != 0.0f) || (draw != 0.0f);
           }
         }
         if (__any_sync(FULL, nz)) {
@@ -314,28 +366,34 @@ blend_bwd(const float* __restrict__ g, const int* __restrict__ counts,
       }
       __syncthreads();
       // assemble d(mx, my, a, b, c, op, rgb, depth) of the round's Gaussians
-      const int jj = GM ? p / NV : p % SUB;
-      const int k = GM ? p % NV : p / SUB;
-      if (GM ? p < SUB * NV : p < SUB * PACK_ROWS) {
+      const int jj = L == kGM ? p / NV : p % SUB;
+      const int k = L == kGM ? p % NV : p / SUB;
+      if (store && p < SUB * (L == kCM ? PACK_ROWS : NV)) {
         const int j = j0 + jj;
         const float* m = msum[jj];
         float val = 0.0f;
         if (j < n) {
-          switch (k) {
-            case 0: val = sg[2][j] * m[0] + sg[3][j] * m[1]; break;
-            case 1: val = sg[4][j] * m[1] + sg[3][j] * m[0]; break;
-            case 2: val = -0.5f * m[2]; break;
-            case 3: val = -m[3]; break;
-            case 4: val = -0.5f * m[4]; break;
-            case 5: val = m[5] / fmaxf(sg[5][j], 1e-12f); break;
-            case 6: case 7: case 8: case 9: val = m[k]; break;
-            default: break;  // channel-major padding rows 10..15
+          if (L == kRuns) {
+            val = m[k];
+          } else {
+            switch (k) {
+              case 0: val = sg[2][j] * m[0] + sg[3][j] * m[1]; break;
+              case 1: val = sg[4][j] * m[1] + sg[3][j] * m[0]; break;
+              case 2: val = -0.5f * m[2]; break;
+              case 3: val = -m[3]; break;
+              case 4: val = -0.5f * m[4]; break;
+              case 5: val = m[5] / fmaxf(sg[5][j], 1e-12f); break;
+              case 6: case 7: case 8: case 9: val = m[k]; break;
+              default: break;  // channel-major padding rows 10..15
+            }
           }
         }
-        if (GM) {
+        if (L == kGM) {
           dg[((size_t)t * MAX + (size_t)c * G + j) * ATTRS + k] = val;
-        } else {
+        } else if (L == kCM) {
           dg[((size_t)t * PACK_ROWS + k) * MAX + (size_t)c * G + j] = val;
+        } else {
+          dg[(size_t)k * m2b * G + (size_t)blk * G + j] = val;
         }
       }
     }
@@ -351,27 +409,46 @@ blend_bwd(const float* __restrict__ g, const int* __restrict__ counts,
 extern "C" int riggs_blend_fwd_cm(const float* g, const int* counts, float* out,
                                   float* tentry, int T, int C, int tiles_x,
                                   void* stream) {
-  blend_fwd<false><<<T, P, 0, (cudaStream_t)stream>>>(g, counts, nullptr, out, tentry, C, tiles_x);
+  blend_fwd<kCM><<<T, P, 0, (cudaStream_t)stream>>>(g, counts, nullptr, nullptr, 0, out, tentry, C, tiles_x);
   return (int)cudaGetLastError();
 }
 
 extern "C" int riggs_blend_fwd_gm_permuted(const float* g, const int* counts,
                                            const int* tids, float* out, float* tentry,
                                            int T, int C, int tiles_x, void* stream) {
-  blend_fwd<true><<<T, P, 0, (cudaStream_t)stream>>>(g, counts, tids, out, tentry, C, tiles_x);
+  blend_fwd<kGM><<<T, P, 0, (cudaStream_t)stream>>>(g, counts, tids, nullptr, 0, out, tentry, C, tiles_x);
+  return (int)cudaGetLastError();
+}
+
+// g: (16, m2b * 128); counts, sblk: (T,); C chunks per tile
+extern "C" int riggs_blend_fwd_runs(const float* g, const int* counts, const int* sblk,
+                                    float* out, float* tentry, int T, int C, int m2b,
+                                    int tiles_x, void* stream) {
+  blend_fwd<kRuns><<<T, P, 0, (cudaStream_t)stream>>>(g, counts, nullptr, sblk, m2b, out, tentry, C, tiles_x);
   return (int)cudaGetLastError();
 }
 
 extern "C" int riggs_blend_bwd_cm(const float* g, const int* counts, const float* tentry,
                                   const float* dout, float* dg, int T, int C, int tiles_x,
                                   void* stream) {
-  blend_bwd<false><<<T, P, 0, (cudaStream_t)stream>>>(g, counts, nullptr, tentry, dout, dg, C, tiles_x);
+  blend_bwd<kCM><<<T, P, 0, (cudaStream_t)stream>>>(g, counts, nullptr, nullptr, 0, tentry, dout, dg, C, tiles_x);
   return (int)cudaGetLastError();
 }
 
 extern "C" int riggs_blend_bwd_gm_permuted(const float* g, const int* counts, const int* tids,
                                            const float* tentry, const float* dout, float* dg,
                                            int T, int C, int tiles_x, void* stream) {
-  blend_bwd<true><<<T, P, 0, (cudaStream_t)stream>>>(g, counts, tids, tentry, dout, dg, C, tiles_x);
+  blend_bwd<kGM><<<T, P, 0, (cudaStream_t)stream>>>(g, counts, tids, nullptr, 0, tentry, dout, dg, C, tiles_x);
+  return (int)cudaGetLastError();
+}
+
+// dg: (16, m2b * 128), zeroed here on the stream before the launch
+extern "C" int riggs_blend_bwd_runs(const float* g, const int* counts, const int* sblk,
+                                    const float* tentry, const float* dout, float* dg,
+                                    int T, int C, int m2b, int tiles_x, void* stream) {
+  cudaError_t err = cudaMemsetAsync(dg, 0, (size_t)PACK_ROWS * m2b * G * sizeof(float), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  if (T == 0 || C == 0) return 0;
+  blend_bwd<kRuns><<<T, P, 0, (cudaStream_t)stream>>>(g, counts, nullptr, sblk, m2b, tentry, dout, dg, C, tiles_x);
   return (int)cudaGetLastError();
 }

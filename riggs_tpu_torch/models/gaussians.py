@@ -1,19 +1,22 @@
 """Canonical Gaussian cloud: a capacity-padded tensor container.
 
-Port of ``riggs_tpu/models/gaussians.py:40-134`` (the container, its
-activations and its parameter tree) and ``:302-328`` (the densification
-statistics). Every tensor's leading dimension is the capacity C; ``alive``
-marks the used slots. Densification itself (clone, split, prune) comes with
-a later slice.
+Port of ``riggs_tpu/models/gaussians.py:40-184`` (the container, its
+activations, its parameter tree and ``create_from_pcd``) and ``:302-328``
+(the densification statistics). Every tensor's leading dimension is the
+capacity C; ``alive`` marks the used slots. Densification itself (clone,
+split, prune) comes with a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from riggs_tpu_torch.device import constant, resolve_device
+from riggs_tpu_torch.ops.knn import mean_knn_dist2
 from riggs_tpu_torch.ops.quaternion import quat_normalize
+from riggs_tpu_torch.ops.sh import rgb_to_sh_dc, sh_dim
 
 
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -101,6 +104,57 @@ class Gaussians:
             opacity=p["opacity"],
             feature=p["feature"],
         )
+
+
+def create_from_pcd(
+    points: np.ndarray,
+    colors: np.ndarray,
+    capacity: int,
+    max_sh_degree: int = 3,
+    isotropic: bool = False,
+    fea_dim: int = 0,
+    with_motion_mask: bool = True,
+    shared_scale: bool = False,
+    device: str | torch.device | None = None,
+) -> Gaussians:
+    """Gaussians from a point cloud: log-scales from the mean squared
+    distance to the 3 nearest points (clamped at 1e-7), opacity 0.1,
+    identity quaternions (in the dead slots too: a zero quaternion has a
+    degenerate normalization gradient), DC colour, features -1e-2 with the
+    motion-mask logit at 0."""
+    dev = resolve_device(device)
+    n = points.shape[0]
+    if n > capacity:
+        raise ValueError(f"{n} points > capacity {capacity}")
+    if with_motion_mask:
+        fea_dim += 1
+    pts = torch.tensor(np.asarray(points), dtype=torch.float32, device=dev)
+    dist2 = torch.clamp(mean_knn_dist2(pts, k=3), min=1e-7)
+    log_scale = 0.5 * torch.log(dist2)
+
+    def pad(a):
+        return torch.cat([a, torch.zeros((capacity - n,) + a.shape[1:], dtype=a.dtype, device=dev)])
+
+    feature = torch.full((n, fea_dim), -1e-2, device=dev)
+    if with_motion_mask:
+        feature[:, -1] = 0.0
+    rotation = torch.zeros((capacity, 4), device=dev)
+    rotation[:, 0] = 1.0
+    colors = torch.tensor(np.asarray(colors), dtype=torch.float32, device=dev)
+    return Gaussians(
+        xyz=pad(pts),
+        features_dc=pad(rgb_to_sh_dc(colors)[:, None, :]),
+        features_rest=torch.zeros((capacity, sh_dim(max_sh_degree) - 1, 3), device=dev),
+        scaling=pad(log_scale[:, None].repeat(1, 1 if isotropic else 3)),
+        rotation=rotation,
+        opacity=pad(inverse_sigmoid(torch.full((n, 1), 0.1, device=dev))),
+        feature=pad(feature),
+        alive=torch.arange(capacity, device=dev) < n,
+        max_sh_degree=max_sh_degree,
+        isotropic=isotropic,
+        with_motion_mask=with_motion_mask,
+        shared_scale=shared_scale,
+    )
 
 
 @dataclasses.dataclass

@@ -9,6 +9,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -27,6 +28,23 @@ def positional_embed(x: torch.Tensor, num_freqs: int, include_input: bool = True
     enc = torch.cat([torch.sin(xf), torch.cos(xf)], dim=-1)  # (..., F, 2D)
     enc = enc.reshape(x.shape[:-1] + (-1,))
     return torch.cat([x, enc], dim=-1) if include_input else enc
+
+
+def progressive_band_mask(num_freqs: int, step: int, n_masking_step: int) -> np.ndarray:
+    """Coarse-to-fine frequency mask (the reference's ProgressiveBandFrequency)."""
+    if n_masking_step <= 0:
+        return np.ones(num_freqs, np.float32)
+    x = np.clip(step / n_masking_step * num_freqs - np.arange(num_freqs), 0, 1)
+    return ((1.0 - np.cos(np.pi * x)) / 2.0).astype(np.float32)
+
+
+def positional_embed_masked(x: torch.Tensor, num_freqs: int, mask: torch.Tensor) -> torch.Tensor:
+    """Progressive-band encoding: the sin/cos blocks scaled per frequency by
+    ``mask``, with no raw input channel."""
+    freqs = 2.0 ** torch.arange(num_freqs, dtype=x.dtype, device=x.device)
+    xf = x[..., None, :] * freqs[:, None]
+    enc = torch.cat([torch.sin(xf), torch.cos(xf)], dim=-1) * mask[:, None]
+    return enc.reshape(x.shape[:-1] + (-1,))
 
 
 def make_linear(

@@ -1,0 +1,273 @@
+"""NodeWarp: the node-based deformation field of stage 1.
+
+Port of ``riggs_tpu/models/node_warp.py:42-291, 365-375``. Sparse control
+nodes carry a position with hyper coordinates, a radius and a weight; the
+DeformNetwork queried at the nodes gives per-node residuals, which are
+blended onto the Gaussians with Gaussian-kernel weights over each one's K
+nearest nodes (exp(-d^2 / 2 r^2), node-weight modulated, normalized).
+
+  * ``NodeWarp`` is an ``nn.Module`` (the nodes, the log radii, the weight
+    logits and the DeformNetwork); ``params_dict`` / ``replace_params``
+    give and take its parameters under the reference's tree;
+  * ``cal_nn_weight``: straight-through neighbour distances (the value from
+    the KNN on detached inputs, the gradient from the K selected pairs);
+  * ``warp_forward``: the dense masked blend, an (N, M) distance matrix, an
+    exact top-K mask and one (N, M) @ (M, C) product, with the local-frame
+    rotation mode and ``d_rot_as_res``;
+  * ``arap_loss``: the ARAP regularizer over two sample times near a random
+    time. JAX's PRNG streams cannot be reproduced here, so the sample times
+    are an argument (``arap_sample_times`` draws them from a
+    ``torch.Generator``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from riggs_tpu_torch.device import constant, resolve_device
+from riggs_tpu_torch.models.deform_mlp import DeformNetwork, DeformNetworkDef
+from riggs_tpu_torch.ops import arap as A
+from riggs_tpu_torch.ops.fps import farthest_point_sample
+from riggs_tpu_torch.ops.knn import _small_k, knn, pairwise_dist2
+from riggs_tpu_torch.ops.quaternion import quat_to_rotmat
+from riggs_tpu_torch.train.optim import tree_map
+
+ROT_BIAS = (1.0, 0.0, 0.0, 0.0)
+
+# stage-1 ARAP lambda schedule
+LAMBDA_ARAP_LANDMARKS = (1e-4, 1e-4, 1e-5, 1e-5, 0)
+LAMBDA_ARAP_STEPS = (0, 5000, 10000, 20000, 20001)
+
+
+class NodeWarp(nn.Module):
+    def __init__(
+        self,
+        nodes: torch.Tensor,
+        node_radius_log: torch.Tensor,
+        node_weight_logit: torch.Tensor,
+        net: DeformNetworkDef,
+        K: int = 3,
+        hyper_dim: int = 2,
+        d_rot_as_res: bool = True,
+        with_node_weight: bool = True,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.nodes = nn.Parameter(nodes.to(torch.float32))  # (M, 3 + hyper_dim)
+        self.node_radius_log = nn.Parameter(node_radius_log.to(torch.float32))  # (M,)
+        self.node_weight_logit = nn.Parameter(node_weight_logit.to(torch.float32))  # (M, 1)
+        self.mlp = DeformNetwork(net, generator=generator, device=nodes.device)
+        self.net = net
+        self.K = K
+        self.hyper_dim = hyper_dim
+        self.d_rot_as_res = d_rot_as_res
+        self.with_node_weight = with_node_weight
+
+    @property
+    def node_num(self) -> int:
+        return self.nodes.shape[0]
+
+    @property
+    def node_radius(self) -> torch.Tensor:
+        return torch.exp(self.node_radius_log)
+
+    @property
+    def node_weight(self) -> torch.Tensor:
+        return torch.sigmoid(self.node_weight_logit)
+
+    def params_dict(self) -> dict:
+        return {"nodes": self.nodes, "radius": self.node_radius_log, "weight": self.node_weight_logit,
+                "mlp": self.mlp.params_dict()}
+
+    @torch.no_grad()
+    def replace_params(self, p: dict) -> "NodeWarp":
+        """Write a ``params_dict`` tree into the parameters in place (the
+        optimizer's update) and return this module."""
+        tree_map(lambda dst, src: dst is src or dst.copy_(src), self.params_dict(), p)
+        return self
+
+
+def init_node_warp(
+    init_pcl: np.ndarray,
+    node_num: int,
+    net: DeformNetworkDef | None = None,
+    hyper_dim: int = 2,
+    K: int = 3,
+    d_rot_as_res: bool = True,
+    with_node_weight: bool = True,
+    keep_all: bool = False,
+    generator: torch.Generator | None = None,
+    device: str | torch.device | None = None,
+) -> NodeWarp:
+    """Nodes by FPS over the point cloud, hyper coords 1e-2, log radius
+    log(0.1 * range + 1e-7), weight logits 0, a seeded DeformNetwork
+    (``generator`` on ``device``; its draws differ from the reference's)."""
+    dev = resolve_device(device)
+    net = net or DeformNetworkDef()
+    pcl = torch.tensor(np.asarray(init_pcl), dtype=torch.float32, device=dev)
+    if keep_all or node_num >= pcl.shape[0]:
+        node_xyz = pcl
+        node_num = pcl.shape[0]
+    else:
+        node_xyz = pcl[farthest_point_sample(pcl, node_num).to(torch.int64)]
+    nodes = torch.cat([node_xyz, torch.full((node_num, hyper_dim), 1e-2, device=dev)], dim=-1)
+    scene_range = torch.max(pcl) - torch.min(pcl)
+    radius_log = torch.log(0.1 * scene_range + 1e-7) * torch.ones(node_num, device=dev)
+    return NodeWarp(nodes, radius_log, torch.zeros((node_num, 1), device=dev), net, K=K, hyper_dim=hyper_dim,
+                    d_rot_as_res=d_rot_as_res, with_node_weight=with_node_weight, generator=generator)
+
+
+def _query(warp: NodeWarp, x: torch.Tensor, feature: torch.Tensor | None, node_key: torch.Tensor):
+    """(query, key): xyz, with the first hyper_dim feature columns and the
+    nodes' hyper coords appended when the Gaussians have them."""
+    if feature is not None and warp.hyper_dim > 0 and feature.shape[-1] >= warp.hyper_dim:
+        return (torch.cat([x, feature[:, : warp.hyper_dim]], dim=-1),
+                torch.cat([node_key, warp.nodes[:, 3:]], dim=-1))
+    return x, node_key
+
+
+def cal_nn_weight(
+    warp: NodeWarp,
+    x: torch.Tensor,
+    feature: torch.Tensor | None = None,
+    K: int | None = None,
+    nodes: torch.Tensor | None = None,
+    gs_kernel: bool = True,
+    temperature: float = 1.0,
+):
+    """Gaussian-kernel KNN blending weights (N, K), the distances and the
+    int32 indices. The distances' value comes from the KNN on detached
+    inputs, their gradient from a recompute over the K selected pairs only
+    (it reaches the nodes' hyper coords and the Gaussians' features)."""
+    K = warp.K if K is None else K
+    node_key = warp.nodes[:, :3].detach() if nodes is None else nodes[:, :3]
+    q, node_key = _query(warp, x.detach(), feature, node_key)
+    nn_dist2, nn_idx = knn(q.detach(), node_key.detach(), K)
+    idx = nn_idx.to(torch.int64)
+    d2_re = torch.sum((q[:, None, :] - node_key[idx]) ** 2, dim=-1)
+    nn_dist2 = nn_dist2 + (d2_re - d2_re.detach())
+    if not gs_kernel:
+        return torch.softmax(-nn_dist2 / temperature, dim=-1), nn_dist2, nn_idx
+    w = torch.exp(-nn_dist2 / (2.0 * warp.node_radius[idx] ** 2))
+    if warp.with_node_weight:
+        w = w * warp.node_weight[idx][..., 0]
+    w = w + 1e-7
+    return w / torch.sum(w, dim=-1, keepdim=True), nn_dist2, nn_idx
+
+
+def node_deform(warp: NodeWarp, t, detach_node: bool = True, band_mask: torch.Tensor | None = None) -> dict:
+    """The DeformNetwork at the node positions. t: a scalar, (M, 1), or
+    (M, T, 1) (the nodes broadcast over the time axis)."""
+    nodes = warp.nodes[:, :3]
+    if detach_node:
+        nodes = nodes.detach()
+    if not isinstance(t, torch.Tensor):  # a fill on the device, not a host copy
+        t = torch.full((), t, dtype=torch.float32, device=nodes.device)
+    if t.dim() == 0:
+        t = t.reshape(1, 1).expand(warp.node_num, 1)
+    if t.dim() == 3:
+        nodes = nodes[:, None, :].expand(warp.node_num, t.shape[1], 3)
+    return warp.mlp(nodes, t, band_mask)
+
+
+def warp_forward(
+    warp: NodeWarp,
+    x: torch.Tensor,
+    t,
+    feature: torch.Tensor | None,
+    motion_mask: torch.Tensor,
+    band_mask: torch.Tensor | None = None,
+    local_frame: bool = False,
+) -> dict:
+    """Blend the node residuals onto Gaussians at x: d_xyz, d_rotation,
+    d_scaling, d_nodes (the deformed nodes), nn_idx and nn_weight (K-sparse
+    views), d_opacity / d_color when the network predicts them.
+
+    The weights live dense over all M nodes with an exact top-K mask (the
+    selection detached), equal to cal_nn_weight's up to f32 reassociation;
+    every blended channel is one column of an (M, C) table and the blend one
+    (N, M) @ (M, C) product."""
+    x = x.detach()
+    M = warp.node_num
+    q, node_key = _query(warp, x, feature, warp.nodes[:, :3].detach())
+    d2 = pairwise_dist2(q, node_key)  # (N, M); gradients reach hyper coords and features
+    _, nn_idx = _small_k(d2.detach(), warp.K)
+    cols = torch.arange(M, device=d2.device)[None, :]
+    mask = torch.zeros(d2.shape, dtype=torch.bool, device=d2.device)
+    for k in range(warp.K):
+        mask = mask | (cols == nn_idx[:, k : k + 1])
+
+    w = torch.exp(-d2 / (2.0 * warp.node_radius[None, :] ** 2))
+    if warp.with_node_weight:
+        w = w * warp.node_weight[None, :, 0]
+    w = torch.where(mask, w + 1e-7, 0.0)
+    w = w / torch.sum(w, dim=-1, keepdim=True)
+    nn_weight = torch.gather(w, -1, nn_idx.to(torch.int64))
+
+    attrs = node_deform(warp, t, band_mask=band_mask)
+    node_trans = attrs["d_xyz"]
+    extra = [(name, attrs[name]) for name in ("d_opacity", "d_color") if attrs.get(name) is not None]
+    chans = [node_trans, attrs["d_rotation"], attrs["d_scaling"]] + [a for _, a in extra]
+    if local_frame:
+        Rl = quat_to_rotmat(attrs["local_rotation"] + constant(ROT_BIAS, node_trans))  # (M, 3, 3)
+        p = warp.nodes[:, :3].detach()
+        # sum_m w_nm [Rl_m (x_n - p_m) + p_m + t_m]
+        #   = (sum_m w_nm Rl_m) x_n + sum_m w_nm (p_m - Rl_m p_m + t_m)
+        const = p - torch.einsum("mab,mb->ma", Rl, p) + node_trans
+        chans += [Rl.reshape(M, 9), const]
+    blended = w @ torch.cat(chans, dim=-1)  # (N, C)
+    cuts = np.cumsum([0, 3, 4, 3] + [a.shape[-1] for _, a in extra] + ([9, 3] if local_frame else []))
+    part = [blended[:, cuts[i] : cuts[i + 1]] for i in range(len(cuts) - 1)]
+    b_trans, b_rot, b_scale = part[:3]
+
+    if local_frame:
+        WR, Wc = part[-2].reshape(-1, 3, 3), part[-1]
+        # sum_m w = 1, so subtracting x leaves the residual translation
+        translate = torch.einsum("nab,nb->na", WR, x) + Wc - x
+    else:
+        translate = b_trans
+    rotation = b_rot * motion_mask
+    if not warp.d_rot_as_res:
+        # the blend of (node_rot + bias) is b_rot + bias since sum_m w = 1
+        rotation = rotation + constant(ROT_BIAS, rotation)
+    out = {
+        "d_xyz": translate * motion_mask,
+        "d_rotation": rotation,
+        "d_scaling": b_scale * motion_mask,
+        "d_nodes": warp.nodes[:, :3] + node_trans,
+        "nn_idx": nn_idx,
+        "nn_weight": nn_weight,
+        "d_opacity": None,
+        "d_color": None,
+    }
+    for i, (name, _) in enumerate(extra):
+        out[name] = part[3 + i] * motion_mask
+    return out
+
+
+def arap_sample_times(
+    generator: torch.Generator | None = None,
+    t: torch.Tensor | None = None,
+    delta_t: float = 0.05,
+    t_samp_num: int = 2,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """``arap_loss``'s (t_samp_num,) sample times, drawn as the reference
+    draws them: a centre t0 uniform in [0, 1) (or within delta_t / 2 of
+    ``t``), then times uniform within delta_t / 2 of t0."""
+    dev = resolve_device(device) if t is None else t.device
+    u = torch.rand(1 + t_samp_num, generator=generator, device=dev)
+    t0 = u[0] if t is None else t.reshape(()) + delta_t * (u[0] - 0.5)
+    return u[1:] * delta_t + t0 - 0.5 * delta_t
+
+
+def arap_loss(warp: NodeWarp, t_samp: torch.Tensor) -> torch.Tensor:
+    """ARAP energy of the node positions at the sample times ``t_samp``
+    (t_samp_num,) against the first, over the KNN graph of the first
+    (K = min(10, M - 1))."""
+    T = t_samp.shape[0]
+    ts = t_samp[None, :, None].expand(warp.node_num, T, 1)
+    nodes_t = warp.nodes[:, None, :3].detach() + node_deform(warp, ts)["d_xyz"]  # (M, T, 3)
+    conn = A.connectivity_from_points(nodes_t[:, 0].detach(), K=min(10, warp.node_num - 1))
+    return A.arap_error(nodes_t.transpose(0, 1), conn)

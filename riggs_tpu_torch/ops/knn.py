@@ -1,12 +1,25 @@
-"""k smallest entries per row, and the chamfer distance.
+"""Nearest neighbours and the chamfer distance.
 
-Port of ``riggs_tpu/ops/knn.py``: ``_small_k`` (top-K bone skinning) and
-``chamfer_distance`` (:97-129, the stage-2 skeleton projection loss). The
-nearest-neighbour searches of stage 1 come with its slice.
+Port of ``riggs_tpu/ops/knn.py``: ``pairwise_dist2``, ``_small_k`` (top-K
+skinning and the node blend), ``_row_k``, ``knn`` (chunked over the
+queries), ``mean_knn_dist2`` (the initial Gaussian scales) and
+``chamfer_distance`` (:97-129, the skeleton projection loss).
 """
 from __future__ import annotations
 
 import torch
+
+from riggs_tpu_torch.device import constant
+
+
+def pairwise_dist2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Squared distances (N, M) of x (N, D) and y (M, D) by the expansion
+    |x|^2 - 2 x.y + |y|^2, the cross term one matmul, clamped at 0 with
+    ``torch.maximum`` (a tie at 0 splits its gradient, as jnp.maximum's)."""
+    x2 = torch.sum(x * x, dim=-1, keepdim=True)
+    y2 = torch.sum(y * y, dim=-1, keepdim=True)
+    d2 = x2 - 2.0 * (x @ y.t()) + y2.t()
+    return torch.maximum(d2, constant(0.0, d2))
 
 
 def _small_k(d2: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -23,6 +36,36 @@ def _small_k(d2: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
         idxs.append(i.to(torch.int32))
         cur = torch.where(cols == i[..., None], torch.inf, cur)
     return torch.stack(vals, -1), torch.stack(idxs, -1)
+
+
+# above this k, one sort beats k reduce passes
+_ITER_K_MAX = 8
+
+
+def _row_k(d2: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """k smallest per row, ascending. Above ``_ITER_K_MAX`` the reference
+    takes ``lax.top_k(-d2)``, whose ties go to the lower index; a stable
+    ascending sort gives the same order (``torch.topk`` promises none)."""
+    if k <= _ITER_K_MAX:
+        return _small_k(d2, k)
+    vals, idx = torch.sort(d2, dim=-1, stable=True)
+    return vals[..., :k], idx[..., :k].to(torch.int32)
+
+
+def knn(x: torch.Tensor, y: torch.Tensor, k: int, chunk: int = 8192) -> tuple[torch.Tensor, torch.Tensor]:
+    """For each x, the k nearest points of y: (dist2 (N, k), idx (N, k)
+    int32), ascending. Chunked over x to bound the (chunk, M) tile."""
+    if x.shape[0] <= chunk:
+        return _row_k(pairwise_dist2(x, y), k)
+    parts = [_row_k(pairwise_dist2(xb, y), k) for xb in torch.split(x, chunk)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def mean_knn_dist2(points: torch.Tensor, k: int = 3, chunk: int = 4096) -> torch.Tensor:
+    """Mean squared distance of each point to its k nearest other points
+    (the nearest, at distance 0, is itself)."""
+    d2, _ = knn(points, points, k + 1, chunk=chunk)
+    return torch.mean(d2[:, 1:], dim=-1)
 
 
 def chamfer_distance(

@@ -4,7 +4,10 @@ Port of ``riggs_tpu/render/api.py``: ``render`` with the residuals, SH
 colour, override colours, motion-mask rendering, scale_const,
 scaling_modifier, the per-attribute stop-gradients (``detach_*``) and
 ``mean2d_bias``, whose gradient is dL/d(mean2d) for the densification
-statistics; ``tier_kwargs``; and ``render_auto``'s capacity escalation.
+statistics; ``tier_kwargs``; and ``render_auto``'s capacity escalation of
+the window (``max_per_tile``), the rect cap (``max_tiles_per_gaussian``)
+and the instance budget (``max_instances``, which the runs binner counts
+in ``overflow_budget``).
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ def render(
     max_per_tile: int = 1024,
     max_tiles_per_gaussian: int = 16,
     binning: str | None = None,
+    max_instances: int | None = None,
     giant_cap: int | None = None,
     mid_cap: int | None = None,
     mid_side: int | None = None,
@@ -93,8 +97,9 @@ def render(
     if rasterizer == "tiled":
         kwargs = dict(max_per_tile=max_per_tile, max_tiles_per_gaussian=max_tiles_per_gaussian)
         for name, val in (
-            ("binning", binning), ("giant_cap", giant_cap), ("mid_cap", mid_cap),
-            ("mid_side", mid_side), ("tile_ladder", tile_ladder), ("tile_shard_mesh", tile_shard_mesh),
+            ("binning", binning), ("max_instances", max_instances), ("giant_cap", giant_cap),
+            ("mid_cap", mid_cap), ("mid_side", mid_side), ("tile_ladder", tile_ladder),
+            ("tile_shard_mesh", tile_shard_mesh),
         ):
             if val is not None:
                 kwargs[name] = val
@@ -117,6 +122,7 @@ def render(
         "overflow": out.get("overflow", zero),
         "overflow_tiles": out.get("overflow_tiles", zero),
         "overflow_rect": out.get("overflow_rect", zero),
+        "overflow_budget": out.get("overflow_budget", zero),
         "max_count": out.get("max_count", zero),
         # (T,) ladder probe input; the oracle has no tiles
         "tile_counts": out.get("tile_counts", torch.zeros((1,), dtype=torch.int32, device=means3d.device)),
@@ -138,24 +144,33 @@ def render_auto(
     max_tiles_per_gaussian: int = 16,
     max_per_tile_limit: int = 8192,
     max_tiles_limit: int = 1024,
+    max_instances: int | None = None,
+    max_instances_limit: int = 64 * 1024 * 1024,
     **kwargs,
 ) -> dict[str, Any]:
     """render() with capacity escalation: re-render with the offending cap
     doubled (the rect cap x4) until nothing is truncated, or warn and return
-    the truncated render at the limits."""
+    the truncated render at the limits. A budget overflow doubles
+    ``max_instances`` from ``4 * gs.capacity``, the binner's default."""
     while True:
         out = render(
             cam, gs, bg, max_per_tile=max_per_tile,
-            max_tiles_per_gaussian=max_tiles_per_gaussian, **kwargs,
+            max_tiles_per_gaussian=max_tiles_per_gaussian, max_instances=max_instances, **kwargs,
         )
         tiles_of = int(out["overflow_tiles"])
         rect_of = int(out["overflow_rect"])
-        if tiles_of == 0 and rect_of == 0:
+        budget_of = int(out["overflow_budget"])
+        if tiles_of == 0 and rect_of == 0 and budget_of == 0:
             return out
         escalated = False
         if tiles_of > 0 and max_per_tile < max_per_tile_limit:
             max_per_tile = min(max_per_tile * 2, max_per_tile_limit)
             escalated = True
+        if budget_of > 0:
+            cur = max_instances if max_instances is not None else 4 * gs.capacity
+            if cur < max_instances_limit:
+                max_instances = min(cur * 2, max_instances_limit)
+                escalated = True
         if rect_of > 0 and max_tiles_per_gaussian < max_tiles_limit:
             max_tiles_per_gaussian = min(max_tiles_per_gaussian * 4, max_tiles_limit)
             escalated = True

@@ -2,7 +2,8 @@
 
 Port of ``riggs_tpu/render/binning.py``: the sort binner
 ``bin_gaussians_sorted`` (with its mid and giant tiers and the exact cell
-cull) and the dense reference ``bin_gaussians``.
+cull), the aligned-runs binner ``bin_gaussians_runs`` and the dense
+reference ``bin_gaussians``.
 
 Instance order is (tile, depth, gid), gid breaking exact depth ties, as the
 reference's three-key ``lax.sort`` gives it. Depth and gid are per Gaussian,
@@ -30,15 +31,27 @@ def _extract_windows(src: torch.Tensor, starts: torch.Tensor, max_per_tile: int)
     return src[starts.to(torch.int64)[:, None] + s]
 
 
+class RunsInfo(NamedTuple):
+    """Aligned-runs instance layout (``bin_gaussians_runs``): tile t's
+    depth-ordered run occupies the 128-slot blocks [sblk[t], sblk[t] +
+    ceil(count[t] / 128)) of one flat slot array; the last block is a spare
+    that chunks past a tile's run resolve to."""
+
+    gid: torch.Tensor  # (M2,) int32 gaussian id per slot; N at pad slots
+    sblk: torch.Tensor  # (T,) int32 first block of each tile's run
+
+
 class TileBins(NamedTuple):
-    idx: torch.Tensor  # (T, MAX) gaussian indices into the unsorted inputs
-    valid: torch.Tensor  # (T, MAX) slot validity
+    idx: torch.Tensor | None  # (T, MAX) gaussian indices into the unsorted inputs
+    valid: torch.Tensor | None  # (T, MAX) slot validity
     count: torch.Tensor  # (T,) true hit count per tile (pre-truncation)
     tiles_x: int
     tiles_y: int
     overflow: torch.Tensor  # () truncated bbox cells
     starts: torch.Tensor | None = None  # (T,) window start per tile in gid_sorted
     gid_sorted: torch.Tensor | None = None  # (M,) tile-grouped depth-ordered gaussian ids
+    runs: RunsInfo | None = None  # set by bin_gaussians_runs
+    overflow_budget: torch.Tensor | None = None  # () instance-budget slots dropped
 
 
 def num_tiles(width: int, height: int, tile: int = TILE) -> tuple[int, int]:
@@ -172,6 +185,23 @@ def _nonzero_padded(sel: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     return out[:size]
 
 
+def _sort_instances(depth: torch.Tensor, tile_id: torch.Tensor, gid: torch.Tensor, T: int):
+    """Sort instances by (tile, depth, gid), the sentinel tile T last.
+    Returns (gid_sorted int32, starts, count) with starts/count (T,) int32."""
+    N = depth.shape[0]
+    dev = depth.device
+    order = _depth_rank_order(depth)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(N, dtype=torch.int64, device=dev)
+    key_sorted = torch.sort(tile_id.to(torch.int64) * N + rank[gid.to(torch.int64)]).values
+    tile_sorted = key_sorted // N
+    gid_sorted = order[key_sorted % N].to(torch.int32)
+    tids = torch.arange(T, dtype=torch.int64, device=dev)
+    starts = torch.searchsorted(tile_sorted, tids, right=False).to(torch.int32)
+    ends = torch.searchsorted(tile_sorted, tids + 1, right=False).to(torch.int32)
+    return gid_sorted, starts, ends - starts
+
+
 def bin_gaussians_sorted(
     proj: Projected,
     width: int,
@@ -275,19 +305,7 @@ def bin_gaussians_sorted(
             sel &= mid_handled
         rect_overflow_cells, _ = extra_tier(sel, giant_cap, lo, giant_side, rect_overflow_cells)
 
-    tile_id = torch.cat(tile_id).to(torch.int64)
-    gid = torch.cat(gid).to(torch.int64)
-    order = _depth_rank_order(proj.depth)
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(N, dtype=torch.int64, device=dev)
-    key_sorted = torch.sort(tile_id * N + rank[gid]).values
-    tile_sorted = key_sorted // N
-    gid_sorted = order[key_sorted % N].to(torch.int32)
-
-    tids = torch.arange(T, dtype=torch.int64, device=dev)
-    starts = torch.searchsorted(tile_sorted, tids, right=False).to(torch.int32)
-    ends = torch.searchsorted(tile_sorted, tids + 1, right=False).to(torch.int32)
-    count = ends - starts
+    gid_sorted, starts, count = _sort_instances(proj.depth, torch.cat(tile_id), torch.cat(gid), T)
 
     s = torch.arange(max_per_tile, dtype=torch.int32, device=dev)[None, :]
     valid = s < torch.clamp(count, max=max_per_tile)[:, None]
@@ -297,4 +315,70 @@ def bin_gaussians_sorted(
         idx=idx, valid=valid, count=count, tiles_x=tx_n, tiles_y=ty_n,
         overflow=torch.sum(rect_overflow_cells).to(torch.int32),
         starts=starts, gid_sorted=gid_sorted,
+    )
+
+
+def bin_gaussians_runs(
+    proj: Projected,
+    width: int,
+    height: int,
+    max_per_tile: int = 1024,
+    tile: int = TILE,
+    max_tiles_per_gaussian: int = 16,
+    max_instances: int | None = None,
+    chunk: int = 128,
+) -> TileBins:
+    """The (tile, depth, gid) instance sort of the side x side rect windows
+    (no tiers, no opacity cull), laid out as aligned runs: each tile's run
+    starts at a ``chunk``-aligned slot of one flat (M2,) array, M2 sized for
+    ``max_instances`` (default 4 N) instances plus a chunk of alignment per
+    tile plus the spare block. Slots past a tile's min(count, max_per_tile)
+    hold the sentinel id N. ``overflow_budget`` counts the aligned slots the
+    array could not hold; ``overflow`` the rect cells past side x side.
+
+    The reference takes the counts from an f32 matmul of interval
+    indicators; here they are the sorted instances per tile, as integers."""
+    tx_n, ty_n = num_tiles(width, height, tile)
+    T = tx_n * ty_n
+    N = proj.mean2d.shape[0]
+    dev = proj.depth.device
+
+    lox, loy, hix, hiy = _rects(proj, tx_n, ty_n, tile)
+    w_rect = hix - lox + 1
+    h_rect = hiy - loy + 1
+    side = max(int(np.ceil(np.sqrt(max_tiles_per_gaussian))), 1)
+    K = side * side
+    ks = torch.arange(K, dtype=torch.int32, device=dev)
+    dx = (ks % side)[:, None]
+    dy = (ks // side)[:, None]
+    cell_ok = proj.mask[None, :] & (dx < w_rect[None, :]) & (dy < h_rect[None, :])
+    tile_id = torch.where(cell_ok, (loy[None, :] + dy) * tx_n + lox[None, :] + dx, T).reshape(-1)
+    gid = torch.arange(N, dtype=torch.int32, device=dev)[None, :].expand(K, N).reshape(-1)
+    gid_sorted, starts, count = _sort_instances(proj.depth, tile_id, gid, T)
+
+    blocks = (count + chunk - 1) // chunk
+    ends_blk = torch.cumsum(blocks, 0, dtype=torch.int32)
+    sblk = ends_blk - blocks
+    if max_instances is None:
+        max_instances = 4 * N
+    # + T * chunk: a run wastes under one chunk of alignment, so the budget
+    # stays a count of instances; + chunk: the spare block
+    M2 = -(-(max_instances + T * chunk) // chunk) * chunk + chunk
+
+    q = torch.arange(M2, dtype=torch.int32, device=dev)
+    starts_pad = sblk * chunk
+    # empty tiles share their start with the next tile: the last one wins
+    tile_q = torch.searchsorted(starts_pad, q, right=True) - 1
+    r = q - starts_pad[tile_q]
+    src = (starts[tile_q] + r).to(torch.int64)
+    valid = r < torch.clamp(count[tile_q], max=max_per_tile)
+    gid_runs = torch.where(valid, gid_sorted[torch.clamp(src, 0, K * N - 1)], N).to(torch.int32)
+
+    rect_overflow = torch.sum(torch.where(proj.mask, torch.clamp(w_rect * h_rect - K, min=0), 0))
+    budget_overflow = torch.clamp(ends_blk[-1] * chunk - (M2 - chunk), min=0)
+    return TileBins(
+        idx=None, valid=None, count=count, tiles_x=tx_n, tiles_y=ty_n,
+        overflow=rect_overflow.to(torch.int32),
+        runs=RunsInfo(gid=gid_runs, sblk=sblk),
+        overflow_budget=budget_overflow.to(torch.int32),
     )

@@ -8,7 +8,13 @@ Port of the blend kernels of ``riggs_tpu/render/pallas_blend.py``:
   * ``blend_permuted_gm`` replaces ``_fwd_kernel_gm`` with ``permuted=True``
     (entry ``pallas_blend_permuted_gm``): windows arrive gaussian-major,
     g (T, MAX, 10), rows past the tile's count are masked inside the kernel,
-    and row t renders the real tile ``tids[t]``.
+    and row t renders the real tile ``tids[t]``;
+  * ``blend_runs`` replaces ``_fwd_kernel_runs`` (entry
+    ``pallas_blend_runs``): one channel-major aligned-runs array g_runs
+    (16, M2), chunk c of tile t reading the 128-slot block ``runs_blocks``
+    gives it (the run's block ``sblk[t] + c`` while the chunk starts before
+    the count, else the spare last block, clamped to it); slots past a
+    tile's count are zero rows.
 
 Attribute rows: 0 mx, 1 my, 2..4 conic (a, b, c), 5 opacity, 6..8 rgb,
 9 depth. Outputs: ``out`` (T, 8, 1024) rows [r, g, b, depth, acc, 0, 0, 0]
@@ -25,14 +31,17 @@ the tile has T_entry >= 1e-4.
 
 Each entry is a ``torch.autograd.Function`` (``BlendFn``): the forward
 kernel, then, for the gradient, the backward kernel that replaces
-``_bwd_kernel`` / ``_bwd_kernel_gm`` (``blend_cm_bwd``,
-``blend_permuted_gm_bwd``). It walks each tile's chunks back to front with a
-running per-pixel suffix sum and writes d(mx, my, conic, opacity, rgb,
-depth) for every window row, exactly 0 for rows of skipped chunks, rows
-past the count and the channel-major padding rows. Only the first are
-needed (their true gradient); the window gathers' backward zeroes invalid
-slots, so the others are defensive: dg equals its plain version element for
-element.
+``_bwd_kernel`` / ``_bwd_kernel_gm`` / ``_bwd_kernel_runs``
+(``blend_cm_bwd``, ``blend_permuted_gm_bwd``, ``blend_runs_bwd``). It walks
+each tile's chunks back to front with a running per-pixel suffix sum and
+writes d(mx, my, conic, opacity, rgb, depth) for every window row, exactly 0
+for rows of skipped chunks, rows past the count and the channel-major
+padding rows. Only the first are needed (their true gradient); the window
+gathers' backward zeroes invalid slots, so the others are defensive: dg
+equals its plain version element for element. The runs backward follows
+``_bwd_body_runs``'s own formulas (the six geometric sums taken directly,
+d_op = sum draw * exp(power)); its dg is zero but in the blocks of the
+active (tile, chunk) pairs, and the spare block stays zero.
 
 Each kernel is CUDA C++ (``riggs_tpu_torch/csrc/blend.cu``), built at first
 use with nvcc for sm_90a into ``.torch_ext/`` beside the package and called
@@ -67,9 +76,10 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / ".torch_ext"
 
 # launches of each kernel since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else
-launches = {"blend_cm": 0, "blend_permuted_gm": 0, "blend_cm_bwd": 0, "blend_permuted_gm_bwd": 0}
+launches = {"blend_cm": 0, "blend_permuted_gm": 0, "blend_runs": 0,
+            "blend_cm_bwd": 0, "blend_permuted_gm_bwd": 0, "blend_runs_bwd": 0}
 # calls of the backward wrappers that ran the plain version (CPU tensors)
-plain_bwd_calls = {"blend_cm_bwd": 0, "blend_permuted_gm_bwd": 0}
+plain_bwd_calls = {"blend_cm_bwd": 0, "blend_permuted_gm_bwd": 0, "blend_runs_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -140,10 +150,11 @@ def blend_permuted_gm_plain(g: torch.Tensor, counts: torch.Tensor, tids: torch.T
     return _blend_plain(g, counts, tids, tiles_x, mask_rows=True)
 
 
-def _blend_bwd_plain(gt, counts, tids, tiles_x: int, tentry, dout, mask_rows: bool):
-    """Backward of ``_blend_plain`` (``_bwd_body`` / ``_bwd_body_gm``'s math):
-    gt (T, MAX, 10), tentry (T, C, P), dout (T, 8, P) -> dgt (T, MAX, 10).
-    Chunks run back to front, each vectorised over (active tiles, G, P)."""
+def _blend_bwd_plain(gt, counts, tids, tiles_x: int, tentry, dout, mask_rows: bool, runs: bool = False):
+    """Backward of ``_blend_plain`` (``_bwd_body`` / ``_bwd_body_gm``'s math,
+    or with ``runs`` ``_bwd_body_runs``'s): gt (T, MAX, 10), tentry
+    (T, C, P), dout (T, 8, P) -> dgt (T, MAX, 10). Chunks run back to
+    front, each vectorised over (active tiles, G, P)."""
     T, MAX, _ = gt.shape
     C = MAX // G_CHUNK
     dev = gt.device
@@ -190,17 +201,27 @@ def _blend_bwd_plain(gt, counts, tids, tiles_x: int, tentry, dout, mask_rows: bo
         s_total = s_incl[:, -1:, :]
         suf = (s_total - s_incl) + suffix[a][:, None, :]
         dalpha = te * vdc - suf * inv_onem
-        dpower = dalpha * ((raw >= ALPHA_MIN) & (raw < ALPHA_MAX)) * raw
-        dpx = dx * dpower
-        dpy = dy * dpower
-        m_x, m_y = dpx.sum(-1), dpy.sum(-1)  # (A, G)
-        m_xx, m_xy, m_yy = (dx * dpx).sum(-1), (dy * dpx).sum(-1), (dy * dpy).sum(-1)
-        m_p = dpower.sum(-1)
-        ca, cb, cc, op = ca[..., 0], cb[..., 0], cc[..., 0], op[..., 0]
-        d = torch.stack(
-            [ca * m_x + cb * m_y, cc * m_y + cb * m_x, -0.5 * m_xx, -m_xy, -0.5 * m_yy,
-             m_p / torch.clamp(op, min=1e-12)], dim=-1,
-        )
+        if runs:
+            draw = dalpha * ((raw >= ALPHA_MIN) & (raw < ALPHA_MAX) & (power <= 0.0))
+            dpower = draw * raw
+            exppow = torch.where(power > 0.0, 0.0, torch.exp(power))
+            d = torch.stack(
+                [((ca * dx + cb * dy) * dpower).sum(-1), ((cc * dy + cb * dx) * dpower).sum(-1),
+                 (-0.5 * dx * dx * dpower).sum(-1), (-dx * dy * dpower).sum(-1),
+                 (-0.5 * dy * dy * dpower).sum(-1), (draw * exppow).sum(-1)], dim=-1,
+            )
+        else:
+            dpower = dalpha * ((raw >= ALPHA_MIN) & (raw < ALPHA_MAX)) * raw
+            dpx = dx * dpower
+            dpy = dy * dpower
+            m_x, m_y = dpx.sum(-1), dpy.sum(-1)  # (A, G)
+            m_xx, m_xy, m_yy = (dx * dpx).sum(-1), (dy * dpx).sum(-1), (dy * dpy).sum(-1)
+            m_p = dpower.sum(-1)
+            ca, cb, cc, op = ca[..., 0], cb[..., 0], cc[..., 0], op[..., 0]
+            d = torch.stack(
+                [ca * m_x + cb * m_y, cc * m_y + cb * m_x, -0.5 * m_xx, -m_xy, -0.5 * m_yy,
+                 m_p / torch.clamp(op, min=1e-12)], dim=-1,
+            )
         dv = torch.bmm(w, dC[:, :4].transpose(1, 2))  # (A, G, 4)
         d = torch.cat([d, dv], dim=-1)
         if ok is not None:
@@ -223,6 +244,48 @@ def blend_cm_bwd_plain(g, counts, tentry, dout, tiles_x: int):
 def blend_permuted_gm_bwd_plain(g, counts, tids, tentry, dout, tiles_x: int):
     """Plain version of ``blend_permuted_gm_bwd``: dg (T, MAX, 10)."""
     return _blend_bwd_plain(g, counts, tids, tiles_x, tentry, dout, mask_rows=True)
+
+
+def runs_blocks(counts: torch.Tensor, sblk: torch.Tensor, chunks: int, m2b: int) -> torch.Tensor:
+    """(T, chunks) block of g_runs that chunk c of tile t reads
+    (``pallas_blend.py:_runs_gidx``): ``sblk[t] + c`` while the chunk starts
+    before the count, else the spare block m2b - 1; clamped to it, so an
+    instance-budget overflow never reads past the array."""
+    c = torch.arange(chunks, device=counts.device)[None, :]
+    nblk = ((counts.to(torch.int64) + G_CHUNK - 1) // G_CHUNK)[:, None]
+    return torch.clamp(torch.where(c < nblk, sblk.to(torch.int64)[:, None] + c, m2b - 1), max=m2b - 1)
+
+
+def _runs_windows(g_runs: torch.Tensor, blk: torch.Tensor) -> torch.Tensor:
+    """(T, chunks * 128, 10) gaussian-major windows of the blocks ``blk``."""
+    T, C = blk.shape
+    slots = (blk[:, :, None] * G_CHUNK + torch.arange(G_CHUNK, device=blk.device)).reshape(T, C * G_CHUNK)
+    return g_runs[:ROWS_GM].t()[slots]
+
+
+def blend_runs_plain(g_runs: torch.Tensor, counts: torch.Tensor, sblk: torch.Tensor, chunks: int, tiles_x: int):
+    """Plain version of ``blend_runs``: g_runs (16, M2), counts/sblk (T,)."""
+    blk = runs_blocks(counts, sblk, chunks, g_runs.shape[1] // G_CHUNK)
+    tids = torch.arange(counts.shape[0], device=g_runs.device)
+    return _blend_plain(_runs_windows(g_runs, blk), counts, tids, tiles_x, mask_rows=False)
+
+
+def blend_runs_bwd_plain(g_runs, counts, sblk, tentry, dout, tiles_x: int):
+    """Plain version of ``blend_runs_bwd``: dg (16, M2), the blocks of the
+    active (tile, chunk) pairs written, every other slot 0. A pair whose
+    block resolves to the spare block (only past an instance-budget
+    overflow) writes nothing."""
+    m2b = g_runs.shape[1] // G_CHUNK
+    blk = runs_blocks(counts, sblk, tentry.shape[1], m2b)
+    tids = torch.arange(counts.shape[0], device=g_runs.device)
+    dgt = _blend_bwd_plain(_runs_windows(g_runs, blk), counts, tids, tiles_x, tentry, dout,
+                           mask_rows=False, runs=True)
+    own = blk < m2b - 1  # the run's own blocks: each belongs to one (tile, chunk)
+    dg_blocks = torch.zeros((m2b, G_CHUNK, ROWS_GM), dtype=torch.float32, device=g_runs.device)
+    dg_blocks[blk[own]] = dgt.reshape(*blk.shape, G_CHUNK, ROWS_GM)[own]
+    dg = torch.zeros_like(g_runs)
+    dg[:ROWS_GM] = dg_blocks.reshape(-1, ROWS_GM).t()
+    return dg
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +337,10 @@ def load_library() -> ctypes.CDLL:
     lib.riggs_blend_bwd_cm.restype = ci
     lib.riggs_blend_bwd_gm_permuted.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.riggs_blend_bwd_gm_permuted.restype = ci
+    lib.riggs_blend_fwd_runs.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.riggs_blend_fwd_runs.restype = ci
+    lib.riggs_blend_bwd_runs.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.riggs_blend_bwd_runs.restype = ci
     return lib
 
 
@@ -307,9 +374,8 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def _check_bwd(g: torch.Tensor, tentry: torch.Tensor, dout: torch.Tensor, max_axis: int):
-    T, MAX = g.shape[0], g.shape[max_axis]
-    for name, a, shape in (("tentry", tentry, (T, MAX // G_CHUNK, P_TILE)), ("dout", dout, (T, OUT_ROWS, P_TILE))):
+def _check_bwd(g: torch.Tensor, tentry: torch.Tensor, dout: torch.Tensor, T: int, C: int):
+    for name, a, shape in (("tentry", tentry, (T, C, P_TILE)), ("dout", dout, (T, OUT_ROWS, P_TILE))):
         if a.dtype != torch.float32 or tuple(a.shape) != shape or a.device != g.device:
             raise ValueError(f"{name} must be float32 {shape} on {g.device}, got {a.dtype} {tuple(a.shape)} on {a.device}")
         if g.device.type == "cuda" and not a.is_contiguous():
@@ -362,7 +428,7 @@ def blend_cm_bwd(g: torch.Tensor, counts: torch.Tensor, tentry: torch.Tensor, do
     """dL/dg (T, 16, MAX) of ``blend_cm`` from the forward's tentry and
     dL/dout: the kernel on CUDA, the plain version on the CPU."""
     _check(g, counts, None, max_axis=2, rows=PACK_ROWS, rows_axis=1)
-    _check_bwd(g, tentry, dout, max_axis=2)
+    _check_bwd(g, tentry, dout, g.shape[0], g.shape[2] // G_CHUNK)
     if g.device.type == "cpu":
         plain_bwd_calls["blend_cm_bwd"] += 1
         return blend_cm_bwd_plain(g, counts, tentry, dout, tiles_x)
@@ -386,7 +452,7 @@ def blend_permuted_gm_bwd(g: torch.Tensor, counts: torch.Tensor, tids: torch.Ten
     """dL/dg (T, MAX, 10) of ``blend_permuted_gm``: the kernel on CUDA, the
     plain version on the CPU. Rows past the count get exactly 0."""
     _check(g, counts, tids, max_axis=1, rows=ROWS_GM, rows_axis=2)
-    _check_bwd(g, tentry, dout, max_axis=1)
+    _check_bwd(g, tentry, dout, g.shape[0], g.shape[1] // G_CHUNK)
     if g.device.type == "cpu":
         plain_bwd_calls["blend_permuted_gm_bwd"] += 1
         return blend_permuted_gm_bwd_plain(g, counts, tids, tentry, dout, tiles_x)
@@ -405,11 +471,70 @@ def blend_permuted_gm_bwd(g: torch.Tensor, counts: torch.Tensor, tids: torch.Ten
     return dg
 
 
+def _check_runs(g_runs: torch.Tensor, counts: torch.Tensor, sblk: torch.Tensor):
+    if g_runs.dtype != torch.float32 or g_runs.dim() != 2 or g_runs.shape[0] != PACK_ROWS:
+        raise ValueError(f"g_runs must be float32 ({PACK_ROWS}, M2), got {g_runs.dtype} {tuple(g_runs.shape)}")
+    if g_runs.shape[1] % G_CHUNK != 0 or g_runs.shape[1] == 0:
+        raise ValueError(f"M2 = {g_runs.shape[1]} is not a positive multiple of {G_CHUNK}")
+    for name, a in (("counts", counts), ("sblk", sblk)):
+        if a.dtype != torch.int32 or a.dim() != 1 or a.shape != counts.shape or a.device != g_runs.device:
+            raise ValueError(f"{name} must be int32 (T,) on {g_runs.device}, got {a.dtype} {tuple(a.shape)} on {a.device}")
+    if g_runs.device.type == "cuda":
+        if not (g_runs.is_contiguous() and counts.is_contiguous() and sblk.is_contiguous()):
+            raise ValueError("the blend kernels take contiguous tensors")
+    elif g_runs.device.type != "cpu":
+        raise ValueError(f"unsupported device {g_runs.device}")
+
+
+def blend_runs_fwd(g_runs: torch.Tensor, counts: torch.Tensor, sblk: torch.Tensor, chunks: int, tiles_x: int):
+    """Aligned-runs blend, no gradient: the kernel on CUDA, the plain
+    version on the CPU. Returns (out, tentry (T, chunks, 1024))."""
+    _check_runs(g_runs, counts, sblk)
+    if g_runs.device.type == "cpu":
+        return blend_runs_plain(g_runs, counts, sblk, chunks, tiles_x)
+    T = counts.shape[0]
+    out, tentry = _outputs(g_runs, T, chunks)
+    if T == 0:
+        return out, tentry
+    lib = load_library()
+    with torch.cuda.device(g_runs.device):
+        err = lib.riggs_blend_fwd_runs(
+            g_runs.data_ptr(), counts.data_ptr(), sblk.data_ptr(), out.data_ptr(), tentry.data_ptr(),
+            T, chunks, g_runs.shape[1] // G_CHUNK, tiles_x, torch.cuda.current_stream(g_runs.device).cuda_stream,
+        )
+    _raise_on(err, "blend_runs")
+    launches["blend_runs"] += 1
+    return out, tentry
+
+
+def blend_runs_bwd(g_runs: torch.Tensor, counts: torch.Tensor, sblk: torch.Tensor, tentry: torch.Tensor,
+                   dout: torch.Tensor, tiles_x: int):
+    """dL/dg_runs (16, M2) of ``blend_runs``: the kernel on CUDA, the plain
+    version on the CPU."""
+    _check_runs(g_runs, counts, sblk)
+    T = counts.shape[0]
+    _check_bwd(g_runs, tentry, dout, T, tentry.shape[1] if tentry.dim() == 3 else 0)
+    if g_runs.device.type == "cpu":
+        plain_bwd_calls["blend_runs_bwd"] += 1
+        return blend_runs_bwd_plain(g_runs, counts, sblk, tentry, dout, tiles_x)
+    dg = torch.empty_like(g_runs)  # the C entry zeroes it on the stream first
+    lib = load_library()
+    with torch.cuda.device(g_runs.device):
+        err = lib.riggs_blend_bwd_runs(
+            g_runs.data_ptr(), counts.data_ptr(), sblk.data_ptr(), tentry.data_ptr(), dout.data_ptr(),
+            dg.data_ptr(), T, tentry.shape[1], g_runs.shape[1] // G_CHUNK, tiles_x,
+            torch.cuda.current_stream(g_runs.device).cuda_stream,
+        )
+    _raise_on(err, "blend_runs_bwd")
+    launches["blend_runs_bwd"] += 1
+    return dg
+
+
 class BlendFn(torch.autograd.Function):
     """A blend with its gradient: ``apply(g, fwd, bwd, tiles_x, *index)``
     returns ``fwd(g, *index, tiles_x)``'s (out, tentry); the gradient of g is
-    ``bwd(g, *index, tentry, dout, tiles_x)``. ``index`` is (counts,) or
-    (counts, tids); tentry and the index get no gradient."""
+    ``bwd(g, *index, tentry, dout, tiles_x)``. ``index`` is (counts,),
+    (counts, tids) or (counts, sblk); tentry and the index get no gradient."""
 
     @staticmethod
     def forward(ctx, g, fwd, bwd, tiles_x, *index):
@@ -439,3 +564,12 @@ def blend_permuted_gm(g: torch.Tensor, counts: torch.Tensor, tids: torch.Tensor,
     (T,) int32 (rows past the count are masked), tids: (T,) int32 real tile
     id per row. Returns (out, tentry); differentiable in g."""
     return BlendFn.apply(g, blend_permuted_gm_fwd, blend_permuted_gm_bwd, tiles_x, counts, tids)
+
+
+def blend_runs(g_runs: torch.Tensor, counts: torch.Tensor, sblk: torch.Tensor, chunks: int, tiles_x: int):
+    """Blend of one aligned-runs array. g_runs: (16, M2) f32 channel-major
+    slots, counts: (T,) int32 hit counts clamped to chunks * 128, sblk: (T,)
+    int32 first block of each tile's run. Returns (out, tentry (T, chunks,
+    1024)); differentiable in g_runs."""
+    fwd = lambda g, c, s, tx: blend_runs_fwd(g, c, s, chunks, tx)
+    return BlendFn.apply(g_runs, fwd, blend_runs_bwd, tiles_x, counts, sblk)

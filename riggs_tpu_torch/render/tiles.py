@@ -3,7 +3,9 @@
 Port of ``riggs_tpu/render/tiles.py:rasterize_tiled``: the sort binner
 (and the dense one), the plain-window blend (``blend.blend_cm``,
 ``tiles.py:399-437``), the laddered blend (``blend.blend_permuted_gm``,
-``tiles.py:294-367``), the untile step and the overflow counters. The
+``tiles.py:294-367``), the aligned-runs binner with its blend
+(``blend.blend_runs``, ``tiles.py:368-388``), the untile step and the
+overflow counters. The
 reference's XLA scan blend (``blend='jnp'``) has no separate port: the
 kernels' plain versions take its place on the CPU.
 
@@ -22,6 +24,7 @@ from riggs_tpu_torch.render.binning import (
     TILE,
     _extract_windows,
     bin_gaussians,
+    bin_gaussians_runs,
     bin_gaussians_sorted,
 )
 from riggs_tpu_torch.render.project import build_cov3d_packed, project_gaussians
@@ -34,7 +37,8 @@ def _round_up(n: int) -> int:
 
 
 def _gather_windows(packed: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Window rows ``packed[idx]`` at the valid slots, zeros at the others.
+    """Rows ``packed[idx]`` at the valid slots, zeros at the others (idx and
+    valid of one shape: (T, MAX) windows or the (M2,) runs).
 
     The reference gathers every slot, its invalid ones reading row 0. Torch's
     index backward accumulates the duplicates of one row serially, so those
@@ -64,6 +68,7 @@ def rasterize_tiled(
     mean2d_bias: torch.Tensor | None = None,
     binning: str = "sort",
     max_tiles_per_gaussian: int = 16,
+    max_instances: int | None = None,
     giant_cap: int = 256,
     giant_side: int = 12,
     mid_cap: int = 0,
@@ -73,16 +78,23 @@ def rasterize_tiled(
 ) -> dict:
     """Render one view. colors (N, 3) RGB; opacity (N,) activated.
 
-    binning='sort' is the (tile, depth, gid) sort binner; 'dense' the exact
-    dense-mask reference. ``tile_ladder`` ((n_tiles, cap), ...) gives the
-    count-sorted tiles rank-dependent window capacities (render/ladder.py).
+    binning='sort' is the (tile, depth, gid) sort binner; 'runs' the same
+    sort laid out as aligned runs under an instance budget
+    ``max_instances`` (default 4 N); 'dense' the exact dense-mask reference.
+    ``tile_ladder`` ((n_tiles, cap), ...) gives the count-sorted tiles
+    rank-dependent window capacities (render/ladder.py; sort binner only).
     Returns image (H, W, 3), depth, alpha, radii, proj, the overflow
-    counters and the true per-tile hit counts.
+    counters (``overflow_budget`` 0 but on the runs path) and the true
+    per-tile hit counts.
     """
     if tile_shard_mesh is not None:
+        if tile_ladder is not None or binning == "runs":
+            raise ValueError("tile_shard_mesh composes with the plain-window blend only")
         raise NotImplementedError("tile-sharded rendering comes with the multi-device port (ROADMAP A11)")
-    if binning not in ("sort", "dense"):
-        raise NotImplementedError(f"binning={binning!r} is not ported yet (ROADMAP A9; runs kernels: Queue B)")
+    if binning not in ("sort", "runs", "dense"):
+        raise NotImplementedError(f"binning={binning!r} is not ported yet (ROADMAP A9)")
+    if tile_ladder is not None and binning != "sort":
+        raise ValueError("tile_ladder requires binning='sort'")
 
     if cov3d is None:
         cov3d = build_cov3d_packed(scales, rotations, scale_modifier)
@@ -96,6 +108,11 @@ def rasterize_tiled(
             opacity=op_masked.detach(), giant_cap=giant_cap, giant_side=giant_side,
             mid_cap=mid_cap, mid_side=mid_side,
         )
+    elif binning == "runs":
+        bins = bin_gaussians_runs(
+            proj, cam.width, cam.height, max_per_tile=max_per_tile,
+            max_tiles_per_gaussian=max_tiles_per_gaussian, max_instances=max_instances,
+        )
     else:
         bins = bin_gaussians(proj, cam.width, cam.height, max_per_tile=max_per_tile)
 
@@ -105,8 +122,6 @@ def rasterize_tiled(
     )  # (N, 10)
     T = bins.tiles_x * bins.tiles_y
     if tile_ladder is not None:
-        if bins.starts is None:
-            raise ValueError("tile_ladder requires binning='sort'")
         if sum(n for n, _ in tile_ladder) != T:
             raise ValueError(f"tile_ladder bucket sizes must sum to the tile count {T}: {tile_ladder}")
         ordr = torch.argsort(-bins.count, stable=True)
@@ -138,14 +153,20 @@ def rasterize_tiled(
         out = torch.cat(outs, dim=0)[inv]  # (T, 8, P) back in tile order
         overflow_tiles = ladder_overflow
     else:
-        # invalid slots are all zero, their opacity included: the reference's
-        # opacity mask (tiles.py:402) is the gather's zeros here
-        g = _gather_windows(packed, bins.idx, bins.valid)  # (T, MAX, 10)
-        gp = torch.nn.functional.pad(g, (0, _blend.PACK_ROWS - g.shape[-1]))
-        gp = gp.transpose(1, 2).contiguous()  # (T, 16, MAX)
         counts = torch.clamp(bins.count, max=max_per_tile).to(torch.int32)
-        out, _ = _blend.blend_cm(gp, counts, bins.tiles_x)
         overflow_tiles = torch.sum(torch.clamp(bins.count - max_per_tile, min=0))
+        if bins.runs is not None:
+            # one row per aligned slot; the sentinel slots (id N) are zero rows
+            attrs = _gather_windows(packed, bins.runs.gid, bins.runs.gid < packed.shape[0])  # (M2, 10)
+            g_runs = torch.nn.functional.pad(attrs, (0, _blend.PACK_ROWS - attrs.shape[-1])).t().contiguous()
+            out, _ = _blend.blend_runs(g_runs, counts, bins.runs.sblk, max_per_tile // G_CHUNK, bins.tiles_x)
+        else:
+            # invalid slots are all zero, their opacity included: the
+            # reference's opacity mask (tiles.py:402) is the gather's zeros here
+            g = _gather_windows(packed, bins.idx, bins.valid)  # (T, MAX, 10)
+            gp = torch.nn.functional.pad(g, (0, _blend.PACK_ROWS - g.shape[-1]))
+            gp = gp.transpose(1, 2).contiguous()  # (T, 16, MAX)
+            out, _ = _blend.blend_cm(gp, counts, bins.tiles_x)
 
     rgb = out[:, 0:3, :].transpose(1, 2)  # (T, P, 3)
     dep = out[:, 3, :]
@@ -162,15 +183,19 @@ def rasterize_tiled(
     image = untile(rgb) + (1.0 - untile(acc[..., None])) * bg
     overflow_rect = bins.overflow
     overflow_tiles = overflow_tiles.to(torch.int32)
+    overflow_budget = bins.overflow_budget
+    if overflow_budget is None:
+        overflow_budget = torch.zeros((), dtype=torch.int32, device=overflow_rect.device)
     return dict(
         image=image,
         depth=untile(dep[..., None])[..., 0],
         alpha=untile(acc[..., None])[..., 0],
         radii=proj.radius,
         proj=proj,
-        overflow=overflow_tiles + overflow_rect,
+        overflow=overflow_tiles + overflow_rect + overflow_budget,
         overflow_tiles=overflow_tiles,
         overflow_rect=overflow_rect,
+        overflow_budget=overflow_budget,
         max_count=torch.max(bins.count),
         tile_counts=bins.count,  # (T,) true hit counts: the ladder's probe input
     )

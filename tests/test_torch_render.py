@@ -249,7 +249,7 @@ def test_deferred_arguments_raise():
     means, colors, opacity, scales, rots = _t(*_scene(rng, 10))
     _, tc = _cams(32, 32)
     bg = torch.zeros(3)
-    for kw in (dict(binning="runs"), dict(binning="compact"), dict(tile_shard_mesh=object())):
+    for kw in (dict(binning="compact"), dict(binning="sort2"), dict(tile_shard_mesh=object())):
         with pytest.raises(NotImplementedError):
             t_rasterize(tc, means, colors, opacity, scales, rots, bg, **kw)
     # mean2d_bias is ported: a zero bias renders the same image
