@@ -11,7 +11,11 @@ Phases, each printed as it runs:
      the full-width scene really bins (plain windows and every ladder
      bucket), max |delta| and CUDA-event times (plain, kernel, kernel, plain)
      per frame beside the bound; then the tiled renderer against the exact
-     oracle on a small scene;
+     oracle on a small scene; then bwd-edges: each backward kernel against
+     its plain version on seeded synthetic windows (a tile of 64 chunks,
+     counts ending mid-chunk, an empty tile, a tile saturating in chunk 3 of
+     10), exact zeros where due, a second launch bitwise equal, and no
+     launch for T == 0 or C == 0;
   4. slice: the rigged avatar at full stage-2 width (131072-slot capacity,
      100000 alive Gaussians, SH degree 3, motion mask, a seeded 24-joint
      tree, three 8x256 MLPs, dense skinning, 800x800): eval_image at several
@@ -29,8 +33,9 @@ Phases, each printed as it runs:
      counters zeroed just before and read just after; the frame loss's
      gradient of every parameter group, finite and nonzero where the flags
      give one, kernel path against plain-version path; each backward kernel
-     against its plain version on the inputs it got in a real step, with its
-     time beside its bound; the step time, its three parts (the ranges
+     against its plain version on the inputs it got in a real step (and a
+     second launch bitwise equal), with its time beside its bound, and each
+     call's own time (the ladder's buckets one by one); the step time, its three parts (the ranges
      stage2_step names for the profiler), and the device's busy time and
      idle share per step;
   7. runs: the same avatar through render_auto(binning="runs") and the
@@ -46,8 +51,10 @@ Phases, each printed as it runs:
      at it = 0 (warm-up) and 5000 (chamfer and the motion-mask loss on) on
      plain windows and on a fitted ladder, with the counters zeroed just
      before and read just after; gradients finite and nonzero where the
-     flags give one, kernel path against plain-version path; step time,
-     busy time and idle share; the node warp timed alone.
+     flags give one, kernel path against plain-version path; each backward
+     kernel against its plain version on a real step's inputs, with each
+     call's time; step time, busy time and idle share; the node warp timed
+     alone.
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without CUDA
 it exits 2 and prints no result. Imports nothing of JAX or riggs_tpu.
@@ -57,6 +64,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -86,28 +94,43 @@ KERNEL_TOL = {"rgb_acc": 2e-5, "depth": 2e-4, "tentry": 1e-5}
 # ladder vs plain windows, and kernel path vs plain-version path (the
 # reference's own bounds, tests/test_pallas_blend.py:88-91)
 PATH_TOL = {"image": 2e-5, "alpha": 2e-5, "depth": 2e-4}
-# the card's peaks for the bound (NVIDIA H100 SXM data sheet)
+# the card's rates for the bound (NVIDIA H100 SXM: 132 SMs at 1.98 GHz).
+# HBM: the data sheet's 3.35 TB/s. FP32 instructions: 128 lanes per SM, one
+# instruction each per clock, 33.5e12/s; the data sheet's 67 TFLOP/s counts
+# an FMA as two. The counts below are instructions: a product and sum that
+# the kernel leaves to FMA contraction (the accumulations) count as one, a
+# product or sum that it rounds on its own (__fmul_rn / __fadd_rn: the EWA
+# power, alpha, transmittance and the values the thresholds or the
+# backward's two sweeps compare) as one each. exp and log1p: the
+# special-function unit, 16 per clock per SM, 4.18e12/s.
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+FP32_INSTR_PER_S = 33.5e12
+SFU_OPS_PER_S = 4.18e12
 # FP32 and SFU operations of the blend: every (Gaussian, pixel) pair of an
-# active chunk needs the EWA power and the alpha test (2 sub, 9 mul/add,
-# exp, 4 compare/min); a pair whose alpha reaches 1/255 also needs the
-# transmittance update and the accumulation (log1p, add, exp, mul, compare,
-# sub, div, mul, 5 multiply-adds)
+# active chunk needs the EWA power and the alpha test (2 sub, 9 rounded
+# mul/add, exp, 4 compare/min); a pair whose alpha reaches 1/255 also needs
+# the transmittance update and the accumulation (log1p, add, exp, mul,
+# compare, sub, div, mul: 8; four FMAs into rgb and depth and one add into
+# the weight sum: 5). The SFU counts are the exp and log1p among them.
 OPS_PER_PAIR = 16
-OPS_PER_HIT = 17
+OPS_PER_HIT = 13
+SFU_PER_PAIR = 1
+SFU_PER_HIT = 2
 # the same count for the backward, as the function needs it (csrc/blend.cu
 # blend_bwd recomputes the power, alpha and transmittance in a second sweep;
 # that is the design's cost, not the function's): every live pair needs the
 # EWA power and the alpha test once (16); a pair whose alpha reaches 1/255
 # also needs the transmittance update and weights (log1p, add, exp, mul,
-# compare, sub, div, 2 mul: 9), the value dot [rgb, depth, 1] . dC (8), the
-# running sum of w * vdc (2), the suffix (2), dalpha (3), dpower (compare,
-# mul: 2), the five moments (5), w * dC[0:4] (4), and one add for each of
-# its ten sums over the tile's pixels (10). The per-row assembly of dg is
-# per row, not per pair, and not counted.
+# compare, sub, div, 2 mul: 9), the rounded value dot [rgb, depth, 1] . dC
+# (8), the rounded running sum of w * vdc (2), the suffix (2), dalpha (3),
+# dpower (compare, mul: 2), and its ten sums over the tile's pixels (12):
+# dx * dpower and dy * dpower (2 mul), their sums and dpower's (3 add), the
+# three second moments (3 FMA) and w * dC[0:4] (4 FMA). The per-row assembly
+# of dg is per row, not per pair, and not counted.
 OPS_PER_PAIR_BWD = OPS_PER_PAIR
-OPS_PER_HIT_BWD = 45
+OPS_PER_HIT_BWD = 38
+SFU_PER_PAIR_BWD = SFU_PER_PAIR
+SFU_PER_HIT_BWD = 2  # log1p, exp
 # backward kernel vs plain version, and the step's gradient on the kernel
 # path vs the plain-version path: per column (attribute, or parameter leaf)
 # max |delta| <= 1e-3 * max |plain|
@@ -118,6 +141,18 @@ UID, N_FRAMES, N_THIN = 0, 4, 256  # the template frame; pre_d_* frames; padded 
 RUNS_T = 0.3  # the [runs] frame's time
 STAGE1_ITS = (0, 5000)  # warm-up; past warm_up with the ARAP and motion-mask lambdas on
 STAGE1_STEPS = 2  # counted steps per (it, path)
+
+
+def _bound(nbytes, ops, sfu):
+    """The least time the card could take for the work: the largest of the
+    bytes over the HBM rate, the FP32 instructions over their issue rate and
+    the exp / log1p over the SFU rate. The kernels line's schema allows
+    only "bytes" or "operations" in ``bound_by``, so ``bound_term`` names
+    which of the two operation terms it is."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "fp32 instructions": ops / FP32_INSTR_PER_S * 1e3,
+             "sfu operations": sfu / SFU_OPS_PER_S * 1e3}
+    term = max(terms, key=terms.get)
+    return {"bound_ms": terms[term], "bound_by": "bytes" if term == "bytes" else "operations", "bound_term": term}
 
 
 def build_avatar(seed: int, n_alive: int, capacity: int, size: int, device: str):
@@ -289,9 +324,8 @@ def _work(name, calls, outs):
         nbytes += counts.numel() * 4 * (1 if name == "blend_cm" else 2)  # counts (and tids or sblk)
         nbytes += out.shape[0] * 5 * out.shape[2] * 4
     ops = pairs * OPS_PER_PAIR + hits * OPS_PER_HIT
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return {"pairs": pairs, "hits": hits, "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    sfu = pairs * SFU_PER_PAIR + hits * SFU_PER_HIT
+    return {"pairs": pairs, "hits": hits, "bytes": nbytes, "ops": ops, "sfu": sfu, **_bound(nbytes, ops, sfu)}
 
 
 def check_kernels(blend, captured, tag="[kernels]"):
@@ -340,8 +374,8 @@ def check_kernels(blend, captured, tag="[kernels]"):
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
         print(f"{tag} {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms per frame; "
               f"{work['pairs']} (Gaussian, pixel) pairs ({work['hits']} with alpha >= 1/255), "
-              f"{work['ops']} operations, {work['bytes']} bytes, "
-              f"bound {work['bound_ms']:.4f} ms by {work['bound_by']}")
+              f"{work['ops']} operations ({work['sfu']} exp/log1p), {work['bytes']} bytes, "
+              f"bound {work['bound_ms']:.4f} ms by {work['bound_term']}")
         results[name] = dict(err=err, ms=ms, plain_ms=plain_ms, launches_per_frame=len(calls), **work)
     return results
 
@@ -512,9 +546,8 @@ def _work_bwd(name, calls):
         nbytes += int(used.sum()) * 5 * dout.shape[2] * 4  # dout
         nbytes += int(counts.sum()) * 10 * 4  # dg
     ops = pairs * OPS_PER_PAIR_BWD + hits * OPS_PER_HIT_BWD
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return {"pairs": pairs, "hits": hits, "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    sfu = pairs * SFU_PER_PAIR_BWD + hits * SFU_PER_HIT_BWD
+    return {"pairs": pairs, "hits": hits, "bytes": nbytes, "ops": ops, "sfu": sfu, **_bound(nbytes, ops, sfu)}
 
 
 def _column_err(a, b, axis):
@@ -547,34 +580,10 @@ def _check_bwd_kernel(name, calls, kern, plain, tag="[train]"):
 
     if not calls:
         raise RuntimeError(f"the step made no {name} call")
-    axis = {"blend_cm_bwd": 1, "blend_permuted_gm_bwd": 2, "blend_runs_bwd": 0}[name]
-    err = torch.zeros(10 if axis == 2 else 16, dtype=torch.float64)
-    scale = torch.zeros_like(err)
-    for args in calls:
-        kd, pd = kern[name](*args), plain[name](*args)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(kd).all()):
-            raise RuntimeError(f"{name}: non-finite kernel output")
-        if name == "blend_cm_bwd":
-            if bool(kd[:, 10:].any()):
-                raise RuntimeError(f"{name}: padding rows of dg are not zero")
-        elif name == "blend_runs_bwd":
-            if bool(kd[10:].any()) or bool(kd[:, -128:].any()):
-                raise RuntimeError(f"{name}: padding rows or the spare block of dg are not zero")
-        else:
-            counts = args[1].to(torch.int64)
-            past = torch.arange(kd.shape[1], device=kd.device)[None, :] >= counts[:, None]
-            if bool(kd[past].any()):
-                raise RuntimeError(f"{name}: rows past the count are not zero")
-        e, s = _column_err(kd, pd, axis)
-        err = torch.maximum(err, e.double().cpu())
-        scale = torch.maximum(scale, s.double().cpu())
-    rel = torch.where(scale > 0, err / scale.clamp(min=1e-300), err)
+    err, rel = _hold_bwd(name, calls, kern[name], plain[name])
     print(f"{tag} {name}: {len(calls)} launch(es) per step, shapes {[tuple(a[0].shape) for a in calls]}; "
           f"per dg column max|d| / max|plain|: " + " ".join(f"{v:.2e}" for v in rel[:10].tolist())
-          + f"; max|d| {float(err.max()):.3e}")
-    if not float(rel.max()) <= BWD_TOL:
-        raise RuntimeError(f"{name}: kernel vs plain column error {float(rel.max()):.3e} > {BWD_TOL}")
+          + f"; max|d| {float(err.max()):.3e}; exact zeros where due; a second launch bitwise equal")
 
     def run(fns):
         return lambda: [fns[name](*a) for a in calls]
@@ -589,9 +598,208 @@ def _check_bwd_kernel(name, calls, kern, plain, tag="[train]"):
     work = _work_bwd(name, calls)
     print(f"{tag} {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms per step; "
           f"{work['pairs']} live (Gaussian, pixel) pairs ({work['hits']} with alpha >= 1/255), "
-          f"{work['ops']} operations, {work['bytes']} bytes, bound {work['bound_ms']:.4f} ms by {work['bound_by']}")
+          f"{work['ops']} operations ({work['sfu']} exp/log1p), {work['bytes']} bytes, "
+          f"bound {work['bound_ms']:.4f} ms by {work['bound_term']}")
+    # each call on its own: where a step's backward time goes (the ladder's
+    # buckets); CUDA events around the wrapper, and the device time of its
+    # kernels by name (torch.profiler), which leaves out the host's share
+    for a in calls:
+        ms = _event_ms(lambda a=a: kern[name](*a), 10)
+        w = _work_bwd(name, [a])
+        print(f"{tag} {name} call {tuple(a[0].shape)}: {ms:.4f} ms; device " + _device_ms(lambda a=a: kern[name](*a))
+              + f"; {w['pairs']} live pairs, bound {w['bound_ms']:.4f} ms by {w['bound_term']}")
     return dict(err=float(err.max()), rel=float(rel.max()), ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                 launches_per_step=len(calls), **work)
+
+
+def _device_ms(fn, n=10):
+    """Device ms per call of fn by kernel name (torch.profiler over n calls),
+    as "name ms, ..."."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"\w+(<[^>]*>)?(?=\()", e.key)  # the kernel's name and template arguments
+            key = m.group(0) if m else e.key[:30]
+            times[key] = times.get(key, 0.0) + e.self_device_time_total / 1e3 / n
+    return ", ".join(f"{k} {v:.4f}" for k, v in sorted(times.items(), key=lambda kv: -kv[1])) or "not measured"
+
+
+def _zero_mask(name, args):
+    """Where a backward kernel must write exact zeros: the rows of inactive
+    (tile, chunk) pairs (the chunk starts past the count, or no pixel enters
+    it with T >= 1e-4) and the channel-major padding rows; gaussian-major
+    rows past the count; in the runs layout every slot but the active pairs'
+    own blocks (the spare block included)."""
+    import torch
+
+    from riggs_tpu_torch.render import blend as B
+
+    g, counts, tentry = args[0], args[1].to(torch.int64), args[-3]
+    T, C = tentry.shape[:2]
+    c = torch.arange(C, device=g.device)
+    active = (c[None, :] * 128 < counts[:, None]) & (tentry.amax(dim=2) >= 1e-4)  # (T, C)
+    if name == "blend_runs_bwd":
+        m2b = g.shape[1] // 128
+        blk = B.runs_blocks(args[1], args[2], C, m2b)
+        own = torch.zeros(m2b, dtype=torch.bool, device=g.device)
+        own[blk[active & (blk < m2b - 1)]] = True
+        mask = (~own).repeat_interleave(128)[None, :].repeat(16, 1)
+        mask[10:] = True
+        return mask
+    rows = (~active).repeat_interleave(128, dim=1)  # (T, MAX)
+    if name == "blend_cm_bwd":
+        mask = rows[:, None, :].repeat(1, 16, 1)
+        mask[:, 10:] = True
+        return mask
+    rows |= torch.arange(C * 128, device=g.device)[None, :] >= counts[:, None]
+    return rows[:, :, None].expand(-1, -1, 10)
+
+
+def _hold_bwd(name, calls, kern, plain):
+    """A backward kernel against its plain version on ``calls``: finite, per
+    dg column max |delta| <= BWD_TOL * max |plain column|, exact zeros where
+    _zero_mask says, and a second launch on the same inputs bitwise equal
+    (no atomics). Returns the per-column max |delta| and relative error."""
+    import torch
+
+    axis = {"blend_cm_bwd": 1, "blend_permuted_gm_bwd": 2, "blend_runs_bwd": 0}[name]
+    err = torch.zeros(10 if axis == 2 else 16, dtype=torch.float64)
+    scale = torch.zeros_like(err)
+    for args in calls:
+        kd, pd = kern(*args), plain(*args)
+        kd2 = kern(*args)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(kd).all()):
+            raise RuntimeError(f"{name}: non-finite kernel output")
+        if bool(kd[_zero_mask(name, args)].any()):
+            raise RuntimeError(f"{name} {tuple(args[0].shape)}: dg is not zero where it must be")
+        if not torch.equal(kd.view(torch.int32), kd2.view(torch.int32)):
+            raise RuntimeError(f"{name} {tuple(args[0].shape)}: two launches on the same inputs differ")
+        e, s = _column_err(kd, pd, axis)
+        err = torch.maximum(err, e.double().cpu())
+        scale = torch.maximum(scale, s.double().cpu())
+    rel = torch.where(scale > 0, err / scale.clamp(min=1e-300), err)
+    if not float(rel.max()) <= BWD_TOL:
+        raise RuntimeError(f"{name}: kernel vs plain column error {float(rel.max()):.3e} > {BWD_TOL}")
+    return err, rel
+
+
+EDGE_TILES_X = 2  # a 2 x 2-tile image
+EDGE_CHUNKS = 64
+# one tile of 64 full chunks; a count ending mid-chunk; an empty tile; a
+# tile whose pixels all fall below 1e-4 in chunk 3 (of 10, the count ending
+# mid-chunk): chunks 4-9 inactive, chunks 0-2 carrying chunk 3's suffix
+EDGE_COUNTS = (EDGE_CHUNKS * 128, 1000, 0, 1250)
+EDGE_SATURATE = (3, 3)  # (row, chunk)
+
+
+def _edge_windows(rng, tiles, chunks):
+    """Seeded gaussian-major windows (T, chunks * 128, 10) for [bwd-edges]:
+    row t renders ``tiles[t]``; splats of 1.5-4 px around it, faint in row
+    0 (its pixels stay live through most of the 64 chunks), and in chunk
+    EDGE_SATURATE[1] of row EDGE_SATURATE[0] two opaque layers on a 4 px
+    grid that cover the tile."""
+    T, n = len(tiles), chunks * 128
+    g = np.zeros((T, n, 10), np.float32)
+    ox = np.array([(t % EDGE_TILES_X) * 32 for t in tiles], np.float32)[:, None]
+    oy = np.array([(t // EDGE_TILES_X) * 32 for t in tiles], np.float32)[:, None]
+    g[..., 0] = ox + rng.uniform(-4, 36, (T, n))
+    g[..., 1] = oy + rng.uniform(-4, 36, (T, n))
+    a = 1.0 / rng.uniform(1.5, 4.0, (T, n)) ** 2
+    g[..., 2] = a
+    g[..., 3] = rng.uniform(-0.3, 0.3, (T, n)) * a
+    g[..., 4] = a * rng.uniform(0.5, 1.5, (T, n))
+    g[..., 5] = rng.uniform(0.05, 0.6, (T, n))
+    g[0, :, 5] = rng.uniform(0.01, 0.05, n)
+    g[..., 6:9] = rng.uniform(0, 1, (T, n, 3))
+    g[..., 9] = rng.uniform(1, 5, (T, n))
+    r, c = EDGE_SATURATE
+    grid = np.arange(0, 32, 4, dtype=np.float32) + 2
+    xs, ys = np.meshgrid(grid, grid)
+    rows = slice(c * 128, (c + 1) * 128)
+    g[r, rows, 0] = ox[r] + np.tile(xs.ravel(), 2)
+    g[r, rows, 1] = oy[r] + np.tile(ys.ravel(), 2)
+    g[r, rows, 2:5] = [1 / 25, 0.0, 1 / 25]
+    g[r, rows, 5] = 0.98
+    return g
+
+
+def bwd_edges_phase(blend, device):
+    """[bwd-edges]: each backward kernel against its plain version on the
+    seeded EDGE_COUNTS windows (tentry from the plain forward), per dg
+    column max |delta| <= BWD_TOL * max |plain|, exact zeros where due and
+    a second launch bitwise equal; then T == 0 and C == 0 return without a
+    launch (the runs dg all zero)."""
+    import torch
+
+    rng = np.random.default_rng(11)
+    tids = (3, 1, 0, 2)
+    counts = torch.tensor(EDGE_COUNTS, dtype=torch.int32, device=device)
+    dout = torch.tensor(rng.normal(size=(len(tids), 8, 1024)), dtype=torch.float32, device=device)
+    w_cm = _edge_windows(np.random.default_rng(12), range(len(tids)), EDGE_CHUNKS)
+    w_gm = _edge_windows(np.random.default_rng(12), tids, EDGE_CHUNKS)
+    for t, n in enumerate(EDGE_COUNTS):
+        w_cm[t, n:, 5] = 0.0  # the caller masks opacity past the count (channel-major windows)
+        w_gm[t, n:, 5:] = [0.99, 1e3, 1e3, 1e3, 1e3]  # garbage the kernel must mask
+    g_cm = torch.zeros((len(tids), 16, w_cm.shape[1]), dtype=torch.float32, device=device)
+    g_cm[:, :10] = torch.tensor(w_cm, device=device).transpose(1, 2)
+    g_gm = torch.tensor(w_gm, device=device)
+    tids_t = torch.tensor(tids, dtype=torch.int32, device=device)
+    # the runs layout: each tile's count rows as one run, zeros past it, a spare block of garbage
+    nblk = [-(-n // 128) for n in EDGE_COUNTS]
+    sblk = torch.tensor(np.concatenate([[0], np.cumsum(nblk)[:-1]]), dtype=torch.int32, device=device)
+    m2b = sum(nblk) + 1
+    g_runs = torch.zeros((16, m2b * 128), dtype=torch.float32, device=device)
+    for t, n in enumerate(EDGE_COUNTS):
+        s = int(sblk[t]) * 128
+        g_runs[:10, s:s + n] = torch.tensor(w_cm[t, :n].T, device=device)
+    g_runs[:10, -128:] = 7.0
+
+    with torch.no_grad():
+        te_cm = blend.blend_cm_plain(g_cm, counts, EDGE_TILES_X)[1]
+        te_gm = blend.blend_permuted_gm_plain(g_gm, counts, tids_t, EDGE_TILES_X)[1]
+        te_runs = blend.blend_runs_plain(g_runs, counts, sblk, EDGE_CHUNKS, EDGE_TILES_X)[1]
+        r, c = EDGE_SATURATE
+        for what, te in (("cm", te_cm), ("gm", te_gm), ("runs", te_runs)):
+            live = te.amax(dim=2) >= 1e-4
+            if not (bool(live[r, c]) and not bool(live[r, c + 1:].any()) and int(live[0].sum()) > EDGE_CHUNKS // 2):
+                raise RuntimeError(f"[bwd-edges] {what}: the windows do not give the cases: "
+                                   f"live chunks {live.sum(1).tolist()}")
+        cases = (("blend_cm_bwd", (g_cm, counts, te_cm, dout, EDGE_TILES_X)),
+                 ("blend_permuted_gm_bwd", (g_gm, counts, tids_t, te_gm, dout, EDGE_TILES_X)),
+                 ("blend_runs_bwd", (g_runs, counts, sblk, te_runs, dout, EDGE_TILES_X)))
+        for name, args in cases:
+            _, rel = _hold_bwd(name, [args], getattr(blend, name), getattr(blend, f"{name}_plain"))
+            print(f"[bwd-edges] {name} {tuple(args[0].shape)}, counts {EDGE_COUNTS}: per dg column "
+                  "max|d| / max|plain| " + " ".join(f"{v:.2e}" for v in rel[:10].tolist())
+                  + "; exact zeros where due; a second launch bitwise equal")
+        started = torch.arange(EDGE_CHUNKS, device=device)[None, :] * 128 < counts[:, None]
+        print(f"[bwd-edges] active chunks per tile {((te_cm.amax(dim=2) >= 1e-4) & started).sum(1).tolist()}; "
+              f"tile {r} live in chunk {c}, below 1e-4 from chunk {c + 1} on")
+
+        # no work: T == 0 and C == 0 launch nothing
+        before = dict(blend.launches)
+        for T, C in ((0, 10), (2, 0)):
+            z = dict(counts=torch.zeros(T, dtype=torch.int32, device=device),
+                     tentry=torch.ones((T, C, 1024), device=device), dout=torch.ones((T, 8, 1024), device=device))
+            dg = blend.blend_cm_bwd(torch.ones((T, 16, C * 128), device=device), z["counts"], z["tentry"], z["dout"], 2)
+            dgm = blend.blend_permuted_gm_bwd(torch.ones((T, C * 128, 10), device=device), z["counts"], z["counts"],
+                                              z["tentry"], z["dout"], 2)
+            dgr = blend.blend_runs_bwd(torch.ones((16, 256), device=device), z["counts"], z["counts"], z["tentry"],
+                                       z["dout"], 2)
+            torch.cuda.synchronize()
+            if dg.shape != (T, 16, C * 128) or dgm.shape != (T, C * 128, 10) or bool(dgr.any()):
+                raise RuntimeError(f"[bwd-edges] T={T} C={C}: wrong shapes or a nonzero runs dg")
+        if blend.launches != before:
+            raise RuntimeError(f"[bwd-edges] T == 0 or C == 0 launched a kernel: {before} -> {blend.launches}")
+        print("[bwd-edges] T == 0 and C == 0: no launch, the runs dg all zero")
 
 
 def build_training(gs, skel, cam, bg, device):
@@ -1116,6 +1324,18 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
             del gk
     print(f"[stage1] gradients finite and nonzero exactly where the flags give one, at it {STAGE1_ITS}")
 
+    # each backward kernel against its plain version on a real step's inputs
+    # (plain windows: the main and the motion-mask render; the ladder's
+    # buckets), with each call's time
+    names = ("blend_cm_bwd", "blend_permuted_gm_bwd")
+    captured = {}
+    for (label, kw), name in zip(paths, names):
+        with _Capture(blend, names) as c:
+            step(fresh(STAGE1_ITS[-1]), fr, bg, arap_t, **flags, **kw)
+        captured[name] = c.calls[name]
+    bres = check_bwd_kernels(blend, captured, tag="[stage1]")
+    del captured
+
     # step time and the device's share of it
     for label, kw in paths:
         st = fresh(STAGE1_ITS[-1])
@@ -1141,7 +1361,7 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
     warp_fb()
     print(f"[stage1] node warp (warp_forward + its backward, {st.gs.capacity} x {st.warp.node_num}): "
           f"{_event_ms(warp_fb, 5):.3f} ms (CUDA events)")
-    return launches
+    return launches, bres
 
 
 def profile_stage1(one, label, step_ms, n=3):
@@ -1216,6 +1436,7 @@ def main() -> int:
     kres = check_kernels(blend, {"blend_cm": cap_plain.calls["blend_cm"],
                                  "blend_permuted_gm": cap_ladder.calls["blend_permuted_gm"]})
     check_oracle(DEVICE)
+    bwd_edges_phase(blend, DEVICE)
 
     # 4. the slice: the main path, launch counters zeroed just before
     torch.cuda.synchronize()
@@ -1286,7 +1507,7 @@ def main() -> int:
     runs_launches, runs_fwd, runs_bwd = runs_phase(blend, gs, skel, cam, bg, cap, frame_train.image)
 
     # 8. the stage-1 phase-B step (its own counted run)
-    stage1_launches = stage1_phase(blend, gs, cam, bg, frame_train)
+    stage1_launches, stage1_bwd = stage1_phase(blend, gs, cam, bg, frame_train)
 
     # forward kernels: times per frame, launches of the serving run; backward
     # kernels: times per training step, launches of the training run
@@ -1300,7 +1521,7 @@ def main() -> int:
             "max_abs_err": max(r["err"].values()), "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "launches_per_frame": r["launches_per_frame"], "ms_per_launch": r["ms"] / r["launches_per_frame"],
-            "launches_stage1": stage1_launches[name],
+            "launches_stage1": stage1_launches[name], "bound_term": r["bound_term"],
         })
     for name, replaces in (("blend_cm_bwd", "riggs_tpu/render/pallas_blend.py:221"),
                            ("blend_permuted_gm_bwd", "riggs_tpu/render/pallas_blend.py:638")):
@@ -1312,6 +1533,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "launches_per_step": r["launches_per_step"], "ms_per_launch": r["ms"] / r["launches_per_step"],
             "max_rel_column_err": r["rel"], "launches_stage1": stage1_launches[name],
+            "bound_term": r["bound_term"], "ms_stage1": stage1_bwd[name]["ms"],
+            "bound_ms_stage1": stage1_bwd[name]["bound_ms"],
         })
     # the runs pair: the forward per frame, the backward per gradient, the
     # launches of the [runs] run
@@ -1321,7 +1544,7 @@ def main() -> int:
         "replaces": "riggs_tpu/render/pallas_blend.py:347", "launches": runs_launches["blend_runs"],
         "max_abs_err": max(r["err"].values()), "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-        "launches_per_frame": r["launches_per_frame"],
+        "launches_per_frame": r["launches_per_frame"], "bound_term": r["bound_term"],
     })
     r = runs_bwd
     rows.append({
@@ -1330,6 +1553,7 @@ def main() -> int:
         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
         "launches_per_step": r["launches_per_step"], "max_rel_column_err": r["rel"],
+        "bound_term": r["bound_term"],
     })
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -32,8 +32,10 @@ the tile has T_entry >= 1e-4.
 Each entry is a ``torch.autograd.Function`` (``BlendFn``): the forward
 kernel, then, for the gradient, the backward kernel that replaces
 ``_bwd_kernel`` / ``_bwd_kernel_gm`` / ``_bwd_kernel_runs``
-(``blend_cm_bwd``, ``blend_permuted_gm_bwd``, ``blend_runs_bwd``). It walks
-each tile's chunks back to front with a running per-pixel suffix sum and
+(``blend_cm_bwd``, ``blend_permuted_gm_bwd``, ``blend_runs_bwd``). One call
+is three device launches, each over every (tile, chunk) pair or every
+(tile, pixel): each chunk's per-pixel s_total into a scratch, the suffix of
+the later chunks' sums, then each chunk's gradients from the two. It
 writes d(mx, my, conic, opacity, rgb, depth) for every window row, exactly 0
 for rows of skipped chunks, rows past the count and the channel-major
 padding rows. Only the first are needed (their true gradient); the window
@@ -311,35 +313,45 @@ def build_log() -> str:
     return _lib_path().with_suffix(".log").read_text()
 
 
+def build(src: Path, lib_path: Path):
+    """Compile ``src`` for sm_90a into ``lib_path``, with ptxas's report
+    beside it (``.log``)."""
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(src),
+    ]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    lib_path.with_suffix(".log").write_text(res.stdout + res.stderr)
+    os.replace(tmp, lib_path)
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build ``csrc/blend.cu`` for sm_90a (once per source version) and load it."""
     lib_path = _lib_path()
     if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(CSRC),
-        ]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        lib_path.with_suffix(".log").write_text(res.stdout + res.stderr)
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+        build(CSRC, lib_path)
+    return bind(ctypes.CDLL(str(lib_path)))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries' argument and result types on a loaded build."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.riggs_blend_fwd_cm.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
     lib.riggs_blend_fwd_cm.restype = ci
     lib.riggs_blend_fwd_gm_permuted.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.riggs_blend_fwd_gm_permuted.restype = ci
-    lib.riggs_blend_bwd_cm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.riggs_blend_bwd_cm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.riggs_blend_bwd_cm.restype = ci
-    lib.riggs_blend_bwd_gm_permuted.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.riggs_blend_bwd_gm_permuted.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.riggs_blend_bwd_gm_permuted.restype = ci
     lib.riggs_blend_fwd_runs.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.riggs_blend_fwd_runs.restype = ci
-    lib.riggs_blend_bwd_runs.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.riggs_blend_bwd_runs.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.riggs_blend_bwd_runs.restype = ci
     return lib
 
@@ -380,6 +392,13 @@ def _check_bwd(g: torch.Tensor, tentry: torch.Tensor, dout: torch.Tensor, T: int
             raise ValueError(f"{name} must be float32 {shape} on {g.device}, got {a.dtype} {tuple(a.shape)} on {a.device}")
         if g.device.type == "cuda" and not a.is_contiguous():
             raise ValueError("the blend kernels take contiguous tensors")
+
+
+def _bwd_scratch(g: torch.Tensor, T: int, C: int) -> torch.Tensor:
+    """The backward's scratch (2, T, C, 1024): per (tile, chunk, pixel)
+    s_total, then the suffix of the later chunks (written by the kernels;
+    the entries of chunks past the count are never read)."""
+    return torch.empty((2, T, C, P_TILE), dtype=torch.float32, device=g.device)
 
 
 def blend_cm_fwd(g: torch.Tensor, counts: torch.Tensor, tiles_x: int):
@@ -434,12 +453,13 @@ def blend_cm_bwd(g: torch.Tensor, counts: torch.Tensor, tentry: torch.Tensor, do
         return blend_cm_bwd_plain(g, counts, tentry, dout, tiles_x)
     T, _, MAX = g.shape
     dg = torch.empty_like(g)
-    if T == 0:
+    if T == 0 or MAX == 0:
         return dg
+    scratch = _bwd_scratch(g, T, MAX // G_CHUNK)
     lib = load_library()
     with torch.cuda.device(g.device):
         err = lib.riggs_blend_bwd_cm(
-            g.data_ptr(), counts.data_ptr(), tentry.data_ptr(), dout.data_ptr(), dg.data_ptr(),
+            g.data_ptr(), counts.data_ptr(), tentry.data_ptr(), dout.data_ptr(), dg.data_ptr(), scratch.data_ptr(),
             T, MAX // G_CHUNK, tiles_x, torch.cuda.current_stream(g.device).cuda_stream,
         )
     _raise_on(err, "blend_cm_bwd")
@@ -458,13 +478,15 @@ def blend_permuted_gm_bwd(g: torch.Tensor, counts: torch.Tensor, tids: torch.Ten
         return blend_permuted_gm_bwd_plain(g, counts, tids, tentry, dout, tiles_x)
     T, MAX, _ = g.shape
     dg = torch.empty_like(g)
-    if T == 0:
+    if T == 0 or MAX == 0:
         return dg
+    scratch = _bwd_scratch(g, T, MAX // G_CHUNK)
     lib = load_library()
     with torch.cuda.device(g.device):
         err = lib.riggs_blend_bwd_gm_permuted(
             g.data_ptr(), counts.data_ptr(), tids.data_ptr(), tentry.data_ptr(), dout.data_ptr(),
-            dg.data_ptr(), T, MAX // G_CHUNK, tiles_x, torch.cuda.current_stream(g.device).cuda_stream,
+            dg.data_ptr(), scratch.data_ptr(), T, MAX // G_CHUNK, tiles_x,
+            torch.cuda.current_stream(g.device).cuda_stream,
         )
     _raise_on(err, "blend_permuted_gm_bwd")
     launches["blend_permuted_gm_bwd"] += 1
@@ -517,12 +539,15 @@ def blend_runs_bwd(g_runs: torch.Tensor, counts: torch.Tensor, sblk: torch.Tenso
     if g_runs.device.type == "cpu":
         plain_bwd_calls["blend_runs_bwd"] += 1
         return blend_runs_bwd_plain(g_runs, counts, sblk, tentry, dout, tiles_x)
+    if T == 0 or tentry.shape[1] == 0:
+        return torch.zeros_like(g_runs)
     dg = torch.empty_like(g_runs)  # the C entry zeroes it on the stream first
+    scratch = _bwd_scratch(g_runs, T, tentry.shape[1])
     lib = load_library()
     with torch.cuda.device(g_runs.device):
         err = lib.riggs_blend_bwd_runs(
             g_runs.data_ptr(), counts.data_ptr(), sblk.data_ptr(), tentry.data_ptr(), dout.data_ptr(),
-            dg.data_ptr(), T, tentry.shape[1], g_runs.shape[1] // G_CHUNK, tiles_x,
+            dg.data_ptr(), scratch.data_ptr(), T, tentry.shape[1], g_runs.shape[1] // G_CHUNK, tiles_x,
             torch.cuda.current_stream(g_runs.device).cuda_stream,
         )
     _raise_on(err, "blend_runs_bwd")
