@@ -7,22 +7,28 @@ check them.
 Phases, each printed as it runs:
   1. device: the card's name and power limit (nvidia-smi), CUDA, nvcc;
   2. build: the blend kernels from riggs_tpu_torch/csrc/ with nvcc (sm_90a);
-  3. kernels: each kernel against its plain PyTorch version on the windows
-     the full-width scene really bins (plain windows and every ladder
-     bucket), max |delta| and CUDA-event times (plain, kernel, kernel, plain)
-     per frame beside the bound; then the tiled renderer against the exact
-     oracle on a small scene; then bwd-edges: each backward kernel against
-     its plain version on seeded synthetic windows (a tile of 64 chunks,
-     counts ending mid-chunk, an empty tile, a tile saturating in chunk 3 of
-     10), exact zeros where due, a second launch bitwise equal, and no
-     launch for T == 0 or C == 0;
+  3. kernels: each forward kernel against its plain PyTorch version on the
+     windows the full-width scene really bins (plain windows and every
+     ladder bucket): tentry bitwise equal (so the same active (tile, chunk)
+     pairs), out within KERNEL_TOL, a second launch bitwise equal; CUDA-event
+     times (plain, kernel, kernel, plain) per frame beside the bound, and
+     each call's own time with the device time of each of its launches; then
+     the tiled renderer against the exact oracle on a small scene; then
+     edges: on seeded synthetic windows (a tile of 64 chunks, counts ending
+     mid-chunk, an empty tile, a tile saturating in chunk 3 of 10, a faint
+     tile live past half its chunks) each forward kernel held as above, then
+     each backward kernel against its plain version on the forward kernel's
+     tentry (exact zeros where due, a second launch bitwise equal), and no
+     launch for T == 0 or C == 0, forward or backward;
   4. slice: the rigged avatar at full stage-2 width (131072-slot capacity,
      100000 alive Gaussians, SH degree 3, motion mask, a seeded 24-joint
      tree, three 8x256 MLPs, dense skinning, 800x800): eval_image at several
      times, one random-motion pose, the ladder probe and fit, the laddered
      renders, with the kernels' launch counters zeroed just before and read
-     just after; then ladder vs plain windows and kernel vs plain-version
-     renders, and per-frame times of both paths;
+     just after; the forward kernels held to their plain versions on the
+     random-motion pose's windows and a laddered frame's; then ladder vs
+     plain windows and kernel vs plain-version renders, and per-frame times
+     of both paths;
   5. profile: for each path, the host-clock split between skeleton_forward
      and render, the device's busy time by kernel (torch.profiler) and its
      idle share;
@@ -32,10 +38,11 @@ Phases, each printed as it runs:
      MLP, chamfer, SH 3) on plain windows and on the ladder, with the launch
      counters zeroed just before and read just after; the frame loss's
      gradient of every parameter group, finite and nonzero where the flags
-     give one, kernel path against plain-version path; each backward kernel
-     against its plain version on the inputs it got in a real step (and a
-     second launch bitwise equal), with its time beside its bound, and each
-     call's own time (the ladder's buckets one by one); the step time, its three parts (the ranges
+     give one, kernel path against plain-version path; each forward and
+     backward kernel against its plain version on the inputs it got in a
+     real step (and a second launch bitwise equal), with its time beside its
+     bound, and each call's own time (the ladder's buckets one by one); the
+     step time, its three parts (the ranges
      stage2_step names for the profiler), and the device's busy time and
      idle share per step;
   7. runs: the same avatar through render_auto(binning="runs") and the
@@ -51,10 +58,10 @@ Phases, each printed as it runs:
      at it = 0 (warm-up) and 5000 (chamfer and the motion-mask loss on) on
      plain windows and on a fitted ladder, with the counters zeroed just
      before and read just after; gradients finite and nonzero where the
-     flags give one, kernel path against plain-version path; each backward
-     kernel against its plain version on a real step's inputs, with each
-     call's time; step time, busy time and idle share; the node warp timed
-     alone.
+     flags give one, kernel path against plain-version path; each forward
+     and backward kernel against its plain version on a real step's inputs,
+     with each call's time; step time, busy time and idle share; the node
+     warp timed alone.
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without CUDA
 it exits 2 and prints no result. Imports nothing of JAX or riggs_tpu.
@@ -88,9 +95,10 @@ CAPACITY, N_ALIVE, SIZE, SH_DEGREE = 131072, 100000, 800, 3
 DEVICE = "cuda"
 FRAME_TIMES = (0.0, 0.3, 0.6, 0.9)
 PROBE_TIMES = tuple(i / 8 for i in range(8)) + FRAME_TIMES
-# kernel vs plain version on the card: same expf/log1pf and operation order,
-# sums in another order (a running sum vs a batched matmul)
-KERNEL_TOL = {"rgb_acc": 2e-5, "depth": 2e-4, "tentry": 1e-5}
+# forward kernel vs plain version on the card: same expf/log1pf and
+# operation order, sums in another order (per-pixel running sums vs a
+# batched matmul); tentry must be bitwise equal (the backward reads it)
+KERNEL_TOL = {"rgb_acc": 2e-5, "depth": 2e-4}
 # ladder vs plain windows, and kernel path vs plain-version path (the
 # reference's own bounds, tests/test_pallas_blend.py:88-91)
 PATH_TOL = {"image": 2e-5, "alpha": 2e-5, "depth": 2e-4}
@@ -279,6 +287,15 @@ def _event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _active(tentry, counts):
+    """(T, C) active (tile, chunk) pairs: the chunk starts before the tile's
+    count and some pixel enters it with T >= 1e-4."""
+    import torch
+
+    c = torch.arange(tentry.shape[1], device=tentry.device)
+    return (c[None, :] * 128 < counts.to(torch.int64)[:, None]) & (tentry.amax(dim=2) >= 1e-4)
+
+
 def _work(name, calls, outs):
     """Bytes and operations the blend calls of one frame need on this data.
     Pairs are the (Gaussian, pixel) pairs of active chunks (the chunk starts
@@ -286,12 +303,13 @@ def _work(name, calls, outs):
     before the count; hits are the pairs whose alpha reaches 1/255. The g
     rows of active chunks are read once, counts (and tids) read once, the
     five used rows of out written once, and tentry written for the chunks
-    that start before the count (the only ones the backward reads)."""
+    that start before the count (the only ones the backward reads). Also
+    the started and active chunks, and the kernels' scratch bytes."""
     import torch
 
     from riggs_tpu_torch.render import blend as B
 
-    pairs = hits = nbytes = 0
+    pairs = hits = nbytes = started = active = scratch = 0
     for args, (out, tentry) in zip(calls, outs):
         g, counts, tiles_x = args[0], args[1].to(torch.int64), args[-1]
         if name == "blend_cm":
@@ -304,9 +322,14 @@ def _work(name, calls, outs):
             tids = args[2].to(torch.int64)
         p = torch.arange(1024, device=g.device)
         r = torch.arange(128, device=g.device)
+        scratch += B.fwd_scratch_bytes(*tentry.shape[:2])
+        act_tc = _active(tentry, counts)
+        active += int(act_tc.sum())
         for c in range(tentry.shape[1]):
-            nbytes += int((c * 128 < counts).sum()) * 1024 * 4  # tentry
-            act = torch.nonzero((c * 128 < counts) & (tentry[:, c].amax(dim=1) >= 1e-4))[:, 0]
+            n_started = int((c * 128 < counts).sum())
+            started += n_started
+            nbytes += n_started * 1024 * 4  # tentry
+            act = torch.nonzero(act_tc[:, c])[:, 0]
             if act.numel() == 0:
                 continue
             rows = (c * 128 + r)[None, :] < counts[act][:, None]  # (A, 128)
@@ -325,58 +348,112 @@ def _work(name, calls, outs):
         nbytes += out.shape[0] * 5 * out.shape[2] * 4
     ops = pairs * OPS_PER_PAIR + hits * OPS_PER_HIT
     sfu = pairs * SFU_PER_PAIR + hits * SFU_PER_HIT
-    return {"pairs": pairs, "hits": hits, "bytes": nbytes, "ops": ops, "sfu": sfu, **_bound(nbytes, ops, sfu)}
+    return {"pairs": pairs, "hits": hits, "bytes": nbytes, "ops": ops, "sfu": sfu, "started": started,
+            "active": active, "scratch_bytes": scratch, **_bound(nbytes, ops, sfu)}
 
 
-def check_kernels(blend, captured, tag="[kernels]"):
-    """Phase 3: each kernel against its plain version on the captured
-    full-width inputs; times in turns plain, kernel, kernel, plain."""
-    import torch
-
-    kern = {"blend_cm": blend.blend_cm, "blend_permuted_gm": blend.blend_permuted_gm, "blend_runs": blend.blend_runs}
+def _fwd_entries(blend):
+    """The forward wrappers and their plain versions, by launch-counter name."""
+    kern = {"blend_cm": blend.blend_cm_fwd, "blend_permuted_gm": blend.blend_permuted_gm_fwd,
+            "blend_runs": blend.blend_runs_fwd}
     plain = {"blend_cm": blend.blend_cm_plain, "blend_permuted_gm": blend.blend_permuted_gm_plain,
              "blend_runs": blend.blend_runs_plain}
-    results = {}
-    for name, calls in captured.items():
-        if not calls:
-            raise RuntimeError(f"the scene produced no {name} call")
-        outs, err = [], {"rgb_acc": 0.0, "depth": 0.0, "tentry": 0.0}
-        for args in calls:
-            ko, kt = kern[name](*args)
-            po, pt = plain[name](*args)
-            torch.cuda.synchronize()
+    return kern, plain
+
+
+def _same_bits(a, b):
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _hold_fwd(name, calls, kern, plain):
+    """A forward kernel against its plain version on ``calls``: finite,
+    tentry bitwise equal (the backward reads it) and so the same active
+    (tile, chunk) pairs, out within KERNEL_TOL, rows 5-7 of out exactly 0,
+    and a second launch on the same inputs bitwise equal (no atomics).
+    Returns (max |delta| of rgb/acc, depth and tentry, the kernel's (out,
+    tentry) per call)."""
+    import torch
+
+    err = {"rgb_acc": 0.0, "depth": 0.0, "tentry": 0.0}
+    outs = []
+    for args in calls:
+        ko, kt = kern(*args)
+        ko2, kt2 = kern(*args)
+        po, pt = plain(*args)
+        torch.cuda.synchronize()
+        what = f"{name} {tuple(args[0].shape)}"
+        if not (bool(torch.isfinite(ko).all()) and bool(torch.isfinite(kt).all())):
+            raise RuntimeError(f"{what}: non-finite kernel output")
+        if bool(torch.any(ko[:, 5:] != 0)):
+            raise RuntimeError(f"{what}: rows 5-7 of out are not zero")
+        if not (_same_bits(ko, ko2) and _same_bits(kt, kt2)):
+            raise RuntimeError(f"{what}: two launches on the same inputs differ")
+        if kt.numel():
+            err["tentry"] = max(err["tentry"], float((kt - pt).abs().max()))
+        if not _same_bits(kt, pt):
+            raise RuntimeError(f"{what}: tentry differs from the plain version's, max |d| {err['tentry']:.3e}")
+        if not torch.equal(_active(kt, args[1]), _active(pt, args[1])):
+            raise RuntimeError(f"{what}: the active (tile, chunk) pairs differ")
+        if ko.numel():
             err["rgb_acc"] = max(err["rgb_acc"], float((ko[:, [0, 1, 2, 4]] - po[:, [0, 1, 2, 4]]).abs().max()))
             err["depth"] = max(err["depth"], float((ko[:, 3] - po[:, 3]).abs().max()))
-            err["tentry"] = max(err["tentry"], float((kt - pt).abs().max()))
-            if not (torch.isfinite(ko).all() and torch.isfinite(kt).all()):
-                raise RuntimeError(f"{name}: non-finite kernel output")
-            if torch.any(ko[:, 5:] != 0):
-                raise RuntimeError(f"{name}: padding rows of out are not zero")
-            outs.append((ko, kt))
-        shapes = [tuple(a[0].shape) for a in calls]
-        print(f"{tag} {name}: {len(calls)} launch(es) per frame, shapes {shapes}, "
-              f"max|d| rgb/acc {err['rgb_acc']:.3e} depth {err['depth']:.3e} tentry {err['tentry']:.3e}")
-        for k, tol in KERNEL_TOL.items():
-            if not err[k] <= tol:
-                raise RuntimeError(f"{name}: max |kernel - plain| {k} {err[k]:.3e} > {tol}")
+        outs.append((ko, kt))
+    for k, tol in KERNEL_TOL.items():
+        if not err[k] <= tol:
+            raise RuntimeError(f"{name}: max |kernel - plain| {k} {err[k]:.3e} > {tol}")
+    return err, outs
 
-        def run(fns):
-            return lambda: [fns[name](*a) for a in calls]
 
-        for fn in (run(kern), run(plain)):  # warm up
-            fn()
-        torch.cuda.synchronize()
-        p1 = _event_ms(run(plain), 3)
-        k1 = _event_ms(run(kern), 20)
-        k2 = _event_ms(run(kern), 20)
-        p2 = _event_ms(run(plain), 3)
-        work = _work(name, calls, outs)
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        print(f"{tag} {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms per frame; "
-              f"{work['pairs']} (Gaussian, pixel) pairs ({work['hits']} with alpha >= 1/255), "
-              f"{work['ops']} operations ({work['sfu']} exp/log1p), {work['bytes']} bytes, "
-              f"bound {work['bound_ms']:.4f} ms by {work['bound_term']}")
-        results[name] = dict(err=err, ms=ms, plain_ms=plain_ms, launches_per_frame=len(calls), **work)
+def check_kernels(blend, captured, tag="[kernels]", per="frame"):
+    """Phase 3: each forward kernel against its plain version on the
+    captured full-width inputs (_hold_fwd); times per frame (or step) in
+    turns plain, kernel, kernel, plain, then each call's own: CUDA events
+    around the wrapper, and the device time of each of its launches."""
+    import torch
+
+    kern, plain = _fwd_entries(blend)
+    results = {}
+    with torch.no_grad():  # a step's captured g is part of its graph
+        for name, calls in captured.items():
+            if not calls:
+                raise RuntimeError(f"the {per} made no {name} call")
+            err, outs = _hold_fwd(name, calls, kern[name], plain[name])
+            work = _work(name, calls, outs)
+            shapes = [tuple(a[0].shape) for a in calls]
+            print(f"{tag} {name}: {len(calls)} call(s) per {per}, shapes {shapes}, max|d| rgb/acc "
+                  f"{err['rgb_acc']:.3e} depth {err['depth']:.3e} tentry {err['tentry']:.3e}; tentry bitwise equal, "
+                  f"the same {work['active']} active of {work['started']} started (tile, chunk) pairs, rows 5-7 "
+                  f"zero, a second launch bitwise equal; scratch {work['scratch_bytes']} bytes per {per}")
+
+            def run(fns):
+                return lambda: [fns[name](*a) for a in calls]
+
+            for fn in (run(kern), run(plain)):  # warm up
+                fn()
+            torch.cuda.synchronize()
+            p1 = _event_ms(run(plain), 3)
+            k1 = _event_ms(run(kern), 20)
+            k2 = _event_ms(run(kern), 20)
+            p2 = _event_ms(run(plain), 3)
+            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            print(f"{tag} {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms per {per}; "
+                  f"{work['pairs']} (Gaussian, pixel) pairs ({work['hits']} with alpha >= 1/255), "
+                  f"{work['ops']} operations ({work['sfu']} exp/log1p), {work['bytes']} bytes, "
+                  f"bound {work['bound_ms']:.4f} ms by {work['bound_term']}")
+            ops = 0  # distinct device operations a call, from the profile (the most of the calls)
+            for a, o in zip(calls, outs):
+                ms_call = _event_ms(lambda a=a: kern[name](*a), 10)
+                w = _work(name, [a], [o])
+                dev, n_ops = _device_ms(lambda a=a: kern[name](*a))
+                ops = max(ops, n_ops)
+                print(f"{tag} {name} call {tuple(a[0].shape)}: {ms_call:.4f} ms; device {dev} "
+                      f"({n_ops} device operations a call); {w['active']} of {w['started']} started chunks "
+                      f"active, {w['pairs']} pairs, scratch {w['scratch_bytes']} bytes, bound {w['bound_ms']:.4f} ms "
+                      f"by {w['bound_term']}")
+            results[name] = dict(err=err, ms=ms, plain_ms=plain_ms, launches_per_frame=len(calls),
+                                 device_ops_per_call=ops, **work)
     return results
 
 
@@ -606,15 +683,18 @@ def _check_bwd_kernel(name, calls, kern, plain, tag="[train]"):
     for a in calls:
         ms = _event_ms(lambda a=a: kern[name](*a), 10)
         w = _work_bwd(name, [a])
-        print(f"{tag} {name} call {tuple(a[0].shape)}: {ms:.4f} ms; device " + _device_ms(lambda a=a: kern[name](*a))
-              + f"; {w['pairs']} live pairs, bound {w['bound_ms']:.4f} ms by {w['bound_term']}")
+        dev, n_ops = _device_ms(lambda a=a: kern[name](*a))
+        print(f"{tag} {name} call {tuple(a[0].shape)}: {ms:.4f} ms; device {dev} ({n_ops} device operations a "
+              f"call); {w['pairs']} live pairs, bound {w['bound_ms']:.4f} ms by {w['bound_term']}")
     return dict(err=float(err.max()), rel=float(rel.max()), ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                 launches_per_step=len(calls), **work)
 
 
 def _device_ms(fn, n=10):
     """Device ms per call of fn by kernel name (torch.profiler over n calls),
-    as "name ms, ..."."""
+    as "name ms, ...", and the number of distinct device operations
+    (kernels, memsets) a call makes (distinct names: robust to the few
+    records the profiler drops)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -628,7 +708,8 @@ def _device_ms(fn, n=10):
             m = re.search(r"\w+(<[^>]*>)?(?=\()", e.key)  # the kernel's name and template arguments
             key = m.group(0) if m else e.key[:30]
             times[key] = times.get(key, 0.0) + e.self_device_time_total / 1e3 / n
-    return ", ".join(f"{k} {v:.4f}" for k, v in sorted(times.items(), key=lambda kv: -kv[1])) or "not measured"
+    text = ", ".join(f"{k} {v:.4f}" for k, v in sorted(times.items(), key=lambda kv: -kv[1])) or "not measured"
+    return text, len(times)
 
 
 def _zero_mask(name, args):
@@ -643,8 +724,7 @@ def _zero_mask(name, args):
 
     g, counts, tentry = args[0], args[1].to(torch.int64), args[-3]
     T, C = tentry.shape[:2]
-    c = torch.arange(C, device=g.device)
-    active = (c[None, :] * 128 < counts[:, None]) & (tentry.amax(dim=2) >= 1e-4)  # (T, C)
+    active = _active(tentry, counts)  # (T, C)
     if name == "blend_runs_bwd":
         m2b = g.shape[1] // 128
         blk = B.runs_blocks(args[1], args[2], C, m2b)
@@ -693,15 +773,16 @@ def _hold_bwd(name, calls, kern, plain):
 
 EDGE_TILES_X = 2  # a 2 x 2-tile image
 EDGE_CHUNKS = 64
-# one tile of 64 full chunks; a count ending mid-chunk; an empty tile; a
-# tile whose pixels all fall below 1e-4 in chunk 3 (of 10, the count ending
-# mid-chunk): chunks 4-9 inactive, chunks 0-2 carrying chunk 3's suffix
+# one faint tile of 64 full chunks, live past half of them; a count ending
+# mid-chunk; an empty tile; a tile whose pixels all fall below 1e-4 in chunk
+# 3 (of 10, the count ending mid-chunk): chunks 4-9 inactive (the forward
+# skips them, the backward's chunks 0-2 carry chunk 3's suffix)
 EDGE_COUNTS = (EDGE_CHUNKS * 128, 1000, 0, 1250)
 EDGE_SATURATE = (3, 3)  # (row, chunk)
 
 
 def _edge_windows(rng, tiles, chunks):
-    """Seeded gaussian-major windows (T, chunks * 128, 10) for [bwd-edges]:
+    """Seeded gaussian-major windows (T, chunks * 128, 10) for [edges]:
     row t renders ``tiles[t]``; splats of 1.5-4 px around it, faint in row
     0 (its pixels stay live through most of the 64 chunks), and in chunk
     EDGE_SATURATE[1] of row EDGE_SATURATE[0] two opaque layers on a 4 px
@@ -731,12 +812,18 @@ def _edge_windows(rng, tiles, chunks):
     return g
 
 
-def bwd_edges_phase(blend, device):
-    """[bwd-edges]: each backward kernel against its plain version on the
-    seeded EDGE_COUNTS windows (tentry from the plain forward), per dg
-    column max |delta| <= BWD_TOL * max |plain|, exact zeros where due and
-    a second launch bitwise equal; then T == 0 and C == 0 return without a
-    launch (the runs dg all zero)."""
+def edges_phase(blend, device):
+    """[edges]: on the seeded EDGE_COUNTS windows, each forward kernel held
+    to its plain version (_hold_fwd: tentry bitwise equal, the same active
+    pairs, out within KERNEL_TOL, rows 5-7 zero, a second launch bitwise
+    equal) and the cases checked on the kernel's tentry; then each backward
+    kernel against its plain version on that tentry, per dg column max
+    |delta| <= BWD_TOL * max |plain|, exact zeros where due and a second
+    launch bitwise equal; then T == 0 and C == 0 return without a launch,
+    forward and backward (out and the runs dg all zero).
+
+    Alone, after a build: python3 -c "import chip_smoke as s; from
+    riggs_tpu_torch.render import blend; s.edges_phase(blend, 'cuda')"."""
     import torch
 
     rng = np.random.default_rng(11)
@@ -762,26 +849,33 @@ def bwd_edges_phase(blend, device):
         g_runs[:10, s:s + n] = torch.tensor(w_cm[t, :n].T, device=device)
     g_runs[:10, -128:] = 7.0
 
+    kern, plain = _fwd_entries(blend)
     with torch.no_grad():
-        te_cm = blend.blend_cm_plain(g_cm, counts, EDGE_TILES_X)[1]
-        te_gm = blend.blend_permuted_gm_plain(g_gm, counts, tids_t, EDGE_TILES_X)[1]
-        te_runs = blend.blend_runs_plain(g_runs, counts, sblk, EDGE_CHUNKS, EDGE_TILES_X)[1]
+        te = {}
+        for name, args in (("blend_cm", (g_cm, counts, EDGE_TILES_X)),
+                           ("blend_permuted_gm", (g_gm, counts, tids_t, EDGE_TILES_X)),
+                           ("blend_runs", (g_runs, counts, sblk, EDGE_CHUNKS, EDGE_TILES_X))):
+            err, outs = _hold_fwd(name, [args], kern[name], plain[name])
+            te[name] = outs[0][1]
+            print(f"[edges] {name} {tuple(args[0].shape)}, counts {EDGE_COUNTS}: max|d| rgb/acc "
+                  f"{err['rgb_acc']:.3e} depth {err['depth']:.3e}; tentry bitwise equal, the same active pairs, "
+                  "rows 5-7 zero, a second launch bitwise equal")
         r, c = EDGE_SATURATE
-        for what, te in (("cm", te_cm), ("gm", te_gm), ("runs", te_runs)):
-            live = te.amax(dim=2) >= 1e-4
+        for name, t in te.items():
+            live = t.amax(dim=2) >= 1e-4
             if not (bool(live[r, c]) and not bool(live[r, c + 1:].any()) and int(live[0].sum()) > EDGE_CHUNKS // 2):
-                raise RuntimeError(f"[bwd-edges] {what}: the windows do not give the cases: "
+                raise RuntimeError(f"[edges] {name}: the windows do not give the cases: "
                                    f"live chunks {live.sum(1).tolist()}")
-        cases = (("blend_cm_bwd", (g_cm, counts, te_cm, dout, EDGE_TILES_X)),
-                 ("blend_permuted_gm_bwd", (g_gm, counts, tids_t, te_gm, dout, EDGE_TILES_X)),
-                 ("blend_runs_bwd", (g_runs, counts, sblk, te_runs, dout, EDGE_TILES_X)))
+        cases = (("blend_cm_bwd", (g_cm, counts, te["blend_cm"], dout, EDGE_TILES_X)),
+                 ("blend_permuted_gm_bwd", (g_gm, counts, tids_t, te["blend_permuted_gm"], dout, EDGE_TILES_X)),
+                 ("blend_runs_bwd", (g_runs, counts, sblk, te["blend_runs"], dout, EDGE_TILES_X)))
         for name, args in cases:
             _, rel = _hold_bwd(name, [args], getattr(blend, name), getattr(blend, f"{name}_plain"))
-            print(f"[bwd-edges] {name} {tuple(args[0].shape)}, counts {EDGE_COUNTS}: per dg column "
+            print(f"[edges] {name} {tuple(args[0].shape)} on the forward kernel's tentry: per dg column "
                   "max|d| / max|plain| " + " ".join(f"{v:.2e}" for v in rel[:10].tolist())
                   + "; exact zeros where due; a second launch bitwise equal")
-        started = torch.arange(EDGE_CHUNKS, device=device)[None, :] * 128 < counts[:, None]
-        print(f"[bwd-edges] active chunks per tile {((te_cm.amax(dim=2) >= 1e-4) & started).sum(1).tolist()}; "
+        print(f"[edges] active chunks per tile {_active(te['blend_cm'], counts).sum(1).tolist()} of "
+              f"{[min(EDGE_CHUNKS, -(-n // 128)) for n in EDGE_COUNTS]} started; "
               f"tile {r} live in chunk {c}, below 1e-4 from chunk {c + 1} on")
 
         # no work: T == 0 and C == 0 launch nothing
@@ -789,17 +883,23 @@ def bwd_edges_phase(blend, device):
         for T, C in ((0, 10), (2, 0)):
             z = dict(counts=torch.zeros(T, dtype=torch.int32, device=device),
                      tentry=torch.ones((T, C, 1024), device=device), dout=torch.ones((T, 8, 1024), device=device))
+            fwd = (blend.blend_cm_fwd(torch.ones((T, 16, C * 128), device=device), z["counts"], 2),
+                   blend.blend_permuted_gm_fwd(torch.ones((T, C * 128, 10), device=device), z["counts"],
+                                               z["counts"], 2),
+                   blend.blend_runs_fwd(torch.ones((16, 256), device=device), z["counts"], z["counts"], C, 2))
             dg = blend.blend_cm_bwd(torch.ones((T, 16, C * 128), device=device), z["counts"], z["tentry"], z["dout"], 2)
             dgm = blend.blend_permuted_gm_bwd(torch.ones((T, C * 128, 10), device=device), z["counts"], z["counts"],
                                               z["tentry"], z["dout"], 2)
             dgr = blend.blend_runs_bwd(torch.ones((16, 256), device=device), z["counts"], z["counts"], z["tentry"],
                                        z["dout"], 2)
             torch.cuda.synchronize()
+            if any(o.shape != (T, 8, 1024) or bool(o.any()) or te_.shape != (T, C, 1024) for o, te_ in fwd):
+                raise RuntimeError(f"[edges] T={T} C={C}: a forward gave wrong shapes or a nonzero out")
             if dg.shape != (T, 16, C * 128) or dgm.shape != (T, C * 128, 10) or bool(dgr.any()):
-                raise RuntimeError(f"[bwd-edges] T={T} C={C}: wrong shapes or a nonzero runs dg")
+                raise RuntimeError(f"[edges] T={T} C={C}: wrong shapes or a nonzero runs dg")
         if blend.launches != before:
-            raise RuntimeError(f"[bwd-edges] T == 0 or C == 0 launched a kernel: {before} -> {blend.launches}")
-        print("[bwd-edges] T == 0 and C == 0: no launch, the runs dg all zero")
+            raise RuntimeError(f"[edges] T == 0 or C == 0 launched a kernel: {before} -> {blend.launches}")
+        print("[edges] T == 0 and C == 0: no launch, forward or backward; out and the runs dg all zero")
 
 
 def build_training(gs, skel, cam, bg, device):
@@ -977,8 +1077,8 @@ def profile_steps(step, gs, skel, frame, pre_d_xyz, pre_d_joints, bg, kw, label,
 
 def train_phase(blend, gs, skel, cam, bg, cap, ladder):
     """Phase 6: the stage-2 training step at full width on both window
-    paths. Returns (launch counts of the counted run, backward kernel
-    results)."""
+    paths. Returns (launch counts of the counted run, forward and backward
+    kernel results, the training frame)."""
     import torch
 
     from riggs_tpu_torch.train.optim import tree_leaves
@@ -1032,15 +1132,19 @@ def train_phase(blend, gs, skel, cam, bg, cap, ladder):
             del gk
     print(f"[train] gradients finite and nonzero exactly where the flags give one, at it {TRAIN_ITS}")
 
-    # each backward kernel against its plain version on a real step's inputs
+    # each forward and backward kernel against its plain version on a real
+    # step's inputs
     names = ("blend_cm_bwd", "blend_permuted_gm_bwd")
-    captured = {}
-    for (label, kw), name in zip(paths, names):
-        with _Capture(blend, names) as c:
+    fwd_names = ("blend_cm_fwd", "blend_permuted_gm_fwd")
+    captured, fwd_captured = {}, {}
+    for (label, kw), name, fname in zip(paths, names, fwd_names):
+        with _Capture(blend, names + fwd_names) as c:
             step(fresh_state(gs, skel, TRAIN_ITS[-1], DEVICE), frame, UID, bg, pre_d_xyz, pre_d_joints, **kw)
         captured[name] = c.calls[name]
+        fwd_captured[fname.removesuffix("_fwd")] = c.calls[fname]
+    fres = check_kernels(blend, fwd_captured, tag="[train]", per="step")
     bres = check_bwd_kernels(blend, captured)
-    del captured
+    del captured, fwd_captured
 
     # step time: the whole make_stage2_auto step by host clock around
     # synchronized steps; then the profile, with the step's parts
@@ -1055,7 +1159,7 @@ def train_phase(blend, gs, skel, cam, bg, cap, ladder):
         full = _host_ms(full_step, 5)
         print(f"[train] {label}: step {full:.2f} ms (host clock, synchronized, it={int(st.it)}, {SIZE}x{SIZE})")
         profile_steps(step, gs, skel, frame, pre_d_xyz, pre_d_joints, bg, kw, label, full)
-    return launches, bres, frame
+    return launches, fres, bres, frame
 
 
 def _turns(fa, fb, reps):
@@ -1170,8 +1274,8 @@ def _by_kind(prof, n):
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         k = e.key.lower()
-        g = ("gemm" if "gemm" in k else "blend" if "blend_" in k else "sort" if "sort" in k
-             else "scatter/index" if "index" in k or "scatter" in k else "other")
+        g = ("gemm" if "gemm" in k else "blend fwd" if "blend_fwd" in k else "blend bwd" if "blend_bwd" in k
+             else "sort" if "sort" in k else "scatter/index" if "index" in k or "scatter" in k else "other")
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3 / n
     return groups
 
@@ -1212,7 +1316,7 @@ def _stage1_groups(g):
 
 def stage1_phase(blend, gs, cam, bg, frame_train):
     """Phase 8: the stage-1 phase-B step at full width. Returns the launch
-    counts of its counted run."""
+    counts of its counted run and the forward and backward kernel results."""
     import torch
 
     from riggs_tpu_torch.data.dataset import SceneData
@@ -1324,17 +1428,20 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
             del gk
     print(f"[stage1] gradients finite and nonzero exactly where the flags give one, at it {STAGE1_ITS}")
 
-    # each backward kernel against its plain version on a real step's inputs
-    # (plain windows: the main and the motion-mask render; the ladder's
-    # buckets), with each call's time
+    # each forward and backward kernel against its plain version on a real
+    # step's inputs (plain windows: the main and the motion-mask render; the
+    # ladder's buckets), with each call's time
     names = ("blend_cm_bwd", "blend_permuted_gm_bwd")
-    captured = {}
-    for (label, kw), name in zip(paths, names):
-        with _Capture(blend, names) as c:
+    fwd_names = ("blend_cm_fwd", "blend_permuted_gm_fwd")
+    captured, fwd_captured = {}, {}
+    for (label, kw), name, fname in zip(paths, names, fwd_names):
+        with _Capture(blend, names + fwd_names) as c:
             step(fresh(STAGE1_ITS[-1]), fr, bg, arap_t, **flags, **kw)
         captured[name] = c.calls[name]
+        fwd_captured[fname.removesuffix("_fwd")] = c.calls[fname]
+    fres = check_kernels(blend, fwd_captured, tag="[stage1]", per="step")
     bres = check_bwd_kernels(blend, captured, tag="[stage1]")
-    del captured
+    del captured, fwd_captured
 
     # step time and the device's share of it
     for label, kw in paths:
@@ -1361,7 +1468,7 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
     warp_fb()
     print(f"[stage1] node warp (warp_forward + its backward, {st.gs.capacity} x {st.warp.node_num}): "
           f"{_event_ms(warp_fb, 5):.3f} ms (CUDA events)")
-    return launches, bres
+    return launches, fres, bres
 
 
 def profile_stage1(one, label, step_ms, n=3):
@@ -1436,7 +1543,7 @@ def main() -> int:
     kres = check_kernels(blend, {"blend_cm": cap_plain.calls["blend_cm"],
                                  "blend_permuted_gm": cap_ladder.calls["blend_permuted_gm"]})
     check_oracle(DEVICE)
-    bwd_edges_phase(blend, DEVICE)
+    edges_phase(blend, DEVICE)
 
     # 4. the slice: the main path, launch counters zeroed just before
     torch.cuda.synchronize()
@@ -1471,6 +1578,21 @@ def main() -> int:
     print(f"[slice] {len(FRAME_TIMES)} eval_image frames, 1 random-motion pose, "
           f"{len(PROBE_TIMES)} probe frames, {len(FRAME_TIMES)} laddered frames: finite, no overflow")
 
+    # the forward kernels on other windows than [kernels]' own: the
+    # random-motion pose's plain windows and a laddered frame at t = 0.9
+    with _Capture(blend) as c_pose:
+        render_rigged(gs, skel, cam, pose=pose, bg=bg, max_per_tile=cap)
+    with _Capture(blend) as c_late:
+        frame(gs, skel, cam, bg, t=0.9, max_per_tile=cap, tile_ladder=ladder)
+    kern, plain = _fwd_entries(blend)
+    with torch.no_grad():
+        for name, what, calls in (("blend_cm", "the random-motion pose", c_pose.calls["blend_cm"]),
+                                  ("blend_permuted_gm", "the ladder at t=0.9", c_late.calls["blend_permuted_gm"])):
+            err, _ = _hold_fwd(name, calls, kern[name], plain[name])
+            print(f"[slice] {name} on {what}: max|d| rgb/acc {err['rgb_acc']:.3e} depth {err['depth']:.3e}; "
+                  "tentry bitwise equal, the same active pairs, a second launch bitwise equal")
+    del c_pose, c_late
+
     # ladder vs plain windows, and kernel path vs plain-version path
     for t in (0.3, 0.9):
         a = frame(gs, skel, cam, bg, t=t, max_per_tile=cap)
@@ -1501,16 +1623,18 @@ def main() -> int:
         profile_frames(gs, skel, cam, bg, cap, kw, label, frame_ms[label])
 
     # 6. the training slice (its own counted run)
-    train_launches, bres, frame_train = train_phase(blend, gs, skel, cam, bg, cap, ladder)
+    train_launches, train_fwd, bres, frame_train = train_phase(blend, gs, skel, cam, bg, cap, ladder)
 
     # 7. the aligned-runs render path (its own counted run)
     runs_launches, runs_fwd, runs_bwd = runs_phase(blend, gs, skel, cam, bg, cap, frame_train.image)
 
     # 8. the stage-1 phase-B step (its own counted run)
-    stage1_launches, stage1_bwd = stage1_phase(blend, gs, cam, bg, frame_train)
+    stage1_launches, stage1_fwd, stage1_bwd = stage1_phase(blend, gs, cam, bg, frame_train)
 
-    # forward kernels: times per frame, launches of the serving run; backward
-    # kernels: times per training step, launches of the training run
+    # forward kernels: times per frame, launches of the serving run (and per
+    # step of each training path); backward kernels: times per training
+    # step, launches of the training run. A forward row's device operations
+    # a call are counted in its profile.
     rows = []
     for name, replaces in (("blend_cm", "riggs_tpu/render/pallas_blend.py:179"),
                            ("blend_permuted_gm", "riggs_tpu/render/pallas_blend.py:602")):
@@ -1522,6 +1646,10 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "launches_per_frame": r["launches_per_frame"], "ms_per_launch": r["ms"] / r["launches_per_frame"],
             "launches_stage1": stage1_launches[name], "bound_term": r["bound_term"],
+            "device_ops_per_call": r["device_ops_per_call"], "scratch_bytes_per_frame": r["scratch_bytes"],
+            "started_chunks": r["started"], "active_chunks": r["active"],
+            "ms_train": train_fwd[name]["ms"], "ms_stage1": stage1_fwd[name]["ms"],
+            "bound_ms_stage1": stage1_fwd[name]["bound_ms"],
         })
     for name, replaces in (("blend_cm_bwd", "riggs_tpu/render/pallas_blend.py:221"),
                            ("blend_permuted_gm_bwd", "riggs_tpu/render/pallas_blend.py:638")):
@@ -1545,6 +1673,8 @@ def main() -> int:
         "max_abs_err": max(r["err"].values()), "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
         "launches_per_frame": r["launches_per_frame"], "bound_term": r["bound_term"],
+        "device_ops_per_call": r["device_ops_per_call"], "scratch_bytes_per_frame": r["scratch_bytes"],
+        "started_chunks": r["started"], "active_chunks": r["active"],
     })
     r = runs_bwd
     rows.append({

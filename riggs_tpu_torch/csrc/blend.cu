@@ -4,30 +4,90 @@
 //   riggs_blend_fwd_cm          <- _fwd_kernel      (:179, entry pallas_blend)
 //   riggs_blend_fwd_gm_permuted <- _fwd_kernel_gm   (:602, entry pallas_blend_permuted_gm)
 //   riggs_blend_fwd_runs        <- _fwd_kernel_runs (:347, entry pallas_blend_runs)
-// One template, over the layout of the attribute rows, gives all three; each
-// instantiation is its own kernel. The backward of each, three launches over
-// (tile, chunk) pairs, follows below the forward.
+// and, below the forward, their three backward kernels. One template, over the
+// layout of the attribute rows, gives all three of each; each instantiation
+// is its own kernel.
 //
-// Design. One thread block per 32x32 tile, one thread per pixel (1024). The
-// TPU kernel walked a (tile, chunk) grid sequentially and kept the
-// transmittance in VMEM scratch between grid steps; here the chunk axis is a
-// loop inside the block and the running transmittance lives in a register.
-// Each 128-Gaussian chunk's 10 attribute rows are staged in shared memory
-// with coalesced loads (5 KB), then every thread walks the rows front to
-// back. The block-wide "any pixel still has T >= 1e-4" chunk skip is one
-// __syncthreads_or. The TPU's log-space cumsum (a triangular matmul on the
-// MXU) becomes a running sum per pixel, in the same order as the plain
-// PyTorch version's torch.cumsum along the chunk.
+// Forward math (per pixel, for the rows j of a chunk in blend order):
+//   alpha_j = min(op_j * exp(power_j), 0.99), 0 where power_j > 0 or alpha_j < 1/255
+//   cum_j   = sum over i <= j of log1p(-alpha_i),   t_in_j = t0 * exp(cum_j)
+//   w_j     = alpha_j * t_in_j / (1 - alpha_j) * [t_in_j >= 1e-4]
+//   out    += [rgb, depth, 1]_j * w_j,   and the next chunk's t0 = t0 * exp(cum_end)
+// A (tile, chunk) pair is active when the chunk starts before the tile's
+// count and some pixel of the tile enters it with t0 >= 1e-4 (monotone: the
+// active chunks are a prefix of the tile's); a skipped chunk leaves t0 as it
+// is. tentry holds every chunk's t0, skipped chunks' too.
 //
-// What bounds it on an H100: per (Gaussian, pixel) pair the blend does ~32
-// FP32 operations, three of them on the special-function unit (exp of the
-// EWA power, log1p, exp of the log-sum), against ~64 bytes per Gaussian and
-// 4 bytes per pixel and chunk (tentry) moved. At the slice's shapes that is
-// operation-bound by two orders of magnitude, and the SFU (16 ops/clk/SM,
-// an eighth of the FP32 rate) is the unit that saturates first. This design
-// does nothing about that yet: a later version can skip the exp/log pair for
-// pixels past saturation, and use tensor cores for the [rgb, depth, 1] * w
-// accumulation.
+// Forward decomposition. The TPU walked each tile's chunks in order on a
+// sequential grid and carried t0 in VMEM. A chunk's cum_end does not depend
+// on its t0 (only the weights and the 1e-4 test do), so here every
+// (tile, chunk) pair is a block of its own, and only t0 is passed from one
+// chunk to the next. One C entry zeroes a small chain state and makes two
+// launches on the stream:
+//   blend_fwd<L>, T x C blocks: each takes the next pair in chunk-major
+//     order from an atomic ticket, so every pair it waits on holds a smaller
+//     ticket and is already running (no wait can deadlock), and every tile's
+//     first chunk, the heaviest, goes first. Chunk 0 starts from t0 = 1. A
+//     later chunk looks at its tile's state:
+//       done:    the tile reached its first inactive chunk: nothing to do;
+//       ready:   the previous chunk has published this chunk's t0 in tentry:
+//                one walk over the rows gives cum_end (every pixel) and the
+//                weighted sums;
+//       pending: it sums cum_end first (every pixel, no t0), then waits for
+//                the t0, publishes the next t0 at once, then walks the rows
+//                again for the weighted sums, a pixel dropped after its first
+//                t_in < 1e-4.
+//     A chunk with t0 known and no pixel >= 1e-4 is the tile's first
+//     inactive one: it writes its t0 as every later chunk's tentry and marks
+//     the tile done. An active chunk publishes __fmul_rn(t0, expf(cum_end))
+//     as the next chunk's tentry (stores, __threadfence, then a flag), or,
+//     as the last started chunk, as every later chunk's. The first inactive
+//     or last started chunk records the tile's count of active chunks. An
+//     active chunk writes its five sums per pixel into a (T, C, 5, 1024) f32
+//     scratch (only the active chunks' sums are written: ~4% of it at
+//     800x800, where it holds 0.5-0.8 GB a call).
+//   blend_fwd_combine, a thread per (tile, pixel): out = the active chunks'
+//     sums added in chunk order (the plain version's order), rows 5-7 zero.
+// tentry keeps the bits of a block per tile walking its chunks: cum is
+// summed with __fadd_rn in row order per pixel and t0 chained in chunk
+// order, so the active set is the same too. out moves in its last bits only
+// (per-chunk sums added over chunks, for one running sum). The only atomics
+// are the integer ticket and flags, and both paths give every weight the
+// same bits (a dropped pixel adds exact zeros): a second launch gives the
+// same bits whichever chunks were pending. What the chain costs: a pending
+// chunk walks its rows twice, and one that turns out inactive once for
+// nothing. scripts/torch_bwd_variants.py keeps the alternatives measured
+// against it: "fwd-inplace", no sums scratch and no combine, each chunk
+// adding its sums into out after its predecessor's (the same bits; as fast
+// on plain windows, 0.07 ms slower over a ladder step's four calls on an
+// H100: in the deep buckets a chunk waiting for its predecessor's add holds
+// its SM slot); "split", separate launches (every started chunk's cum_end,
+// a scan per tile, the active chunks' sums), 0.11-0.14 ms slower a call;
+// "fwd-wait", a pending chunk waiting before it walks (about 3x slower:
+// each tile's chunks run one after another again); "fwd-abort", a pending
+// chunk stopping its cum walk once the tile is done (the checks cost more
+// than they save); "fwd-scale", a pending chunk walking once as if t0 were
+// 1 and scaling its sums by t0 (slower, and its out bits depend on which
+// chunks were pending).
+//
+// Blocks: Bwd<L>'s thread counts (see Blocks under the backward; the
+// forward at 256 threads for kGM lost 0.25 ms over a ladder step's four
+// calls, and 512 threads for every layout, or four blocks an SM, gained
+// nothing), FWD_MIN_BLOCKS blocks an SM; each thread PPT pixels of one
+// column with branch-free steps over them so that their exp / log1p chains
+// overlap, the per-Gaussian power cut, the same device code (Pair,
+// load_chunk, test_pixels, stage_cut). Thread 0 takes the ticket and waits
+// (polling the flags with __nanosleep).
+//
+// What bounds it on an H100: per (Gaussian, pixel) pair the blend needs the
+// EWA power and the alpha test, and per hit the transmittance update and the
+// accumulation, ~30 FP32 instructions and three special-function operations
+// (exp of the EWA power, log1p, exp of the log-sum) against ~40 bytes per
+// Gaussian row and 4 bytes per pixel and chunk of tentry: operation-bound by
+// two orders of magnitude (chip_smoke.py's _bound). The design spends some
+// operations more than the function needs (pending chunks' second walk) to
+// use the whole card at once, where one block per tile left the deep tiles
+// serial on a few SMs.
 //
 // The EWA power and alpha are computed with explicit round-to-nearest
 // intrinsics, in the plain version's operation order, so that no fused
@@ -39,11 +99,12 @@
 namespace {
 
 constexpr int TILE = 32;
-constexpr int P = TILE * TILE;  // pixels per tile, one thread each
+constexpr int P = TILE * TILE;  // pixels per tile
 constexpr int G = 128;          // Gaussians per chunk
 constexpr int ATTRS = 10;       // mx, my, conic a b c, opacity, rgb, depth
 constexpr int PACK_ROWS = 16;   // channel-major row stride
 constexpr int OUT_ROWS = 8;     // rgb, depth, acc, 3 zero rows
+constexpr int SUMS = 5;         // per-pixel forward sums: rgb, depth, acc
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float T_EPS = 1e-4f;
@@ -83,66 +144,344 @@ __device__ __forceinline__ void load_chunk(float (*sg)[G], const float* __restri
   }
 }
 
+// The shape of a block of the per-pair kernels, by layout: NT threads of PPT
+// pixels each, one column (rows warp * PPT + i), BW warps, and at least
+// MIN_BLOCKS blocks held by an SM (which caps registers per thread). The
+// backward's choice is explained under Blocks below; the forward takes the
+// same thread counts and asks for FWD_MIN_BLOCKS blocks per SM.
 template <int L>
-__global__ void __launch_bounds__(P)
-blend_fwd(const float* __restrict__ g, const int* __restrict__ counts,
-          const int* __restrict__ tids, const int* __restrict__ sblk, int m2b,
-          float* __restrict__ out, float* __restrict__ tentry, int C, int tiles_x) {
-  __shared__ float sg[ATTRS][G];
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int tile = L == kGM ? tids[t] : t;
-  const int count = counts[t];
-  const size_t MAX = (size_t)C * G;
-  const float px = (float)((tile % tiles_x) * TILE + p % TILE);
-  const float py = (float)((tile / tiles_x) * TILE + p / TILE);
+struct Bwd {
+  static constexpr int NT = L == kGM ? 512 : 256;
+  static constexpr int PPT = P / NT;
+  static constexpr int BW = NT / 32;
+  static constexpr int MIN_BLOCKS = L == kGM ? 1 : 2;
+};
+constexpr int FWD_MIN_BLOCKS = 2;
+// a power below log(1/255 / opacity) - CUT leaves alpha below 1/255 whatever
+// the rounding of expf and the product (errors ~1e-6 in the log)
+constexpr float CUT = 1e-3f;
 
-  float trun = 1.0f;
-  float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_d = 0.f, acc_w = 0.f;
-  for (int c = 0; c < C; ++c) {
-    tentry[((size_t)t * C + c) * P + p] = trun;
-    // both conditions are uniform over the block
-    if (c * G >= count) continue;
-    if (!__syncthreads_or(trun >= T_EPS)) continue;
+// What the per-pair kernels share: the pair's place, its pixels and their
+// entry transmittance.
+template <int PPT>
+struct Pair {
+  int t, c, count, lane, warp;
+  float px, py0;
+  float t0[PPT];
+  size_t base;  // (t * C + c) * P: the pair's offset in tentry and in each scratch plane
+};
 
-    load_chunk<L, P>(sg, g, t, c, MAX, L == kRuns ? runs_block(sblk, t, c, count, m2b) : 0, m2b, p);
-    __syncthreads();
+// The block's (tile, chunk) pair, number k in chunk-major order, and its
+// pixels' place; returns whether the chunk starts before the tile's count
+// (uniform over the block).
+template <int L, int PPT>
+__device__ __forceinline__ bool place_pair(Pair<PPT>& q, int k, const int* __restrict__ counts,
+                                           const int* __restrict__ tids, int T, int C, int tiles_x) {
+  // chunk-major: the blocks of every tile's first chunk, the heaviest (all
+  // its pixels enter live), are dispatched first
+  q.c = k / T;
+  q.t = k - q.c * T;
+  q.count = counts[q.t];
+  q.lane = threadIdx.x & 31;
+  q.warp = threadIdx.x >> 5;
+  q.base = ((size_t)q.t * C + q.c) * P;
+  if (q.c * G >= q.count) return false;
+  const int tile = L == kGM ? tids[q.t] : q.t;
+  q.px = (float)((tile % tiles_x) * TILE + q.lane);
+  q.py0 = (float)((tile / tiles_x) * TILE + q.warp * PPT);
+  return true;
+}
 
-    const int n = L == kGM ? min(G, count - c * G) : G;
-    const float t0 = trun;
-    float cum = 0.0f;
-    for (int j = 0; j < n; ++j) {
-      const float dx = __fsub_rn(px, sg[0][j]);
-      const float dy = __fsub_rn(py, sg[1][j]);
-      const float quad = __fadd_rn(__fmul_rn(__fmul_rn(sg[2][j], dx), dx),
-                                   __fmul_rn(__fmul_rn(sg[4][j], dy), dy));
-      const float power = __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(sg[3][j], dx), dy));
-      if (power > 0.0f) continue;
-      const float alpha = fminf(__fmul_rn(sg[5][j], expf(power)), ALPHA_MAX);
-      if (alpha < ALPHA_MIN) continue;  // alpha 0 adds nothing to the sum or the weights
-      cum = __fadd_rn(cum, log1pf(-alpha));
-      const float t_in = __fmul_rn(t0, expf(cum));
-      if (t_in < T_EPS) continue;
-      const float w = __fmul_rn(alpha, __fdiv_rn(t_in, __fsub_rn(1.0f, alpha)));
-      acc_r += w * sg[6][j];
-      acc_g += w * sg[7][j];
-      acc_b += w * sg[8][j];
-      acc_d += w * sg[9][j];
-      acc_w += w;
-    }
-    trun = __fmul_rn(t0, expf(cum));
-    __syncthreads();  // every thread is done with sg before the next chunk's loads
+// place_pair, then the pixels' entry transmittance (tentry is read only for
+// started chunks); returns whether the pair is active (uniform).
+template <int L, int PPT>
+__device__ __forceinline__ bool enter_pair(Pair<PPT>& q, const int* __restrict__ counts,
+                                           const int* __restrict__ tids, const float* __restrict__ tentry, int T,
+                                           int C, int tiles_x, bool& started) {
+  started = place_pair<L>(q, blockIdx.x, counts, tids, T, C, tiles_x);
+  if (!started) return false;
+  bool live = false;
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    q.t0[i] = tentry[q.base + (q.warp * PPT + i) * TILE + q.lane];
+    live |= q.t0[i] >= T_EPS;
   }
+  return __syncthreads_or(live);
+}
 
+template <int PPT>
+__device__ __forceinline__ bool any_of(const bool (&a)[PPT]) {
+  bool r = false;
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) r |= a[i];
+  return r;
+}
+
+// The cheap half of Gaussian j's step for the thread's pixels, without
+// branches so that their PPT chains overlap: the EWA power (dx and its
+// products shared by the column), exp(power) (0 where power > 0), raw =
+// opacity * exp, and whether the pixel blends j (alive and alpha >= 1/255).
+// Returns whether any of them does.
+template <int PPT>
+__device__ __forceinline__ bool test_pixels(const float (*sg)[G], const float* cut, int j, const Pair<PPT>& q,
+                                            const bool (&alive)[PPT], float& dx, float (&dy)[PPT], float (&e)[PPT],
+                                            float (&raw)[PPT], bool (&hit)[PPT]) {
+  dx = __fsub_rn(q.px, sg[0][j]);
+  const float adxdx = __fmul_rn(__fmul_rn(sg[2][j], dx), dx);
+  const float bdx = __fmul_rn(sg[3][j], dx);
+  float power[PPT];
+  float pmax = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    dy[i] = __fsub_rn(q.py0 + (float)i, sg[1][j]);
+    const float quad = __fadd_rn(adxdx, __fmul_rn(__fmul_rn(sg[4][j], dy[i]), dy[i]));
+    power[i] = __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(bdx, dy[i]));
+    pmax = fmaxf(pmax, alive[i] ? power[i] : -INFINITY);
+  }
+  if (!(pmax >= cut[j])) return false;
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    const float ex = expf(power[i]);
+    e[i] = power[i] > 0.0f ? 0.0f : ex;
+    raw[i] = __fmul_rn(sg[5][j], e[i]);
+    hit[i] = alive[i] && fminf(raw[i], ALPHA_MAX) >= ALPHA_MIN;
+    any |= hit[i];
+  }
+  return any;
+}
+
+// Each staged Gaussian's power cut (CUT below log(1/255 / opacity); +inf
+// for opacity 0), then a barrier.
+template <int BT>
+__device__ __forceinline__ void stage_cut(float* cut, const float (*sg)[G]) {
+  for (int j = threadIdx.x; j < G; j += BT) cut[j] = logf(ALPHA_MIN / sg[5][j]) - CUT;
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// Forward: the chained launch and the combine of the design at the top of
+// the file.
+
+constexpr int COMBINE_NT = 256;  // threads per block of the combine
+enum Chain : int { kPending, kReady, kDone };
+
+// The weighted sums of rows [0, n) for the thread's pixels from their entry
+// transmittance q.t0, added into acc, with cum summed from 0. With FULL_CUM
+// every pixel's cum runs over all n rows (cum_end on return, for the next
+// chunk's t0); else a pixel is dropped after its first t_in < 1e-4 (t_in
+// only falls, so every later weight of it is 0) and the loop ends with the
+// last live pixel.
+template <bool FULL_CUM, int PPT>
+__device__ __forceinline__ void blend_rows(const float (*sg)[G], const float* cut, int n, const Pair<PPT>& q,
+                                           float (&cum)[PPT], float (&acc)[PPT][SUMS]) {
+  bool alive[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) alive[i] = FULL_CUM || q.t0[i] >= T_EPS;
+  for (int j = 0; j < n && (FULL_CUM || any_of(alive)); ++j) {
+    float dx, dy[PPT], e[PPT], raw[PPT];
+    bool hit[PPT];
+    if (!test_pixels(sg, cut, j, q, alive, dx, dy, e, raw, hit)) continue;
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      // a pixel that misses j (alpha 0) adds log1p(-0) = -0 to cum, keeping
+      // its bits, and w = 0
+      const float alpha = hit[i] ? fminf(raw[i], ALPHA_MAX) : 0.0f;
+      cum[i] = __fadd_rn(cum[i], log1pf(-alpha));
+      const float t_in = __fmul_rn(q.t0[i], expf(cum[i]));
+      const bool on = hit[i] && t_in >= T_EPS;
+      if (!FULL_CUM) alive[i] = alive[i] && (on || !hit[i]);
+      const float w = on ? __fmul_rn(alpha, __fdiv_rn(t_in, __fsub_rn(1.0f, alpha))) : 0.0f;
+      acc[i][0] += w * sg[6][j];
+      acc[i][1] += w * sg[7][j];
+      acc[i][2] += w * sg[8][j];
+      acc[i][3] += w * sg[9][j];
+      acc[i][4] += w;
+    }
+  }
+}
+
+// cum_end of rows [0, n) for the thread's pixels, every pixel alive (no t0)
+template <int PPT>
+__device__ __forceinline__ void cum_rows(const float (*sg)[G], const float* cut, int n, const Pair<PPT>& q,
+                                         float (&cum)[PPT]) {
+  bool every[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) every[i] = true;
+  for (int j = 0; j < n; ++j) {
+    float dx, dy[PPT], e[PPT], raw[PPT];
+    bool hit[PPT];
+    if (!test_pixels(sg, cut, j, q, every, dx, dy, e, raw, hit)) continue;
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) cum[i] = __fadd_rn(cum[i], log1pf(-(hit[i] ? fminf(raw[i], ALPHA_MAX) : 0.0f)));
+  }
+}
+
+// tentry of chunks [c0, C) of the pair's tile = v (per pixel)
+template <int PPT>
+__device__ __forceinline__ void fill_tentry(float* tentry, const Pair<PPT>& q, int c0, int C, const float (&v)[PPT]) {
+  float* te = tentry + (size_t)q.t * C * P + q.warp * PPT * TILE + q.lane;
+  for (int c = c0; c < C; ++c) {
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) te[(size_t)c * P + i * TILE] = v[i];
+  }
+}
+
+// The one forward launch: each block takes the next (tile, chunk) pair in
+// chunk-major order from the ticket, so every pair it waits on has a
+// smaller ticket and is already running (no wait can deadlock). state:
+// the ticket, ready[T * C] (the pair's t0 is in tentry), done[T] (the tile
+// reached its first inactive chunk), zeroed before the launch; then nact[T].
+template <int L>
+__global__ void __launch_bounds__(Bwd<L>::NT, FWD_MIN_BLOCKS)
+blend_fwd(const float* __restrict__ g, const int* __restrict__ counts, const int* __restrict__ tids,
+          const int* __restrict__ sblk, int m2b, float* __restrict__ tentry, float* __restrict__ part,
+          int* __restrict__ state, int T, int C, int tiles_x) {
+  constexpr int BT = Bwd<L>::NT, PPT = P / BT;
+  __shared__ float sg[ATTRS][G];
+  __shared__ float cut[G];
+  __shared__ int s_k, s_chain;
+  int* ready = state + 1;
+  int* done = ready + (size_t)T * C;
+  int* nact = done + T;
+  if (threadIdx.x == 0) s_k = atomicAdd(state, 1);
+  __syncthreads();
+  Pair<PPT> q;
+  const bool started = place_pair<L>(q, s_k, counts, tids, T, C, tiles_x);
+  const int t = q.t, c = q.c;
+  const int nc = (int)min((long long)C, ((long long)q.count + G - 1) / G);  // started chunks
+  float v[PPT];
+  if (!started) {
+    if (c == 0) {  // an empty tile: nothing blends, every chunk entered at T = 1
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) v[i] = 1.0f;
+      fill_tentry(tentry, q, 0, C, v);
+      if (threadIdx.x == 0) nact[t] = 0;
+    }
+    return;
+  }
+  // t0 known now: chunk 0 (T = 1), or the previous chunk has published
+  if (threadIdx.x == 0) {
+    s_chain = c == 0 ? kReady : atomicAdd(&done[t], 0) ? kDone : atomicAdd(&ready[(size_t)t * C + c], 0) ? kReady
+                                                                                                     : kPending;
+    __threadfence();  // acquire: what the previous chunk published is seen before the block reads it
+  }
+  __syncthreads();
+  const int chain = s_chain;
+  if (chain == kDone) return;
+  load_chunk<L, BT>(sg, g, t, c, (size_t)C * G, L == kRuns ? runs_block(sblk, t, c, q.count, m2b) : 0, m2b,
+                    threadIdx.x);
+  __syncthreads();
+  stage_cut<BT>(cut, sg);
+  const int n = L == kGM ? min(G, q.count - c * G) : G;
+  float cum[PPT], acc[PPT][SUMS];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    cum[i] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < SUMS; ++k) acc[i][k] = 0.0f;
+  }
+  if (chain == kPending) {
+    // sum cum_end while the previous chunk runs, then wait for its t0
+    cum_rows(sg, cut, n, q, cum);
+    if (threadIdx.x == 0) {
+      while (true) {
+        if (atomicAdd(&done[t], 0)) { s_chain = kDone; break; }
+        if (atomicAdd(&ready[(size_t)t * C + c], 0)) { s_chain = kReady; break; }
+        __nanosleep(64);
+      }
+      __threadfence();
+    }
+    __syncthreads();
+    if (s_chain == kDone) return;
+  }
+  bool live = false;
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    float* te = tentry + q.base + (q.warp * PPT + i) * TILE + q.lane;
+    if (c == 0) *te = 1.0f;
+    q.t0[i] = c == 0 ? 1.0f : __ldcg(te);
+    live |= q.t0[i] >= T_EPS;
+  }
+  if (!__syncthreads_or(live)) {
+    // the tile's first inactive chunk: it and every later chunk keep t0
+    fill_tentry(tentry, q, c + 1, C, q.t0);
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      nact[t] = c;
+      atomicExch(&done[t], 1);
+    }
+    return;
+  }
+  if (chain == kReady) blend_rows<true>(sg, cut, n, q, cum, acc);  // cum_end and the sums in one walk
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) v[i] = __fmul_rn(q.t0[i], expf(cum[i]));  // the next chunk's t0
+  if (c + 1 >= nc) {  // the tile's last started chunk: every later one is entered at v
+    fill_tentry(tentry, q, c + 1, C, v);
+    if (threadIdx.x == 0) nact[t] = nc;
+  } else {
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) tentry[q.base + P + (q.warp * PPT + i) * TILE + q.lane] = v[i];
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) atomicExch(&ready[(size_t)t * C + c + 1], 1);
+  }
+  if (chain == kPending) {  // published first: now the sums from t0
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) cum[i] = 0.0f;
+    blend_rows<false>(sg, cut, n, q, cum, acc);
+  }
+  float* o = part + q.base * SUMS;
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+#pragma unroll
+    for (int k = 0; k < SUMS; ++k) o[k * P + (q.warp * PPT + i) * TILE + q.lane] = acc[i][k];
+  }
+}
+
+// out = the tile's active chunks' sums in chunk order; rows 5-7 zero
+__global__ void __launch_bounds__(COMBINE_NT)
+blend_fwd_combine(const float* __restrict__ part, const int* __restrict__ nact, float* __restrict__ out, int T,
+                  int C) {
+  const long long idx = (long long)blockIdx.x * COMBINE_NT + threadIdx.x;
+  if (idx >= (long long)T * P) return;
+  const int t = (int)(idx / P), p = (int)(idx % P);
+  const int na = nact[t];
+  const float* s = part + (size_t)t * C * SUMS * P + p;
+  float sum[SUMS];
+#pragma unroll
+  for (int k = 0; k < SUMS; ++k) sum[k] = 0.0f;
+  for (int c = 0; c < na; ++c) {
+#pragma unroll
+    for (int k = 0; k < SUMS; ++k) sum[k] = __fadd_rn(sum[k], s[((size_t)c * SUMS + k) * P]);
+  }
   float* o = out + (size_t)t * OUT_ROWS * P + p;
-  o[0 * P] = acc_r;
-  o[1 * P] = acc_g;
-  o[2 * P] = acc_b;
-  o[3 * P] = acc_d;
-  o[4 * P] = acc_w;
-  o[5 * P] = 0.0f;
-  o[6 * P] = 0.0f;
-  o[7 * P] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < OUT_ROWS; ++k) o[k * P] = k < SUMS ? sum[k] : 0.0f;
+}
+
+// One forward call: the chain state zeroed, the chained launch, the
+// combine, each checked. scratch: the (T, C, SUMS, P) f32 sums, then the
+// chain state (1 + T * C + T ints, zeroed here) and nact (T ints).
+template <int L>
+int launch_fwd(const float* g, const int* counts, const int* tids, const int* sblk, int m2b, float* out,
+               float* tentry, void* scratch, int T, int C, int tiles_x, cudaStream_t stream) {
+  if (T == 0 || C == 0) return 0;
+  const long long pairs = (long long)T * C;
+  if (pairs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  float* part = static_cast<float*>(scratch);
+  int* state = reinterpret_cast<int*>(part + (size_t)pairs * SUMS * P);
+  cudaError_t err = cudaMemsetAsync(state, 0, (1 + (size_t)pairs + T) * sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  blend_fwd<L><<<(unsigned)pairs, Bwd<L>::NT, 0, stream>>>(g, counts, tids, sblk, m2b, tentry, part, state, T, C,
+                                                          tiles_x);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int* nact = state + 1 + pairs + T;
+  const unsigned combine_blocks = (unsigned)(((long long)T * P + COMBINE_NT - 1) / COMBINE_NT);
+  blend_fwd_combine<<<combine_blocks, COMBINE_NT, 0, stream>>>(part, nact, out, T, C);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -241,20 +580,7 @@ blend_fwd(const float* __restrict__ g, const int* __restrict__ counts,
 // s_total and one write of the suffix per started (chunk, pixel), 8 KB per
 // started chunk, ~0.005 ms at 800x800.
 
-// The shape of a backward block, by layout (see Blocks above): NT threads
-// of PPT pixels each, one column (rows warp * PPT + i), BW warps, and at
-// least MIN_BLOCKS blocks held by an SM (which caps registers per thread).
-template <int L>
-struct Bwd {
-  static constexpr int NT = L == kGM ? 512 : 256;
-  static constexpr int PPT = P / NT;
-  static constexpr int BW = NT / 32;
-  static constexpr int MIN_BLOCKS = L == kGM ? 1 : 2;
-};
 constexpr int SUFFIX_NT = 256;  // threads per block of the suffix pass
-// a power below log(1/255 / opacity) - CUT leaves alpha below 1/255 whatever
-// the rounding of expf and the product (errors ~1e-6 in the log)
-constexpr float CUT = 1e-3f;
 constexpr int SUB = 32;        // Gaussians per reduction round
 constexpr int NV = 10;         // sums per Gaussian
 constexpr unsigned FULL = 0xffffffffu;
@@ -278,93 +604,6 @@ __device__ __forceinline__ void zero_chunk(float* dg, int t, int c, size_t MAX, 
     for (int q = tid; q < PACK_ROWS * G / 4; q += BT)
       reinterpret_cast<float4*>(dg + ((size_t)t * PACK_ROWS + q / (G / 4)) * MAX + (size_t)c * G)[q % (G / 4)] = z;
   }  // kRuns: dg was zeroed before the launches
-}
-
-// What (i) and (iii) share: the pair's place, its pixels and their entry
-// transmittance, and whether it is active (uniform over the block).
-template <int PPT>
-struct Pair {
-  int t, c, count, lane, warp;
-  float px, py0;
-  float t0[PPT];
-  size_t base;  // (t * C + c) * P: the pair's offset in tentry and in each scratch plane
-};
-
-template <int L>
-__device__ __forceinline__ bool enter_pair(Pair<Bwd<L>::PPT>& q, const int* __restrict__ counts,
-                                           const int* __restrict__ tids, const float* __restrict__ tentry, int T,
-                                           int C, int tiles_x, bool& started) {
-  constexpr int PPT = Bwd<L>::PPT;
-  // chunk-major: the blocks of every tile's first chunk, the heaviest (all
-  // its pixels enter live), are dispatched first
-  q.c = blockIdx.x / T;
-  q.t = blockIdx.x - q.c * T;
-  q.count = counts[q.t];
-  q.lane = threadIdx.x & 31;
-  q.warp = threadIdx.x >> 5;
-  q.base = ((size_t)q.t * C + q.c) * P;
-  started = q.c * G < q.count;  // uniform; tentry is read only for started chunks
-  if (!started) return false;
-  const int tile = L == kGM ? tids[q.t] : q.t;
-  q.px = (float)((tile % tiles_x) * TILE + q.lane);
-  q.py0 = (float)((tile / tiles_x) * TILE + q.warp * PPT);
-  bool live = false;
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    q.t0[i] = tentry[q.base + (q.warp * PPT + i) * TILE + q.lane];
-    live |= q.t0[i] >= T_EPS;
-  }
-  return __syncthreads_or(live);
-}
-
-template <int PPT>
-__device__ __forceinline__ bool any_of(const bool (&a)[PPT]) {
-  bool r = false;
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) r |= a[i];
-  return r;
-}
-
-// The cheap half of Gaussian j's step for the thread's pixels, without
-// branches so that their PPT chains overlap: the EWA power (dx and its
-// products shared by the column), exp(power) (0 where power > 0), raw =
-// opacity * exp, and whether the pixel blends j (alive and alpha >= 1/255).
-// Returns whether any of them does.
-template <int PPT>
-__device__ __forceinline__ bool test_pixels(const float (*sg)[G], const float* cut, int j, const Pair<PPT>& q,
-                                            const bool (&alive)[PPT], float& dx, float (&dy)[PPT], float (&e)[PPT],
-                                            float (&raw)[PPT], bool (&hit)[PPT]) {
-  dx = __fsub_rn(q.px, sg[0][j]);
-  const float adxdx = __fmul_rn(__fmul_rn(sg[2][j], dx), dx);
-  const float bdx = __fmul_rn(sg[3][j], dx);
-  float power[PPT];
-  float pmax = -INFINITY;
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    dy[i] = __fsub_rn(q.py0 + (float)i, sg[1][j]);
-    const float quad = __fadd_rn(adxdx, __fmul_rn(__fmul_rn(sg[4][j], dy[i]), dy[i]));
-    power[i] = __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(bdx, dy[i]));
-    pmax = fmaxf(pmax, alive[i] ? power[i] : -INFINITY);
-  }
-  if (!(pmax >= cut[j])) return false;
-  bool any = false;
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    const float ex = expf(power[i]);
-    e[i] = power[i] > 0.0f ? 0.0f : ex;
-    raw[i] = __fmul_rn(sg[5][j], e[i]);
-    hit[i] = alive[i] && fminf(raw[i], ALPHA_MAX) >= ALPHA_MIN;
-    any |= hit[i];
-  }
-  return any;
-}
-
-// Each staged Gaussian's power cut (CUT below log(1/255 / opacity); +inf
-// for opacity 0), then a barrier.
-template <int BT>
-__device__ __forceinline__ void stage_cut(float* cut, const float (*sg)[G]) {
-  for (int j = threadIdx.x; j < G; j += BT) cut[j] = logf(ALPHA_MIN / sg[5][j]) - CUT;
-  __syncthreads();
 }
 
 // The ten sums of one Gaussian over the warp's lanes, reduce-scattered: 12
@@ -658,27 +897,28 @@ int launch_bwd(const float* g, const int* counts, const int* tids, const int* sb
 }  // namespace
 
 // Plain C interface for ctypes. Pointers are device pointers; stream is a
-// cudaStream_t. Returns the launch's cudaError_t (0 on success).
-extern "C" int riggs_blend_fwd_cm(const float* g, const int* counts, float* out,
-                                  float* tentry, int T, int C, int tiles_x,
-                                  void* stream) {
-  blend_fwd<kCM><<<T, P, 0, (cudaStream_t)stream>>>(g, counts, nullptr, nullptr, 0, out, tentry, C, tiles_x);
-  return (int)cudaGetLastError();
+// cudaStream_t. Returns the first failed launch's cudaError_t (0 on success).
+// The forward's scratch: the (T, C, 5, 1024) f32 sums, then 1 + T * C + T ints
+// of chain state (the ticket, ready, done; zeroed here on the stream) and T
+// ints of nact.
+extern "C" int riggs_blend_fwd_cm(const float* g, const int* counts, float* out, float* tentry, void* scratch,
+                                  int T, int C, int tiles_x, void* stream) {
+  return launch_fwd<kCM>(g, counts, nullptr, nullptr, 0, out, tentry, scratch, T, C, tiles_x,
+                         (cudaStream_t)stream);
 }
 
-extern "C" int riggs_blend_fwd_gm_permuted(const float* g, const int* counts,
-                                           const int* tids, float* out, float* tentry,
-                                           int T, int C, int tiles_x, void* stream) {
-  blend_fwd<kGM><<<T, P, 0, (cudaStream_t)stream>>>(g, counts, tids, nullptr, 0, out, tentry, C, tiles_x);
-  return (int)cudaGetLastError();
+extern "C" int riggs_blend_fwd_gm_permuted(const float* g, const int* counts, const int* tids, float* out,
+                                           float* tentry, void* scratch, int T, int C, int tiles_x,
+                                           void* stream) {
+  return launch_fwd<kGM>(g, counts, tids, nullptr, 0, out, tentry, scratch, T, C, tiles_x,
+                         (cudaStream_t)stream);
 }
 
 // g: (16, m2b * 128); counts, sblk: (T,); C chunks per tile
-extern "C" int riggs_blend_fwd_runs(const float* g, const int* counts, const int* sblk,
-                                    float* out, float* tentry, int T, int C, int m2b,
-                                    int tiles_x, void* stream) {
-  blend_fwd<kRuns><<<T, P, 0, (cudaStream_t)stream>>>(g, counts, nullptr, sblk, m2b, out, tentry, C, tiles_x);
-  return (int)cudaGetLastError();
+extern "C" int riggs_blend_fwd_runs(const float* g, const int* counts, const int* sblk, float* out, float* tentry,
+                                    void* scratch, int T, int C, int m2b, int tiles_x, void* stream) {
+  return launch_fwd<kRuns>(g, counts, nullptr, sblk, m2b, out, tentry, scratch, T, C, tiles_x,
+                           (cudaStream_t)stream);
 }
 
 extern "C" int riggs_blend_bwd_cm(const float* g, const int* counts, const float* tentry,

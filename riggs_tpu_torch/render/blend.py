@@ -29,14 +29,22 @@ chunk (written for every chunk, skipped ones too). Per pixel and chunk:
 A chunk is skipped when it starts past the tile's count or when no pixel of
 the tile has T_entry >= 1e-4.
 
+A forward call is a memset of a small chain state and two device launches:
+one block per (tile, chunk) pair, each passing its tile's entry T to the
+next chunk as soon as it has it (a chunk whose entry T is not published yet
+sums its log-sum ``cum`` first, then waits), its weighted sums into a
+scratch; then one thread per (tile, pixel) adds those sums in chunk order
+into ``out``. tentry has the bits of a sequential walk; ``out`` those of
+per-chunk sums added in chunk order.
+
 Each entry is a ``torch.autograd.Function`` (``BlendFn``): the forward
 kernel, then, for the gradient, the backward kernel that replaces
 ``_bwd_kernel`` / ``_bwd_kernel_gm`` / ``_bwd_kernel_runs``
-(``blend_cm_bwd``, ``blend_permuted_gm_bwd``, ``blend_runs_bwd``). One call
-is three device launches, each over every (tile, chunk) pair or every
-(tile, pixel): each chunk's per-pixel s_total into a scratch, the suffix of
-the later chunks' sums, then each chunk's gradients from the two. It
-writes d(mx, my, conic, opacity, rgb, depth) for every window row, exactly 0
+(``blend_cm_bwd``, ``blend_permuted_gm_bwd``, ``blend_runs_bwd``). A
+backward call is three device launches, each over every (tile, chunk) pair
+or every (tile, pixel): each chunk's per-pixel s_total into a scratch, the
+suffix of the later chunks' sums, then each chunk's gradients from the two.
+It writes d(mx, my, conic, opacity, rgb, depth) for every window row, exactly 0
 for rows of skipped chunks, rows past the count and the channel-major
 padding rows. Only the first are needed (their true gradient); the window
 gathers' backward zeroes invalid slots, so the others are defensive: dg
@@ -341,15 +349,15 @@ def load_library() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entries' argument and result types on a loaded build."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.riggs_blend_fwd_cm.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.riggs_blend_fwd_cm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.riggs_blend_fwd_cm.restype = ci
-    lib.riggs_blend_fwd_gm_permuted.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.riggs_blend_fwd_gm_permuted.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.riggs_blend_fwd_gm_permuted.restype = ci
     lib.riggs_blend_bwd_cm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.riggs_blend_bwd_cm.restype = ci
     lib.riggs_blend_bwd_gm_permuted.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.riggs_blend_bwd_gm_permuted.restype = ci
-    lib.riggs_blend_fwd_runs.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.riggs_blend_fwd_runs.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.riggs_blend_fwd_runs.restype = ci
     lib.riggs_blend_bwd_runs.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.riggs_blend_bwd_runs.restype = ci
@@ -376,9 +384,26 @@ def _check(g: torch.Tensor, counts: torch.Tensor, tids: torch.Tensor | None, max
 
 
 def _outputs(g: torch.Tensor, T: int, C: int):
-    out = torch.empty((T, OUT_ROWS, P_TILE), dtype=torch.float32, device=g.device)
+    """(out, tentry) for a forward call; out is zero where no launch writes
+    it (T == 0 or C == 0)."""
+    out = (torch.empty if T and C else torch.zeros)((T, OUT_ROWS, P_TILE), dtype=torch.float32, device=g.device)
     tentry = torch.empty((T, C, P_TILE), dtype=torch.float32, device=g.device)
     return out, tentry
+
+
+FWD_SUMS = 5  # per-pixel sums of an active chunk: rgb, depth, acc
+
+
+def fwd_scratch_bytes(T: int, C: int) -> int:
+    """Bytes of the forward's scratch: (T, C, 5, 1024) f32 per-chunk sums
+    (only the active chunks' are written and read), then the int32 chain
+    state (a ticket, a flag per (tile, chunk), a flag per tile; zeroed by
+    the kernel's C entry) and a count of active chunks per tile."""
+    return (T * C * FWD_SUMS * P_TILE + 1 + T * C + 2 * T) * 4 if T and C else 0
+
+
+def _fwd_scratch(g: torch.Tensor, T: int, C: int) -> torch.Tensor:
+    return torch.empty(fwd_scratch_bytes(T, C) // 4, dtype=torch.float32, device=g.device)
 
 
 def _raise_on(err: int, name: str):
@@ -408,14 +433,16 @@ def blend_cm_fwd(g: torch.Tensor, counts: torch.Tensor, tiles_x: int):
     if g.device.type == "cpu":
         return blend_cm_plain(g, counts, tiles_x)
     T, _, MAX = g.shape
-    out, tentry = _outputs(g, T, MAX // G_CHUNK)
-    if T == 0:
+    C = MAX // G_CHUNK
+    out, tentry = _outputs(g, T, C)
+    if T == 0 or C == 0:
         return out, tentry
+    scratch = _fwd_scratch(g, T, C)
     lib = load_library()
     with torch.cuda.device(g.device):
         err = lib.riggs_blend_fwd_cm(
-            g.data_ptr(), counts.data_ptr(), out.data_ptr(), tentry.data_ptr(),
-            T, MAX // G_CHUNK, tiles_x, torch.cuda.current_stream(g.device).cuda_stream,
+            g.data_ptr(), counts.data_ptr(), out.data_ptr(), tentry.data_ptr(), scratch.data_ptr(),
+            T, C, tiles_x, torch.cuda.current_stream(g.device).cuda_stream,
         )
     _raise_on(err, "blend_cm")
     launches["blend_cm"] += 1
@@ -429,14 +456,16 @@ def blend_permuted_gm_fwd(g: torch.Tensor, counts: torch.Tensor, tids: torch.Ten
     if g.device.type == "cpu":
         return blend_permuted_gm_plain(g, counts, tids, tiles_x)
     T, MAX, _ = g.shape
-    out, tentry = _outputs(g, T, MAX // G_CHUNK)
-    if T == 0:
+    C = MAX // G_CHUNK
+    out, tentry = _outputs(g, T, C)
+    if T == 0 or C == 0:
         return out, tentry
+    scratch = _fwd_scratch(g, T, C)
     lib = load_library()
     with torch.cuda.device(g.device):
         err = lib.riggs_blend_fwd_gm_permuted(
-            g.data_ptr(), counts.data_ptr(), tids.data_ptr(), out.data_ptr(), tentry.data_ptr(),
-            T, MAX // G_CHUNK, tiles_x, torch.cuda.current_stream(g.device).cuda_stream,
+            g.data_ptr(), counts.data_ptr(), tids.data_ptr(), out.data_ptr(), tentry.data_ptr(), scratch.data_ptr(),
+            T, C, tiles_x, torch.cuda.current_stream(g.device).cuda_stream,
         )
     _raise_on(err, "blend_permuted_gm")
     launches["blend_permuted_gm"] += 1
@@ -516,13 +545,15 @@ def blend_runs_fwd(g_runs: torch.Tensor, counts: torch.Tensor, sblk: torch.Tenso
         return blend_runs_plain(g_runs, counts, sblk, chunks, tiles_x)
     T = counts.shape[0]
     out, tentry = _outputs(g_runs, T, chunks)
-    if T == 0:
+    if T == 0 or chunks == 0:
         return out, tentry
+    scratch = _fwd_scratch(g_runs, T, chunks)
     lib = load_library()
     with torch.cuda.device(g_runs.device):
         err = lib.riggs_blend_fwd_runs(
             g_runs.data_ptr(), counts.data_ptr(), sblk.data_ptr(), out.data_ptr(), tentry.data_ptr(),
-            T, chunks, g_runs.shape[1] // G_CHUNK, tiles_x, torch.cuda.current_stream(g_runs.device).cuda_stream,
+            scratch.data_ptr(), T, chunks, g_runs.shape[1] // G_CHUNK, tiles_x,
+            torch.cuda.current_stream(g_runs.device).cuda_stream,
         )
     _raise_on(err, "blend_runs")
     launches["blend_runs"] += 1
