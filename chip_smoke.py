@@ -61,7 +61,29 @@ Phases, each printed as it runs:
      flags give one, kernel path against plain-version path; each forward
      and backward kernel against its plain version on a real step's inputs,
      with each call's time; step time, busy time and idle share; the node
-     warp timed alone.
+     warp timed alone;
+  9. sync: each auto step (make_stage2_auto and make_phase_b_auto on both
+     window paths, make_phase_a_auto) and the serving frame's render, one
+     call each under torch.cuda.set_sync_debug_mode("error") (any
+     synchronizing operation raises) with its device-to-host copies and
+     stream synchronizations counted by the profiler: zero each; eval_image
+     in "warn" mode, its two overflow reads by design and no other;
+  10. stage1 phase A: init_stage1 as in 8 (8192 node-Gaussian slots, 512
+     nodes, SH 0, a shared isotropic scale) on the [loop] scene's first
+     frame, make_phase_a_auto at it = 0 (d_xyz detached, chamfer and
+     regularizers off) and 7501 (both on) with the counters zeroed just
+     before and read just after; gradients finite and nonzero exactly where
+     the toggles give one, kernel path against plain-version path; blend_cm
+     and blend_cm_bwd against their plain versions on the node cloud's
+     windows with each call's time and bound; no overflow;
+  11. loop: train_stage1 on a full-width scene (8 frames of the avatar from
+     an arc of cameras at 800x800 on white, alpha masks from the render's
+     acc, thinned skeletons, cameras_extent from compute_scene_extent),
+     only the schedule cut (LOOP_SCHEDULE): its events, node counts, ladder
+     refits, loss and PSNR at both ends of both phases, ms per step of each
+     phase and the device's busy time and idle share over 5 steps of each;
+     every parameter finite, no step overflowed but where the ladder
+     reacted one step late, every kernel of the path launched.
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without CUDA
 it exits 2 and prints no result. Imports nothing of JAX or riggs_tpu.
@@ -149,6 +171,14 @@ UID, N_FRAMES, N_THIN = 0, 4, 256  # the template frame; pre_d_* frames; padded 
 RUNS_T = 0.3  # the [runs] frame's time
 STAGE1_ITS = (0, 5000)  # warm-up; past warm_up with the ARAP and motion-mask lambdas on
 STAGE1_STEPS = 2  # counted steps per (it, path)
+PHASE_A_ITS = (0, 7501)  # the node warm-up (d_xyz detached, no regularizers); the chamfer and regularizers on
+LOOP_FRAMES = 8  # the [loop] scene's train frames
+LOOP_ARC_DEG = 30.0  # its cameras on an arc of +-30 degrees about the front view (side views pile up the arms)
+# the [loop] schedule: only these are cut from the defaults (PERF.md section 4)
+LOOP_SCHEDULE = dict(iterations_node_rendering=40, node_warm_up=10, densification_interval=10,
+                     iterations_node_sampling=30, iterations=40, densify_from_iter=5,
+                     node_force_densify_prune_step=20, opacity_reset_interval=30, ladder_check_every=10)
+PROFILE_FROM = 20  # the loop's profiled steps of each phase: [20, 25)
 
 
 def _bound(nbytes, ops, sfu):
@@ -1039,11 +1069,11 @@ def profile_steps(step, gs, skel, frame, pre_d_xyz, pre_d_joints, bg, kw, label,
     from torch.profiler import ProfilerActivity, profile
 
     st = fresh_state(gs, skel, TRAIN_ITS[-1], gs.device)
-    st, _ = step(st, frame, UID, bg, pre_d_xyz, pre_d_joints, **kw)
+    st, _ = step(st, frame, UID, bg, pre_d_xyz, pre_d_joints, it=TRAIN_ITS[-1], **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            st, _ = step(st, frame, UID, bg, pre_d_xyz, pre_d_joints, **kw)
+            st, _ = step(st, frame, UID, bg, pre_d_xyz, pre_d_joints, it=TRAIN_ITS[-1], **kw)
         torch.cuda.synchronize()
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1098,8 +1128,8 @@ def train_phase(blend, gs, skel, cam, bg, cap, ladder):
     for it in TRAIN_ITS:
         for label, kw in paths:
             st = fresh_state(gs, skel, it, DEVICE)
-            for _ in range(TRAIN_STEPS):
-                st, m = step(st, frame, UID, bg, pre_d_xyz, pre_d_joints, **kw)
+            for k in range(TRAIN_STEPS):
+                st, m = step(st, frame, UID, bg, pre_d_xyz, pre_d_joints, it=it + k, **kw)
                 if not all(bool(torch.isfinite(v).all()) for k, v in m.items() if v.is_floating_point()):
                     raise RuntimeError(f"[train] it={it} {label}: non-finite metric")
                 if int(m["overflow_tiles"]) or int(m["overflow_rect"]):
@@ -1139,7 +1169,8 @@ def train_phase(blend, gs, skel, cam, bg, cap, ladder):
     captured, fwd_captured = {}, {}
     for (label, kw), name, fname in zip(paths, names, fwd_names):
         with _Capture(blend, names + fwd_names) as c:
-            step(fresh_state(gs, skel, TRAIN_ITS[-1], DEVICE), frame, UID, bg, pre_d_xyz, pre_d_joints, **kw)
+            step(fresh_state(gs, skel, TRAIN_ITS[-1], DEVICE), frame, UID, bg, pre_d_xyz, pre_d_joints,
+                 it=TRAIN_ITS[-1], **kw)
         captured[name] = c.calls[name]
         fwd_captured[fname.removesuffix("_fwd")] = c.calls[fname]
     fres = check_kernels(blend, fwd_captured, tag="[train]", per="step")
@@ -1153,12 +1184,13 @@ def train_phase(blend, gs, skel, cam, bg, cap, ladder):
 
         def full_step():
             nonlocal st
-            st, _ = step(st, frame, UID, bg, pre_d_xyz, pre_d_joints, **kw)
+            st, _ = step(st, frame, UID, bg, pre_d_xyz, pre_d_joints, it=TRAIN_ITS[-1], **kw)
 
         full_step()  # warm-up
         full = _host_ms(full_step, 5)
         print(f"[train] {label}: step {full:.2f} ms (host clock, synchronized, it={int(st.it)}, {SIZE}x{SIZE})")
         profile_steps(step, gs, skel, frame, pre_d_xyz, pre_d_joints, bg, kw, label, full)
+        sync_audit(f"make_stage2_auto ({label}, it={TRAIN_ITS[-1]})", full_step)
     return launches, fres, bres, frame
 
 
@@ -1324,13 +1356,11 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
     from riggs_tpu_torch.ops.sh import C0
     from riggs_tpu_torch.render.api import render, tier_kwargs
     from riggs_tpu_torch.render.ladder import make_tile_ladder
-    from riggs_tpu_torch.train.config import Config
     from riggs_tpu_torch.train.optim import grad_tree, tree_leaves
     from riggs_tpu_torch.train.stage1 import init_stage1, make_phase_b_auto, phase_b_flags, stage1_frame_loss
 
     t0 = time.perf_counter()
-    cfg = Config()
-    cfg.model.capacity, cfg.model.sh_degree, cfg.model.gs_with_motion_mask = gs.capacity, SH_DEGREE, True
+    cfg = _stage1_config(gs.capacity)
     n = int(gs.num_alive)
     pts = gs.xyz[:n].cpu().numpy()
     cols = np.clip(gs.features_dc[:n, 0].cpu().numpy() * C0 + 0.5, 0.0, 1.0)
@@ -1375,8 +1405,8 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
     for it in STAGE1_ITS:
         for label, kw in paths:
             st = fresh(it)
-            for _ in range(STAGE1_STEPS):
-                st, m = step(st, fr, bg, NW.arap_sample_times(gen, device=DEVICE), **flags, **kw)
+            for k in range(STAGE1_STEPS):
+                st, m = step(st, fr, bg, NW.arap_sample_times(gen, device=DEVICE), it=it + k, **flags, **kw)
                 if not all(bool(torch.isfinite(v).all()) for k, v in m.items() if v.is_floating_point()):
                     raise RuntimeError(f"[stage1] it={it} {label}: non-finite metric")
                 if int(m["overflow_tiles"]) or int(m["overflow_rect"]):
@@ -1436,7 +1466,7 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
     captured, fwd_captured = {}, {}
     for (label, kw), name, fname in zip(paths, names, fwd_names):
         with _Capture(blend, names + fwd_names) as c:
-            step(fresh(STAGE1_ITS[-1]), fr, bg, arap_t, **flags, **kw)
+            step(fresh(STAGE1_ITS[-1]), fr, bg, arap_t, it=STAGE1_ITS[-1], **flags, **kw)
         captured[name] = c.calls[name]
         fwd_captured[fname.removesuffix("_fwd")] = c.calls[fname]
     fres = check_kernels(blend, fwd_captured, tag="[stage1]", per="step")
@@ -1449,11 +1479,12 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
 
         def one():
             nonlocal st
-            st, _ = step(st, fr, bg, NW.arap_sample_times(gen, device=DEVICE), **flags, **kw)
+            st, _ = step(st, fr, bg, NW.arap_sample_times(gen, device=DEVICE), it=STAGE1_ITS[-1], **flags, **kw)
 
         one()  # warm-up
         ms = _host_ms(one, 5)
         profile_stage1(one, label, ms)
+        sync_audit(f"make_phase_b_auto ({label}, it={STAGE1_ITS[-1]})", one, expected=svd_reads())
 
     # the node warp alone: warp_forward and its backward at the step's shapes
     st = fresh(STAGE1_ITS[-1])
@@ -1491,6 +1522,422 @@ def profile_stage1(one, label, step_ms, n=3):
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(_by_kind(prof, n).items(), key=lambda kv: -kv[1])))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"[stage1]   {e.self_device_time_total / 1e3 / n:8.3f} ms  {e.count // n:4d} launches  {e.key[:90]}")
+
+
+def _site(func, text):
+    """"file:line" of the first line of ``func``'s source that holds ``text``."""
+    import inspect
+
+    lines, first = inspect.getsourcelines(func)
+    n = next(i for i, line in enumerate(lines) if text in line)
+    return f"{Path(inspect.getsourcefile(func)).name}:{first + n}"
+
+
+def svd_reads():
+    """The host reads left in a stage-1 step (ROADMAP Queue C): the ARAP
+    rotation fit's torch.linalg.svd checks its convergence flags on the
+    host, two reads for the step's one fit."""
+    from riggs_tpu_torch.ops.geometry import fit_rotations
+
+    return {_site(fit_rotations, "linalg.svd"): 2}
+
+
+def prime_sync_debug():
+    """Switch the sync debug mode on and off once, unaudited: the first
+    switch in a process is itself flagged once (torch 2.11), at
+    set_sync_debug_mode's own line, with no copy and no synchronization."""
+    import torch
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def sync_audit(label, fn, expected=None):
+    """Synchronizing operations in one call of ``fn`` (warmed up by the
+    caller): first under torch.cuda.set_sync_debug_mode("warn") and the
+    profiler, which name each one's source line (and the innermost line of
+    this repository that led to it) and count the call's device-to-host
+    copies and stream synchronizations; ``expected`` ({"file:line": count},
+    none by default) must match exactly, and the copies and
+    synchronizations its total. Then, where none is expected, one more call
+    in "error" mode, in which any synchronizing operation raises. Prints one
+    [sync] line; returns fn's last result."""
+    import collections
+    import traceback
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    expected = expected or {}
+    sites, callers = collections.Counter(), {}
+
+    def seen(message, category, filename, lineno, *a, **k):
+        if "synchroniz" not in str(message):
+            return
+        key = f"{Path(filename).name}:{lineno}"
+        sites[key] += 1
+        stack = traceback.extract_stack()[:-1]
+        ours = [f for f in stack if "riggs_tpu_torch" in f.filename] or stack[-3:]
+        callers[key] = " < ".join(f"{Path(f.filename).name}:{f.lineno} {f.line}" for f in ours[-1:] + stack[-2:-1])
+
+    prime_sync_debug()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    dtoh = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA and "DtoH" in e.key)
+    # a host read is a copy and a stream synchronize (the profile's own
+    # synchronize after the call is a device synchronize)
+    syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
+    total = sum(expected.values())
+    found = {k: (v, callers.get(k, "")) for k, v in sites.items()}
+    print(f"[sync] {label}: {dtoh} device-to-host copies, {syncs} stream synchronizations, "
+          f"{sum(sites.values())} synchronizing operations {found or ''} (expected {expected or 'none'})")
+    if dict(sites) != expected or dtoh != total or syncs != total:
+        raise RuntimeError(f"[sync] {label}: synchronizing operations {found}, {dtoh} copies, {syncs} syncs; "
+                           f"expected {expected or 'none'}")
+    if not expected:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out
+
+
+def build_loop_scene(gs, skel):
+    """The [loop] scene: LOOP_FRAMES train frames at SIZE x SIZE, the avatar
+    posed by its own skeleton at times i / LOOP_FRAMES seen from cameras on
+    an arc about its front, on a white background; alpha masks from the render's acc, the
+    thinned 2D skeleton of each mask (thin_mask_skeleton), the point cloud
+    the avatar's alive means and colours, cameras_extent by
+    compute_scene_extent."""
+    import torch
+
+    from riggs_tpu_torch.camera import make_camera
+    from riggs_tpu_torch.data.dataset import Frame, SceneData, pad_thinned, thin_mask_skeleton
+    from riggs_tpu_torch.ops.sh import C0
+    from riggs_tpu_torch.train.static import compute_scene_extent
+
+    t0 = time.perf_counter()
+    white = torch.ones(3, device=DEVICE)
+    cams = []
+    for a in np.radians(np.linspace(-LOOP_ARC_DEG, LOOP_ARC_DEG, LOOP_FRAMES)):
+        # the [scene] camera swung about the avatar's vertical axis
+        R = np.array([[np.cos(a), 0.0, -np.sin(a)], [0.0, -1.0, 0.0], [-np.sin(a), 0.0, -np.cos(a)]])
+        center = np.array([2.6 * np.sin(a), 0.15, 2.6 * np.cos(a)])
+        cams.append(make_camera(R, -R.T @ center, SIZE, SIZE, fovx=0.8, fovy=0.8, device=DEVICE))
+    frames, thin_s, n_thin, max_count = [], 0.0, [], 0
+    for i, cam in enumerate(cams):
+        t = i / LOOP_FRAMES
+        out = frame(gs, skel, cam, white, t=t, max_per_tile=16384)
+        _check_frame(out, SIZE, f"loop scene frame {i}")
+        max_count = max(max_count, int(out["max_count"]))
+        alpha = out["alpha"]
+        t1 = time.perf_counter()
+        pix = thin_mask_skeleton(alpha.cpu().numpy() > 0.5)
+        thin_s += time.perf_counter() - t1
+        n_thin.append(len(pix))
+        tp, tm = pad_thinned(pix, N_THIN)
+        frames.append(Frame(cam=dataclasses.replace(cam, fid=torch.tensor(t, device=DEVICE)), image=out["render"],
+                            alpha_mask=alpha, thinned=torch.as_tensor(tp, device=DEVICE),
+                            thinned_mask=torch.as_tensor(tm, device=DEVICE)))
+    n = int(gs.num_alive)
+    cols = np.clip(gs.features_dc[:n, 0].cpu().numpy() * C0 + 0.5, 0.0, 1.0)
+    scene = SceneData(gs.xyz[:n].cpu().numpy(), cols, is_blender=True, train_frames=frames,
+                      cameras_extent=compute_scene_extent(cams), white_background=True)
+    # the plain-window cap of phase B's probe steps: the frames' largest
+    # tile count with headroom for the motion and for densification to full
+    # capacity (the ladder, once fitted, sets its own caps)
+    cap = int(-(-int(max_count * 1.25 * gs.capacity / n) // 128) * 128)
+    print(f"[loop] scene: {LOOP_FRAMES} frames at {SIZE}x{SIZE} on white, {n} points; thinned skeleton pixels "
+          f"{n_thin} ({thin_s:.1f} s of thinning); cameras_extent {scene.cameras_extent:.4f}; max tile count "
+          f"{max_count} -> phase-B window {cap}; set-up {time.perf_counter() - t0:.1f} s")
+    return scene, cap
+
+
+def _phase_a_groups(g):
+    """Parameter group -> gradient leaves of a phase-A gradient tree."""
+    from riggs_tpu_torch.train.optim import tree_leaves
+
+    out = {f"node_gs.{k}": [v] for k, v in g["node_gs"].items() if v.numel()}
+    w = g["warp"]
+    out.update({"warp.nodes_xyz": [w["nodes"][:, :3]], "warp.nodes_hyper": [w["nodes"][:, 3:]],
+                "warp.radius": [w["radius"]], "warp.weight": [w["weight"]], "warp.mlp": tree_leaves(w["mlp"])})
+    out["mean2d_bias"] = [g["m2b"]]
+    return out
+
+
+def _stage1_config(capacity):
+    from riggs_tpu_torch.train.config import Config
+
+    cfg = Config()
+    cfg.model.capacity, cfg.model.sh_degree, cfg.model.gs_with_motion_mask = capacity, SH_DEGREE, True
+    return cfg
+
+
+def stage1_phase_a(blend, scene):
+    """Phase 10: the phase-A step at full width: init_stage1 from the
+    avatar's points (131072 slots, 512 nodes, 8192 node slots), the [loop]
+    scene's first frame; make_phase_a_auto at PHASE_A_ITS with the counters
+    zeroed just before and read just after; gradients finite and nonzero
+    exactly where the toggles give one, kernel path against plain-version
+    path; blend_cm and blend_cm_bwd against their plain versions on the
+    node cloud's windows; step time, busy time and idle share; the sync
+    audit. Returns (launch counts, forward and backward kernel results)."""
+    import torch
+
+    from riggs_tpu_torch.train.optim import grad_tree, tree_leaves
+    from riggs_tpu_torch.train.stage1 import Stage1Draws, init_stage1, make_phase_a_auto, phase_a_flags, phase_a_loss
+
+    t0 = time.perf_counter()
+    cfg = _stage1_config(CAPACITY)
+    state0 = init_stage1(scene, cfg, generator=torch.Generator(device=DEVICE).manual_seed(2), device=DEVICE)
+    fr, ti = scene.train_frames[0], scene.time_interval
+    bg = torch.ones(3, device=DEVICE)
+    step = make_phase_a_auto(cfg, ti)
+    draws = Stage1Draws(5, DEVICE)
+    kw = dict(max_per_tile=cfg.pipe.max_per_tile)
+    torch.cuda.synchronize()
+    print(f"[stage1] phase A: init_stage1 {time.perf_counter() - t0:.1f} s: {int(state0.node_gs.num_alive)} node "
+          f"Gaussians of {state0.node_gs.capacity} (SH 0, shared isotropic scale), {state0.warp.node_num} nodes, "
+          f"{int(state0.gs.num_alive)} Gaussians of {state0.gs.capacity}; window {kw['max_per_tile']}")
+
+    def fresh(it):
+        st = copy.deepcopy(state0)
+        return dataclasses.replace(st, it=torch.tensor(it, dtype=torch.int32, device=DEVICE))
+
+    # the main path: make_phase_a_auto steps, counters zeroed just before
+    torch.cuda.synchronize()
+    blend.reset_launches()
+    for it in PHASE_A_ITS:
+        st = fresh(it)
+        for k in range(STAGE1_STEPS):
+            st, m = step(st, fr, bg, draws.phase_a(fr.fid, ti), it=it + k, **kw)
+            if not all(bool(torch.isfinite(v).all()) for v in m.values() if v.is_floating_point()):
+                raise RuntimeError(f"[stage1] phase A it={it}: non-finite metric")
+            if int(m["overflow_tiles"]) or int(m["overflow_rect"]):
+                raise RuntimeError(f"[stage1] phase A it={it}: overflow {int(m['overflow_tiles'])}/"
+                                   f"{int(m['overflow_rect'])}")
+        leaves = tree_leaves(st.node_gs.params_dict()) + tree_leaves(st.warp.params_dict())
+        if not all(bool(torch.isfinite(v).all()) for v in leaves) or int(st.it) != it + STAGE1_STEPS:
+            raise RuntimeError(f"[stage1] phase A it={it}: non-finite parameters or wrong it")
+        print(f"[stage1] phase A it={it} ({phase_a_flags(cfg, it)}): {STAGE1_STEPS} steps, loss "
+              f"{float(m['loss']):.5f} psnr {float(m['psnr']):.2f}, no overflow")
+    torch.cuda.synchronize()
+    launches = dict(blend.launches)
+    print(f"[stage1] phase A launch counters: {launches}")
+    for name in ("blend_cm", "blend_cm_bwd"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"phase A never launched {name}")
+
+    # gradients: finite, nonzero where the toggles give one, kernel vs plain path
+    reg_t = draws.phase_a(fr.fid, ti)
+
+    def frame_grads(it):
+        st = fresh(it)
+        params = {"node_gs": {k: v.detach().requires_grad_(True) for k, v in st.node_gs.params_dict().items()},
+                  "warp": st.warp.params_dict(), "m2b": torch.zeros_like(st.node_gs.xyz[:, :2], requires_grad=True)}
+        flags = {k: v for k, v in phase_a_flags(cfg, it).items()}
+        loss, _ = phase_a_loss(params, st, fr, bg, params["m2b"], reg_t, ti, **flags, **kw)
+        return loss, grad_tree(loss, params)
+
+    # the node colours start black (SH 0, clamped at 0): no colour gradient;
+    # the shared isotropic scale leaves the rotations at cancellation noise
+    # (not checked); in the warm-up d_xyz is detached and the regularizers
+    # are off, so nothing reaches the warp; the node positions reach no
+    # regularizer (detached), the radii and weights the elastic term's
+    # blend weights, the hyper coords nothing while they are all equal
+    # (1e-2 at init: their distances' gradient is 0)
+    live = {0: {"node_gs.xyz", "node_gs.scaling", "node_gs.opacity", "mean2d_bias"},
+            PHASE_A_ITS[-1]: {"node_gs.xyz", "node_gs.scaling", "node_gs.opacity", "mean2d_bias", "warp.mlp",
+                              "warp.radius", "warp.weight"}}
+    for it in PHASE_A_ITS:
+        loss, gk = frame_grads(it)
+        if not bool(torch.isfinite(loss)):
+            raise RuntimeError(f"[stage1] phase A it={it}: non-finite loss")
+        for name, lv in _phase_a_groups(gk).items():
+            if not all(bool(torch.isfinite(v).all()) for v in lv):
+                raise RuntimeError(f"[stage1] phase A it={it}: non-finite gradient in {name}")
+            if name == "node_gs.rotation":
+                continue
+            nonzero = any(bool(v.any()) for v in lv)
+            if nonzero != (name in live[it]):
+                raise RuntimeError(f"[stage1] phase A it={it}: gradient of {name} is "
+                                   f"{'nonzero' if nonzero else 'zero'}, the toggles say otherwise")
+        with _PlainBlend(blend):
+            _, gp = frame_grads(it)
+        compare_grads(gk, gp, f"phase A kernel vs plain-version path, it={it}", groups=_phase_a_groups,
+                      tag="[stage1]")
+        del gk, gp
+    print(f"[stage1] phase A gradients finite and nonzero exactly where the toggles give one, at it {PHASE_A_ITS}")
+
+    # blend_cm and blend_cm_bwd against their plain versions on a real step's inputs
+    with _Capture(blend, ("blend_cm_fwd", "blend_cm_bwd")) as c:
+        step(fresh(PHASE_A_ITS[-1]), fr, bg, reg_t, it=PHASE_A_ITS[-1], **kw)
+    fres = check_kernels(blend, {"blend_cm": c.calls["blend_cm_fwd"]}, tag="[stage1] phase A", per="step")
+    bres = check_bwd_kernels(blend, {"blend_cm_bwd": c.calls["blend_cm_bwd"]}, tag="[stage1] phase A")
+    del c
+
+    # step time, the device's share of it, and the sync audit
+    st = fresh(PHASE_A_ITS[-1])
+
+    def one():
+        nonlocal st
+        st, _ = step(st, fr, bg, draws.phase_a(fr.fid, ti), it=PHASE_A_ITS[-1], **kw)
+
+    one()  # warm-up
+    ms = _host_ms(one, 5)
+    busy = _profile_busy(one, 5)
+    print(f"[stage1] phase A: step {ms:.2f} ms (host clock, synchronized, it={PHASE_A_ITS[-1]}, {SIZE}x{SIZE}); "
+          f"device busy {busy:.2f} ms (idle share {1 - busy / ms:.3f})")
+    sync_audit(f"make_phase_a_auto (it={PHASE_A_ITS[-1]})", one, expected=svd_reads())
+    return launches, fres, bres
+
+
+def _profile_busy(fn, n):
+    """The device's busy ms per call of fn over n calls (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    if busy <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    return busy
+
+
+class _StepClock:
+    """Wrap the loop's step factories: stamp the host clock at every step
+    call (no synchronize: the loop's own pace), and profile the device over
+    steps [PROFILE_FROM, PROFILE_FROM + 5) of each phase."""
+
+    def __init__(self, s1):
+        self.s1 = s1
+        self.stamps = {"A": [], "B": []}
+        self.busy = {}
+
+    def __enter__(self):
+        self.orig = (self.s1.make_phase_a_auto, self.s1.make_phase_b_auto)
+        self.s1.make_phase_a_auto = lambda *a, **k: self._wrap("A", self.orig[0](*a, **k))
+        self.s1.make_phase_b_auto = lambda *a, **k: self._wrap("B", self.orig[1](*a, **k))
+        return self
+
+    def __exit__(self, *exc):
+        self.s1.make_phase_a_auto, self.s1.make_phase_b_auto = self.orig
+
+    def _wrap(self, phase, step):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        stamps = self.stamps[phase]
+        prof = profile(activities=[ProfilerActivity.CUDA])
+
+        def timed(*a, **k):
+            n = len(stamps)
+            if n == PROFILE_FROM:
+                prof.start()
+            if n == PROFILE_FROM + 5:
+                torch.cuda.synchronize()
+                prof.stop()
+                t = stamps[PROFILE_FROM + 4] - stamps[PROFILE_FROM]
+                busy = sum(e.self_device_time_total for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 5
+                self.busy[phase] = busy
+            stamps.append(time.perf_counter())
+            return step(*a, **k)
+
+        return timed
+
+    def ms(self, phase):
+        """(median, mean) host ms between consecutive step calls of a phase,
+        the profiled window's steps left out."""
+        st = self.stamps[phase]
+        d = [(b - a) * 1e3 for i, (a, b) in enumerate(zip(st, st[1:]))
+             if not PROFILE_FROM - 1 <= i <= PROFILE_FROM + 5]
+        return float(np.median(d)), float(np.mean(d))
+
+
+def loop_phase(blend, scene, cap):
+    """Phase 11: a short train_stage1 on the [loop] scene at full width
+    (LOOP_SCHEDULE cuts only the schedule), with the counters zeroed just
+    before and read just after. Prints the events, the node counts, the
+    ladder's refits, loss and PSNR at both ends of both phases, ms per step
+    of each phase by host clock and the device's busy time and idle share
+    over 5 steps of each. Returns the launch counts."""
+    import torch
+
+    from riggs_tpu_torch.train import stage1 as S1
+    from riggs_tpu_torch.train.optim import tree_leaves
+
+    cfg = _stage1_config(CAPACITY)
+    for k, v in LOOP_SCHEDULE.items():
+        setattr(cfg.pipe if k == "ladder_check_every" else cfg.opt, k, v)
+    cfg.pipe.max_per_tile = cap  # phase A's node cloud fits any window; phase B's probe steps need this one
+    events = []
+    torch.cuda.synchronize()
+    blend.reset_launches()
+    t0 = time.perf_counter()
+    with _StepClock(S1) as clock:
+        state, hist = S1.train_stage1(scene, cfg, seed=0, log_every=LOOP_SCHEDULE["iterations"] - 1, events=events,
+                                      device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(blend.launches)
+    for e in events:
+        print(f"[loop] event {e}")
+    for p, it, m in hist:
+        print(f"[loop] {p} it={it}: loss {m['loss']:.5f} psnr {m['psnr']:.2f}")
+    for p in ("A", "B"):
+        med, mean = clock.ms(p)
+        busy = clock.busy[p]
+        print(f"[loop] phase {p}: {len(clock.stamps[p])} steps, {med:.2f} ms per step (host clock, median; mean "
+              f"{mean:.2f} with the events), device busy {busy:.2f} ms per step over steps "
+              f"{PROFILE_FROM}-{PROFILE_FROM + 4} (idle share {1 - busy / med:.3f})")
+    print(f"[loop] train_stage1 {wall:.1f} s; launch counters: {launches}")
+    kinds = {e["event"] for e in events}
+    for want in ("node_gs densify", "node sampling", "node densify/prune", "gs densify", "opacity reset",
+                 "ladder fit"):
+        if want not in kinds:
+            raise RuntimeError(f"[loop] no {want} event")
+    final = [e for e in events if e["event"] == "ladder"][-1]
+    if final["refits"] < 1:
+        raise RuntimeError("[loop] the ladder was never refitted")
+    sampled = [e for e in events if e["event"] == "node sampling"][0]
+    if sampled["after"] != cfg.model.node_num or sampled["nodes"] != cfg.model.node_num:
+        raise RuntimeError(f"[loop] node sampling kept {sampled['after']} node Gaussians, {sampled['nodes']} nodes")
+    if not [e for e in events if e["event"] == "gs densify" and e["after"] != e["before"]]:
+        raise RuntimeError("[loop] no Gaussian densification changed the alive count")
+    refit_at = {e["it"] for e in events if e["event"] in ("ladder refit", "ladder fit")}
+    late = [e for e in events if e["event"] == "overflow"]
+    bad = [e for e in late if e["phase"] == "A" or e["rect"] or e["it"] not in refit_at]
+    if bad:
+        raise RuntimeError(f"[loop] steps overflowed without the ladder reacting: {bad}")
+    print(f"[loop] overflow: {len(late)} step(s), each answered by a ladder refit one step late: {late}")
+    leaves = (tree_leaves(state.gs.params_dict()) + tree_leaves(state.node_gs.params_dict())
+              + tree_leaves(state.warp.params_dict()))
+    if not all(bool(torch.isfinite(v).all()) for v in leaves):
+        raise RuntimeError("[loop] non-finite parameters")
+    for name in ("blend_cm", "blend_cm_bwd", "blend_permuted_gm", "blend_permuted_gm_bwd"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"the loop never launched {name}")
+    print(f"[loop] {state.warp.node_num} nodes, {int(state.gs.num_alive)} Gaussians of {state.gs.capacity}, "
+          f"every parameter finite; refits {final['refits']}, ladder {final['ladder']}")
+    return launches
 
 
 def main() -> int:
@@ -1621,6 +2068,11 @@ def main() -> int:
         print(f"[slice] {label}: {ms:.2f} ms per frame = {1e3 / ms:.1f} FPS (skeleton_forward + render, {SIZE}x{SIZE})")
     for label, kw in (("plain windows", {}), ("ladder", {"tile_ladder": ladder})):
         profile_frames(gs, skel, cam, bg, cap, kw, label, frame_ms[label])
+        sync_audit(f"serving frame, skeleton_forward + render ({label})",
+                   lambda kw=kw: frame(gs, skel, cam, bg, t=0.5, max_per_tile=cap, **kw))
+    sync_audit("serving frame, eval_image (its two overflow counters read by design)",
+               lambda: eval_image(gs, skel, cam, 0.5, bg, max_per_tile=cap),
+               expected={_site(eval_image, "int(of_t)"): 2})
 
     # 6. the training slice (its own counted run)
     train_launches, train_fwd, bres, frame_train = train_phase(blend, gs, skel, cam, bg, cap, ladder)
@@ -1630,6 +2082,13 @@ def main() -> int:
 
     # 8. the stage-1 phase-B step (its own counted run)
     stage1_launches, stage1_fwd, stage1_bwd = stage1_phase(blend, gs, cam, bg, frame_train)
+
+    # 9-10. the [loop] scene; the stage-1 phase-A step (its own counted run)
+    scene, loop_cap = build_loop_scene(gs, skel)
+    pa_launches, pa_fwd, pa_bwd = stage1_phase_a(blend, scene)
+
+    # 11. a short train_stage1 (its own counted run)
+    loop_launches = loop_phase(blend, scene, loop_cap)
 
     # forward kernels: times per frame, launches of the serving run (and per
     # step of each training path); backward kernels: times per training
@@ -1649,7 +2108,10 @@ def main() -> int:
             "device_ops_per_call": r["device_ops_per_call"], "scratch_bytes_per_frame": r["scratch_bytes"],
             "started_chunks": r["started"], "active_chunks": r["active"],
             "ms_train": train_fwd[name]["ms"], "ms_stage1": stage1_fwd[name]["ms"],
-            "bound_ms_stage1": stage1_fwd[name]["bound_ms"],
+            "bound_ms_stage1": stage1_fwd[name]["bound_ms"], "launches_loop": loop_launches[name],
+            **({"launches_phase_a": pa_launches[name], "ms_phase_a": pa_fwd[name]["ms"],
+                "bound_ms_phase_a": pa_fwd[name]["bound_ms"], "plain_ms_phase_a": pa_fwd[name]["plain_ms"]}
+               if name == "blend_cm" else {}),
         })
     for name, replaces in (("blend_cm_bwd", "riggs_tpu/render/pallas_blend.py:221"),
                            ("blend_permuted_gm_bwd", "riggs_tpu/render/pallas_blend.py:638")):
@@ -1662,7 +2124,10 @@ def main() -> int:
             "launches_per_step": r["launches_per_step"], "ms_per_launch": r["ms"] / r["launches_per_step"],
             "max_rel_column_err": r["rel"], "launches_stage1": stage1_launches[name],
             "bound_term": r["bound_term"], "ms_stage1": stage1_bwd[name]["ms"],
-            "bound_ms_stage1": stage1_bwd[name]["bound_ms"],
+            "bound_ms_stage1": stage1_bwd[name]["bound_ms"], "launches_loop": loop_launches[name],
+            **({"launches_phase_a": pa_launches[name], "ms_phase_a": pa_bwd[name]["ms"],
+                "bound_ms_phase_a": pa_bwd[name]["bound_ms"], "plain_ms_phase_a": pa_bwd[name]["plain_ms"]}
+               if name == "blend_cm_bwd" else {}),
         })
     # the runs pair: the forward per frame, the backward per gradient, the
     # launches of the [runs] run

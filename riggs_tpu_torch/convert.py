@@ -227,6 +227,7 @@ def stage1_state_from_numpy(
     hyper_dim: int = 2,
     K: int = 3,
     d_rot_as_res: bool = True,
+    with_node_weight: bool = True,
     device: str | torch.device | None = None,
 ) -> Stage1State:
     """A ``Stage1State`` from the reference's. ``gs`` and ``node_gs`` are
@@ -234,13 +235,15 @@ def stage1_state_from_numpy(
     ``max_sh_degree`` and the flags); ``warp_params`` the warp's
     ``params_dict`` tree; the Adam states (mu, nu, count) with mu and nu in
     the params' trees; the statistics (xyz_gradient_accum, denom,
-    max_radii2d)."""
+    max_radii2d). Any state of the reference's loop converts: after
+    densification (the alive masks), with a node count other than
+    ``node_num``, with phase A's node Adam state."""
     dev = resolve_device(device)
     return Stage1State(
         gs=gaussians_from_numpy(**gs, device=dev),
         node_gs=gaussians_from_numpy(**node_gs, device=dev),
         warp=node_warp_from_numpy(warp_params, net, K=K, hyper_dim=hyper_dim, d_rot_as_res=d_rot_as_res,
-                                  device=dev),
+                                  with_node_weight=with_node_weight, device=dev),
         opt_gs=_adam(opt_gs, _module_tree, dev),
         opt_node=_adam(opt_node, _module_tree, dev),
         opt_warp=_adam(opt_warp, _module_tree, dev),

@@ -1,10 +1,16 @@
 """Canonical Gaussian cloud: a capacity-padded tensor container.
 
 Port of ``riggs_tpu/models/gaussians.py:40-184`` (the container, its
-activations, its parameter tree and ``create_from_pcd``) and ``:302-328``
-(the densification statistics). Every tensor's leading dimension is the
-capacity C; ``alive`` marks the used slots. Densification itself (clone,
-split, prune) comes with a later slice.
+activations, its parameter tree and ``create_from_pcd``), ``:192-300``
+(densification: clone, split, prune, FPS pruning, the opacity reset) and
+``:302-328`` (the densification statistics). Every tensor's leading
+dimension is the capacity C; ``alive`` marks the used slots.
+
+Densification is a masked scatter into free slots, as in the reference: no
+tensor changes size and nothing reads the card. A row that finds no free
+slot is dropped (its destination is C, a spare row cut off after the
+write). The split's noise, one (C, 3) standard normal draw per child, is an
+argument (``split_noise`` draws it from a ``torch.Generator``).
 """
 from __future__ import annotations
 
@@ -14,8 +20,9 @@ import numpy as np
 import torch
 
 from riggs_tpu_torch.device import constant, resolve_device
+from riggs_tpu_torch.ops.fps import farthest_point_sample
 from riggs_tpu_torch.ops.knn import mean_knn_dist2
-from riggs_tpu_torch.ops.quaternion import quat_normalize
+from riggs_tpu_torch.ops.quaternion import quat_normalize, quat_to_rotmat
 from riggs_tpu_torch.ops.sh import rgb_to_sh_dc, sh_dim
 
 
@@ -155,6 +162,123 @@ def create_from_pcd(
         with_motion_mask=with_motion_mask,
         shared_scale=shared_scale,
     )
+
+
+def _free_slot_map(alive: torch.Tensor, selected: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Map the k-th selected row to the k-th free slot (free slots in index
+    order). Returns (dest (C,) int64, C where the row is not placed; ok (C,),
+    the selected rows that got a slot)."""
+    C = alive.shape[0]
+    free_order = torch.argsort(alive.to(torch.int8), stable=True)  # free slots first, as jnp.argsort
+    n_free = C - torch.sum(alive)
+    k = torch.cumsum(selected.to(torch.int64), 0) - 1  # rank among the selected
+    ok = selected & (k < n_free)
+    dest = torch.where(ok, free_order[torch.clamp(k, 0, C - 1)], C)
+    return dest, ok
+
+
+def _scatter_rows(gs: Gaussians, dest: torch.Tensor, rows: dict[str, torch.Tensor]) -> Gaussians:
+    """Write ``rows[k][i]`` into slot ``dest[i]`` of every parameter and mark
+    it alive; writes to slot C are dropped (a (C + 1)-row buffer, cut)."""
+    C = gs.capacity
+
+    def put(a, r):
+        buf = torch.cat([a, a[:1]])
+        buf[dest] = r
+        return buf[:C]
+
+    p = gs.params_dict()
+    newp = {k: put(p[k], rows[k]) for k in p}
+    alive = put(gs.alive, torch.ones_like(gs.alive))
+    return dataclasses.replace(gs.replace_params(newp), alive=alive)
+
+
+def densify_clone(
+    gs: Gaussians,
+    stats_grad: torch.Tensor,
+    grad_threshold: float,
+    scene_extent: float,
+    percent_dense: float = 0.01,
+) -> tuple[Gaussians, torch.Tensor]:
+    """Clone the small high-gradient Gaussians into free slots. Returns
+    (gs, dest)."""
+    max_scale = torch.amax(gs.get_scaling, dim=1)
+    selected = gs.alive & (stats_grad >= grad_threshold) & (max_scale <= percent_dense * scene_extent)
+    dest, _ = _free_slot_map(gs.alive, selected)
+    return _scatter_rows(gs, dest, gs.params_dict()), dest
+
+
+def split_noise(capacity: int, n_split: int = 2, generator: torch.Generator | None = None,
+                device: str | torch.device | None = None) -> torch.Tensor:
+    """``densify_split``'s draws: (n_split, C, 3) standard normals, one
+    (C, 3) draw per child."""
+    return torch.randn((n_split, capacity, 3), generator=generator, device=resolve_device(device))
+
+
+def densify_split(
+    gs: Gaussians,
+    stats_grad: torch.Tensor,
+    grad_threshold: float,
+    scene_extent: float,
+    noise: torch.Tensor,
+    percent_dense: float = 0.01,
+) -> tuple[Gaussians, torch.Tensor]:
+    """Split the large high-gradient Gaussians: child i of each at
+    R (noise[i] * scale) + xyz in a fresh free slot, its scale divided by
+    0.8 n_split; then every selected parent dies (placed children or not,
+    as the reference's code does). ``noise``: (n_split, C, 3). Returns
+    (gs, dests (n_split, C))."""
+    n_split = noise.shape[0]
+    max_scale = torch.amax(gs.get_scaling, dim=1)
+    selected = gs.alive & (stats_grad >= grad_threshold) & (max_scale > percent_dense * scene_extent)
+    scales = gs.get_scaling
+    R = quat_to_rotmat(gs.rotation)
+    dests = []
+    for i in range(n_split):
+        new_xyz = torch.einsum("nab,nb->na", R, noise[i] * scales) + gs.xyz
+        new_scaling = torch.log(scales / (0.8 * n_split))
+        if gs.isotropic:
+            new_scaling = new_scaling[:, :1]
+        rows = dict(gs.params_dict(), xyz=new_xyz, scaling=new_scaling)
+        dest, _ = _free_slot_map(gs.alive, selected)  # after the previous child's scatter
+        gs = _scatter_rows(gs, dest, rows)
+        dests.append(dest)
+    gs = dataclasses.replace(gs, alive=gs.alive & ~selected)
+    return gs, torch.stack(dests)
+
+
+def prune(gs: Gaussians, prune_mask: torch.Tensor) -> Gaussians:
+    return dataclasses.replace(gs, alive=gs.alive & ~prune_mask)
+
+
+def prune_by_opacity(
+    gs: Gaussians,
+    min_opacity: float,
+    max_radii2d: torch.Tensor | None = None,
+    max_screen_size: float = 0.0,
+    scene_extent: float = 0.0,
+) -> Gaussians:
+    """Kill the Gaussians below ``min_opacity``; with ``max_screen_size``,
+    also those whose 2D radius exceeded it or whose largest scale exceeds a
+    tenth of the scene extent."""
+    m = gs.get_opacity[:, 0] < min_opacity
+    if max_screen_size > 0.0 and max_radii2d is not None:
+        m = m | (max_radii2d > max_screen_size)
+        m = m | (torch.amax(gs.get_scaling, dim=1) > 0.1 * scene_extent)
+    return prune(gs, m)
+
+
+def sampling_and_prune(gs: Gaussians, num_sample: int) -> Gaussians:
+    """Keep only an FPS subset of ``num_sample`` alive Gaussians."""
+    idx = farthest_point_sample(gs.xyz, num_sample, mask=gs.alive).to(torch.int64)
+    keep = torch.zeros(gs.capacity, dtype=torch.bool, device=gs.device).index_fill_(0, idx, True)
+    return dataclasses.replace(gs, alive=gs.alive & keep)
+
+
+def reset_opacity(gs: Gaussians, max_opacity: float = 0.01) -> Gaussians:
+    """Clamp every opacity logit to at most logit(max_opacity)."""
+    cap = float(np.log(np.float32(max_opacity / (1.0 - max_opacity))))  # inverse_sigmoid in f32
+    return dataclasses.replace(gs, opacity=torch.minimum(gs.opacity, constant(cap, gs.opacity)))
 
 
 @dataclasses.dataclass

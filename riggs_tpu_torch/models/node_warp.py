@@ -1,6 +1,6 @@
 """NodeWarp: the node-based deformation field of stage 1.
 
-Port of ``riggs_tpu/models/node_warp.py:42-291, 365-375``. Sparse control
+Port of ``riggs_tpu/models/node_warp.py:42-291, 365-375, 389-420``. Sparse control
 nodes carry a position with hyper coordinates, a radius and a weight; the
 DeformNetwork queried at the nodes gives per-node residuals, which are
 blended onto the Gaussians with Gaussian-kernel weights over each one's K
@@ -17,7 +17,12 @@ nearest nodes (exp(-d^2 / 2 r^2), node-weight modulated, normalized).
   * ``arap_loss``: the ARAP regularizer over two sample times near a random
     time. JAX's PRNG streams cannot be reproduced here, so the sample times
     are an argument (``arap_sample_times`` draws them from a
-    ``torch.Generator``).
+    ``torch.Generator``);
+  * ``elastic_loss`` and ``acc_loss``: phase A's trajectory regularizers
+    (the variance of neighbour edge lengths over 8 times near the frame's,
+    and the second finite difference of the node trajectories). Their
+    times are arguments too: ``arap_sample_times`` draws elastic's 8
+    (delta_t the frame interval), ``sample_time`` acc's centre.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from riggs_tpu_torch.device import constant, resolve_device
 from riggs_tpu_torch.models.deform_mlp import DeformNetwork, DeformNetworkDef
 from riggs_tpu_torch.ops import arap as A
 from riggs_tpu_torch.ops.fps import farthest_point_sample
+from riggs_tpu_torch.ops.geometry import safe_norm
 from riggs_tpu_torch.ops.knn import _small_k, knn, pairwise_dist2
 from riggs_tpu_torch.ops.quaternion import quat_to_rotmat
 from riggs_tpu_torch.train.optim import tree_map
@@ -52,12 +58,14 @@ class NodeWarp(nn.Module):
         d_rot_as_res: bool = True,
         with_node_weight: bool = True,
         generator: torch.Generator | None = None,
+        mlp: DeformNetwork | None = None,
     ):
         super().__init__()
         self.nodes = nn.Parameter(nodes.to(torch.float32))  # (M, 3 + hyper_dim)
         self.node_radius_log = nn.Parameter(node_radius_log.to(torch.float32))  # (M,)
         self.node_weight_logit = nn.Parameter(node_weight_logit.to(torch.float32))  # (M, 1)
-        self.mlp = DeformNetwork(net, generator=generator, device=nodes.device)
+        # a given DeformNetwork is shared, not copied (the node set's rebuilds)
+        self.mlp = DeformNetwork(net, generator=generator, device=nodes.device) if mlp is None else mlp
         self.net = net
         self.K = K
         self.hyper_dim = hyper_dim
@@ -79,6 +87,15 @@ class NodeWarp(nn.Module):
     def params_dict(self) -> dict:
         return {"nodes": self.nodes, "radius": self.node_radius_log, "weight": self.node_weight_logit,
                 "mlp": self.mlp.params_dict()}
+
+    def with_nodes(self, nodes: torch.Tensor, node_radius_log: torch.Tensor,
+                   node_weight_logit: torch.Tensor) -> "NodeWarp":
+        """A warp over another node set with this one's DeformNetwork (the
+        module itself) and settings."""
+        return NodeWarp(nodes.detach().clone(), node_radius_log.detach().clone(), node_weight_logit.detach().clone(),
+                        self.net, K=self.K,
+                        hyper_dim=self.hyper_dim, d_rot_as_res=self.d_rot_as_res,
+                        with_node_weight=self.with_node_weight, mlp=self.mlp)
 
     @torch.no_grad()
     def replace_params(self, p: dict) -> "NodeWarp":
@@ -262,12 +279,54 @@ def arap_sample_times(
     return u[1:] * delta_t + t0 - 0.5 * delta_t
 
 
+def _trajectory(warp: NodeWarp, ts: torch.Tensor) -> torch.Tensor:
+    """The node positions (M, T, 3) at the times ts (T,): the detached
+    canonical nodes plus the DeformNetwork's d_xyz."""
+    T = ts.shape[0]
+    return warp.nodes[:, None, :3].detach() + node_deform(warp, ts[None, :, None].expand(warp.node_num, T, 1))["d_xyz"]
+
+
 def arap_loss(warp: NodeWarp, t_samp: torch.Tensor) -> torch.Tensor:
     """ARAP energy of the node positions at the sample times ``t_samp``
     (t_samp_num,) against the first, over the KNN graph of the first
     (K = min(10, M - 1))."""
-    T = t_samp.shape[0]
-    ts = t_samp[None, :, None].expand(warp.node_num, T, 1)
-    nodes_t = warp.nodes[:, None, :3].detach() + node_deform(warp, ts)["d_xyz"]  # (M, T, 3)
+    nodes_t = _trajectory(warp, t_samp)  # (M, T, 3)
     conn = A.connectivity_from_points(nodes_t[:, 0].detach(), K=min(10, warp.node_num - 1))
     return A.arap_error(nodes_t.transpose(0, 1), conn)
+
+
+def sample_time(
+    generator: torch.Generator | None = None,
+    t: torch.Tensor | None = None,
+    delta_t: float = 0.005,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """``acc_loss``'s centre time, drawn as the reference draws it: uniform
+    in [0, 1), or within delta_t / 2 of ``t``."""
+    dev = resolve_device(device) if t is None else t.device
+    u = torch.rand((), generator=generator, device=dev)
+    return u if t is None else t.reshape(()) + delta_t * (u - 0.5)
+
+
+def elastic_loss(warp: NodeWarp, t_samp: torch.Tensor, K: int = 2) -> torch.Tensor:
+    """Variance (ddof 1) of each node's edge lengths to its K nearest nodes
+    (in xyz ++ hyper space, the self column dropped) over the sample times
+    ``t_samp`` (t_samp_num,), each variance divided by its detached self
+    plus 1e-5, summed with the blend weights and averaged over the nodes."""
+    nodes_t = _trajectory(warp, t_samp)
+    nn_weight, _, nn_idx = cal_nn_weight(warp, warp.nodes[:, :3].detach(), feature=warp.nodes[:, 3:], K=K + 1)
+    nn_weight, nn_idx = nn_weight[:, 1:], nn_idx[:, 1:].to(torch.int64)
+    edge_t = safe_norm(nodes_t[nn_idx] - nodes_t[:, None], dim=-1)  # (M, K, T)
+    var = torch.var(edge_t, dim=2, correction=1)
+    var = var / (var.detach() + 1e-5)
+    return torch.mean(torch.sum(var * nn_weight, dim=1))
+
+
+def acc_loss(warp: NodeWarp, t0: torch.Tensor, delta_t: float = 0.005) -> torch.Tensor:
+    """Norm of the node trajectories' second difference at t0 - delta_t,
+    t0, t0 + delta_t, each divided by its detached self plus 1e-5, averaged."""
+    ts = torch.stack([t0 - delta_t, t0, t0 + delta_t])
+    nodes_t = _trajectory(warp, ts)
+    acc = safe_norm(nodes_t[:, 0] + nodes_t[:, 2] - 2 * nodes_t[:, 1], dim=-1)
+    acc = acc / (acc.detach() + 1e-5)
+    return torch.mean(acc)

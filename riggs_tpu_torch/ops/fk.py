@@ -41,7 +41,7 @@ def local_joint_transforms(
     T = torch.zeros((K, 4, 4), dtype=rot_mats.dtype, device=rot_mats.device)
     T[:, :3, :3] = rot_mats
     T[:, :3, 3] = trans
-    T[:, 3, 3] = 1.0
+    T[:, 3, 3].fill_(1.0)  # fill_, not a python-scalar setitem (a host tensor)
     return T
 
 

@@ -14,15 +14,18 @@ from __future__ import annotations
 import warnings
 from typing import Any
 
+import numpy as np
 import torch
 
 from riggs_tpu_torch.camera.camera import Camera, camera_center
 from riggs_tpu_torch.device import constant
 from riggs_tpu_torch.models.gaussians import Gaussians
 from riggs_tpu_torch.ops.quaternion import quat_multiply, quat_normalize
-from riggs_tpu_torch.ops.sh import eval_sh
+from riggs_tpu_torch.ops.sh import C0, eval_sh
 from riggs_tpu_torch.render import oracle as _oracle
 from riggs_tpu_torch.render import tiles as _tiles
+
+C0_F32 = float(np.float32(C0))  # the float32 constant the reference multiplies by
 
 
 def render(
@@ -79,7 +82,17 @@ def render(
         dirs = means3d - camera_center(cam)
         # torch.maximum, not clamp: a tie splits its gradient as jnp.maximum's does
         dirs = dirs / torch.maximum(torch.linalg.norm(dirs, dim=-1, keepdim=True), constant(1e-8, dirs))
-        colors = torch.maximum(eval_sh(int(active_sh_degree), feats, dirs) + 0.5, constant(0.0, dirs))
+        if int(active_sh_degree) == 0:
+            # C0 * dc + 0.5 rounded once, as the reference's compiled render
+            # evaluates it (a fused multiply-add; the float64 product of two
+            # float32 values is exact): a black SH-0 splat (dc = -0.5 / C0,
+            # the node Gaussians' initial colour) comes out at -7.4e-9 and
+            # stays clamped; a rounded product and sum give exactly 0, a tie
+            # of the clamp whose half gradient would train its colour
+            colors = (feats[:, 0, :].to(torch.float64) * C0_F32 + 0.5).to(torch.float32)
+        else:
+            colors = eval_sh(int(active_sh_degree), feats, dirs) + 0.5
+        colors = torch.maximum(colors, constant(0.0, dirs))
 
     # after the colours, as the reference orders it: the SH view direction
     # still carries a gradient to the means under detach_xyz

@@ -279,11 +279,13 @@ def bin_gaussians_sorted(
         gid.append(gi.to(torch.int32)[None, :].expand(hi_side * hi_side, cap).reshape(-1))
         # The reference writes ``handled.at[gi].set(gok)``; its pad slots are
         # clipped to N-1 and, written last, clear a real True at N-1. The
-        # port keeps that result for parity (recorded in ROADMAP Queue C).
-        handled = torch.zeros(N, dtype=torch.bool, device=dev)
-        handled[gi[gok]] = True
-        if cap > 0 and not bool(gok[-1]):
-            handled[N - 1] = False
+        # port keeps that result for parity (recorded in ROADMAP Queue C):
+        # an OR-scatter of gok at gi, then slot N-1 kept only if the last
+        # slot is real. Nothing reads the card (no boolean-mask index).
+        handled = torch.zeros(N, dtype=torch.int32, device=dev)
+        handled = handled.scatter_add_(0, gi, gok.to(torch.int32)) > 0
+        if cap > 0:
+            handled[-1:] &= gok[-1:]
         rect_overflow_cells = torch.where(
             handled,
             w_rect * h_rect - torch.clamp(w_rect, max=hi_side) * torch.clamp(h_rect, max=hi_side),

@@ -1,6 +1,6 @@
 """Functional Adam with per-leaf learning rates over a tree of tensors.
 
-Port of ``riggs_tpu/train/optim.py:24-89``. Parameters, gradients and both
+Port of ``riggs_tpu/train/optim.py:24-101`` (Adam and ``zero_rows``). Parameters, gradients and both
 moments are trees of nested dicts and lists with tensor leaves, the
 reference's pytrees; ``lrs`` and ``update_mask`` may be a scalar or a prefix
 of that tree (one value per parameter group). A functional optimizer rather
@@ -109,3 +109,18 @@ def _pick(tree: Any, i: int) -> Any:
     if isinstance(tree, list):
         return [_pick(v, i) for v in tree]
     return tree[i]
+
+
+def zero_rows(state: AdamState, dest: torch.Tensor) -> AdamState:
+    """Zero the moments of capacity rows ``dest`` (fresh state for newly
+    placed Gaussians); rows at or past the capacity are dropped and scalar
+    leaves are left alone."""
+
+    def z(a):
+        if a.dim() == 0:
+            return a
+        C = a.shape[0]
+        idx = torch.where((dest >= 0) & (dest < C), dest, C).to(torch.int64)
+        return torch.cat([a, a[:1]]).index_fill_(0, idx, 0.0)[:C]
+
+    return AdamState(mu=tree_map(z, state.mu), nu=tree_map(z, state.nu), count=state.count)

@@ -1,22 +1,31 @@
-"""Stage-1 trainer, phase B: canonical Gaussians deformed by the node warp.
+"""Stage-1 trainer: canonical Gaussians and the node deformation field.
 
-Port of ``riggs_tpu/train/stage1.py:43-110, 157-198, 252-317, 583-774``:
-``Stage1State``, ``init_stage1``, ``stage1_lr_fns_f32`` (the float32 twin
-of ``stage1_lr_fns_jit``), ``stage1_frame_loss`` (photometric + ARAP +
-the motion-mask render + the 2D-skeleton chamfer), ``phase_b_step`` (value
-and gradient, Adam on the Gaussians and the warp, densification
-statistics), ``phase_b_flags`` (the schedules of an iteration) and
-``make_phase_b_auto`` (every schedule derived from ``state.it``). Phase A,
-node sampling and densification, Gaussian densification and the training
-loop come with the next slice.
+Port of ``riggs_tpu/train/stage1.py`` but for the ZJU reference-point phase
+(``phase_ref_step``, ROADMAP A9):
 
-As in ``train/stage2.py``, the staged flags are host values; ``warm``
-detaches d_xyz and d_rotation where the reference weights them 0/1 (the
-same values and gradients). The ARAP regularizer's sample times are an
-argument (``arap_t``), drawn by the caller (``node_warp.arap_sample_times``)
-where the reference splits a PRNG key. ``use_flow_loss`` raises: the flow
-render (``render_flow``) is not ported yet. Unlike the reference, the step
-reports ``overflow_rect`` among its metrics.
+  * ``Stage1State``, ``init_stage1`` and ``stage1_lr_fns_f32`` (the float32
+    twin of ``stage1_lr_fns_jit``);
+  * phase A, the nodes trained as isotropic shared-scale SH-0 Gaussians:
+    ``phase_a_step`` (photometric loss, the 2D-skeleton chamfer of the
+    projected nodes, the elastic, acceleration and ARAP regularizers) and
+    ``make_phase_a_auto``;
+  * phase B, the Gaussians deformed by the node warp: ``stage1_frame_loss``,
+    ``phase_b_step``, ``phase_b_flags`` and ``make_phase_b_auto``;
+  * the node-set events: ``downsample_nodes`` (FPS over the trajectories),
+    ``node_densify_prune`` and ``finalize_nodes``, host rebuilds that run
+    once per event; ``Stage1TrainView`` for the Gaussian densification;
+  * ``train_stage1``, the loop, with ``Stage1Draws``, its random draws.
+
+The auto steps take the iteration ``it`` as a host int from the caller,
+which owns the count; each still increments the device ``state.it``. A
+step reads nothing from the card. The staged flags are host values: phase
+A's detach, chamfer and regularizer toggles are 0/1 weights as the
+reference writes them, phase B's ``warm`` detaches d_xyz and d_rotation
+(the same values and gradients). Every random draw is an argument: the
+regularizers' sample times and the split noise, drawn by the caller (the
+loop's ``Stage1Draws``, or a test replaying the reference's keys).
+``use_flow_loss`` raises: the flow render is not ported yet (A9). Unlike
+the reference, both steps report ``overflow_tiles`` and ``overflow_rect``.
 
 The warp's parameters are its ``nn.Module``'s own and are updated in place
 (``NodeWarp.replace_params``): a step consumes the state it is given.
@@ -30,15 +39,20 @@ import torch
 
 from riggs_tpu_torch.camera.camera import project_nodes_2d
 from riggs_tpu_torch.data.dataset import Frame, SceneData
+from riggs_tpu_torch.device import resolve_device
 from riggs_tpu_torch.models import gaussians as G
 from riggs_tpu_torch.models import node_warp as NW
 from riggs_tpu_torch.models.deform_mlp import DeformNetworkDef
+from riggs_tpu_torch.ops.fps import farthest_point_sample
 from riggs_tpu_torch.ops.knn import chamfer_distance
 from riggs_tpu_torch.render.api import render, tier_kwargs
+from riggs_tpu_torch.render.ladder import LadderPolicy
 from riggs_tpu_torch.train import losses as L
 from riggs_tpu_torch.train import optim as O
 from riggs_tpu_torch.train import schedule as S
 from riggs_tpu_torch.train.config import Config
+from riggs_tpu_torch.train.sampling import FrameSampler
+from riggs_tpu_torch.train.static import TrainState, densify_step, reset_opacity_step
 
 
 @dataclasses.dataclass
@@ -257,15 +271,14 @@ def phase_b_flags(cfg: Config, it: int) -> dict:
 
 
 def make_phase_b_auto(cfg: Config):
-    """The phase-B step with every schedule derived from ``state.it``: the
-    learning rates of ``stage1_lr_fns_f32`` and the flags of
-    ``phase_b_flags``. The caller passes the frame and the ARAP sample times
-    and the run's constants (chamfer, motion loss, window shape)."""
+    """The phase-B step with every schedule derived from the host iteration
+    ``it``: the learning rates of ``stage1_lr_fns_f32`` and the flags of
+    ``phase_b_flags``. The caller passes the frame, the ARAP sample times,
+    ``it`` and the run's constants (chamfer, motion loss, window shape)."""
     gauss_lrs, warp_lrs = stage1_lr_fns_f32(cfg)
 
-    def step(state, frame, bg, arap_t, use_chamfer=False, use_motion_loss=False, use_flow_loss=False,
-             lambda_dssim=0.2, max_per_tile=1024, isotropic=False, tile_ladder=None):
-        it = int(state.it)
+    def step(state, frame, bg, arap_t, *, it: int, use_chamfer=False, use_motion_loss=False,
+             use_flow_loss=False, lambda_dssim=0.2, max_per_tile=1024, isotropic=False, tile_ladder=None):
         new_state, metrics = phase_b_step(
             state, frame, bg, gauss_lrs(it), warp_lrs(it), arap_t,
             use_chamfer=use_chamfer, use_motion_loss=use_motion_loss, use_flow_loss=use_flow_loss,
@@ -275,3 +288,462 @@ def make_phase_b_auto(cfg: Config):
         return dataclasses.replace(new_state, it=state.it + 1), metrics
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Phase A: the nodes rendered as Gaussians
+# ---------------------------------------------------------------------------
+
+
+def phase_a_loss(
+    params: dict,
+    state: Stage1State,
+    frame: Frame,
+    bg: torch.Tensor,
+    mean2d_bias: torch.Tensor,
+    reg_t: dict,
+    time_interval: float,
+    lambda_chamfer: float = 1e-3,
+    detach_dxyz: bool = False,
+    use_chamfer: bool = False,
+    use_reg: bool = True,
+    lambda_dssim: float = 0.2,
+    max_per_tile: int = 256,
+    tiers: tuple | None = None,
+):
+    """The phase-A loss: the node Gaussians (SH 0) deformed by the
+    DeformNetwork at their detached positions, the photometric loss, the
+    chamfer of the projected nodes against the thinned skeleton, and
+    1e-3 elastic + 1e-5 acceleration + 1e-2 ARAP regularizers. ``params``
+    is ``{"node_gs": ..., "warp": ...}`` (``params["warp"]`` is written into
+    ``state.warp`` unless it holds the module's own parameters); ``reg_t``
+    the regularizers' times: ``elastic`` (8,), ``acc`` () and ``arap`` (2,).
+    The three toggles are 0/1 weights: ``w x + (1 - w) x.detach()`` for the
+    detach, a 0-weighted term for the others (its gradient is exactly 0).
+    Returns (loss, render output)."""
+    w_grad = 1.0 - float(detach_dxyz)
+    w_ch = float(use_chamfer)
+    w_reg = float(use_reg)
+    node_gs = state.node_gs.replace_params(params["node_gs"])
+    warp = state.warp.replace_params(params["warp"])
+    t = frame.fid.reshape(1, 1).expand(node_gs.capacity, 1)
+    d_xyz = warp.mlp(node_gs.xyz.detach(), t)["d_xyz"] * node_gs.motion_mask
+    d_xyz = w_grad * d_xyz + (1.0 - w_grad) * d_xyz.detach()
+    out = render(frame.cam, node_gs, bg, d_xyz=d_xyz, active_sh_degree=0, mean2d_bias=mean2d_bias,
+                 max_per_tile=max_per_tile, **tier_kwargs(tiers))
+    loss = L.photometric_loss(out["render"], frame.image, lambda_dssim)
+    if frame.thinned is not None:
+        proj = project_nodes_2d(frame.cam, node_gs.xyz + d_xyz)
+        cd = chamfer_distance(proj, frame.thinned, x_mask=node_gs.alive, y_mask=frame.thinned_mask, norm=1)
+        loss = loss + lambda_chamfer * w_ch * cd
+    reg = 1e-3 * NW.elastic_loss(warp, reg_t["elastic"])
+    reg = reg + 1e-5 * NW.acc_loss(warp, reg_t["acc"], delta_t=3 * time_interval)
+    reg = reg + 1e-2 * NW.arap_loss(warp, reg_t["arap"])
+    return loss + w_reg * reg, out
+
+
+def phase_a_step(
+    state: Stage1State,
+    frame: Frame,
+    bg: torch.Tensor,
+    lrs_node: dict,
+    lrs_warp: dict,
+    reg_t: dict,
+    time_interval: float,
+    **kw,
+):
+    """One phase-A step: value and gradient of ``phase_a_loss`` (``kw`` its
+    options) in the node Gaussians, the warp and ``mean2d_bias``; Adam on
+    both; the node densification statistics. Returns (new state, metrics)."""
+    node_p = {k: v.detach().requires_grad_(True) for k, v in state.node_gs.params_dict().items()}
+    params = {"node_gs": node_p, "warp": state.warp.params_dict()}
+    m2b = torch.zeros_like(state.node_gs.xyz[:, :2], requires_grad=True)
+    loss, out = phase_a_loss(params, state, frame, bg, m2b, reg_t, time_interval, **kw)
+    gp, gm2b = O.grad_tree(loss, (params, m2b))
+    with torch.no_grad():
+        new_node_p, opt_node = O.adam_update(gp["node_gs"], state.opt_node, node_p, lrs_node)
+        new_warp_p, opt_warp = O.adam_update(gp["warp"], state.opt_warp, params["warp"], lrs_warp)
+        stats = G.add_densification_stats(
+            state.stats_node, gm2b, out["radii"], out["visibility_filter"], frame.cam.width, frame.cam.height,
+        )
+        metrics = {"loss": loss.detach(), "psnr": L.psnr(out["render"], frame.image),
+                   "n_node_gs": state.node_gs.num_alive}
+    new_state = dataclasses.replace(
+        state,
+        node_gs=state.node_gs.replace_params(new_node_p),
+        warp=state.warp.replace_params(new_warp_p),
+        opt_node=opt_node,
+        opt_warp=opt_warp,
+        stats_node=stats,
+    )
+    # the reference's phase-A metrics carry neither: its truncation is silent
+    metrics["overflow_tiles"] = out["overflow_tiles"]
+    metrics["overflow_rect"] = out["overflow_rect"]
+    return new_state, metrics
+
+
+def phase_a_flags(cfg: Config, it: int) -> dict:
+    """The toggles of phase-A iteration ``it`` as ``make_phase_a_auto``
+    derives them: detach d_xyz before the node warm-up ends, the chamfer
+    after node sampling, the regularizers after the warm-up (never with
+    ``no_arap_loss``); the chamfer lambda and the render tiers."""
+    o, pipe = cfg.opt, cfg.pipe
+    return dict(
+        lambda_chamfer=o.lambda_deformed_node_prjection,
+        detach_dxyz=it < o.node_warm_up,
+        use_chamfer=it > o.iterations_node_sampling,
+        use_reg=(it > o.node_warm_up) if not o.no_arap_loss else False,
+        tiers=(pipe.max_tiles_per_gaussian, pipe.mid_cap, pipe.mid_side),
+    )
+
+
+def make_phase_a_auto(cfg: Config, time_interval: float):
+    """The phase-A step with every schedule derived from the host iteration
+    ``it``: the learning rates of ``stage1_lr_fns_f32`` (the node Gaussians
+    take the Gaussians' groups) and the toggles of ``phase_a_flags``. The
+    caller passes the frame, the regularizers' times and ``it``."""
+    gauss_lrs, warp_lrs = stage1_lr_fns_f32(cfg)
+
+    def step(state, frame, bg, reg_t, *, it: int, lambda_dssim=0.2, max_per_tile=256):
+        new_state, metrics = phase_a_step(
+            state, frame, bg, gauss_lrs(it), warp_lrs(it), reg_t, time_interval,
+            lambda_dssim=lambda_dssim, max_per_tile=max_per_tile, **phase_a_flags(cfg, it),
+        )
+        return dataclasses.replace(new_state, it=state.it + 1), metrics
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Node-set events (host rebuilds, once per event)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def downsample_nodes(state: Stage1State, cfg: Config, time_num: int = 16) -> Stage1State:
+    """Node sampling in the trajectory space ('samp_hyper'): FPS over the
+    alive node Gaussians' positions at ``time_num`` times in [0, 1] keeps
+    ``node_num`` of them as the warp's nodes (hyper coords 1e-2, radius
+    log(0.1 range + 1e-7), weight logits 0) and prunes the rest; fresh Adam
+    states for the warp and the node Gaussians, fresh node statistics."""
+    node_gs, warp = state.node_gs, state.warp
+    x = node_gs.xyz
+    M = cfg.model.node_num
+    # jnp.linspace's float32 values: i * (1 / (n - 1)), the last exactly 1
+    t_np = np.arange(time_num, dtype=np.float32) * (np.float32(1.0) / np.float32(time_num - 1))
+    t_np[-1] = 1.0
+    t_samp = torch.as_tensor(t_np, device=x.device)
+    trans = torch.stack([warp.mlp(x, t.reshape(1, 1).expand(x.shape[0], 1))["d_xyz"] for t in t_samp])  # (T, N, 3)
+    hyper = (trans + x[None]).transpose(0, 1).reshape(x.shape[0], -1)
+    idx = farthest_point_sample(hyper, M, mask=node_gs.alive).to(torch.int64)
+    xs = x[idx]
+    new_nodes = torch.cat([xs, torch.full((M, warp.hyper_dim), 1e-2, device=x.device)], dim=-1)
+    scene_range = torch.max(xs) - torch.min(xs)
+    warp = warp.with_nodes(new_nodes, torch.log(0.1 * scene_range + 1e-7) * torch.ones(M, device=x.device),
+                           torch.zeros((M, 1), device=x.device))
+    keep = torch.zeros(node_gs.capacity, dtype=torch.bool, device=x.device).index_fill_(0, idx, True)
+    node_gs = dataclasses.replace(node_gs, alive=node_gs.alive & keep)
+    return dataclasses.replace(
+        state,
+        warp=warp,
+        node_gs=node_gs,
+        opt_warp=O.adam_init(warp.params_dict()),
+        opt_node=O.adam_init(node_gs.params_dict()),
+        stats_node=G.init_densify_stats(node_gs.capacity, device=x.device),
+    )
+
+
+@torch.no_grad()
+def node_densify_prune(state: Stage1State, cfg: Config, max_grad: float) -> Stage1State:
+    """Node densify and prune: average the Gaussians' gradient importance
+    onto each node's KNN fan; add a node at the weighted mean position of
+    every node whose importance exceeds ``max_grad``; drop the nodes no
+    Gaussian references. A host rebuild of the node set: the kept nodes
+    carry their Adam moments, the added ones start fresh. Returns ``state``
+    itself when nothing changes."""
+    gs, warp = state.gs, state.warp
+    s = state.stats_gs
+    stats_grad = torch.where(s.denom > 0, s.xyz_gradient_accum / torch.clamp(s.denom, min=1.0), 0.0).cpu().numpy()
+    x = gs.xyz.cpu().numpy()
+    alive = gs.alive.cpu().numpy()
+    weights_g = np.where(alive, stats_grad, 0.0)
+
+    nn_weight, _, nn_idx = NW.cal_nn_weight(warp, gs.xyz, gs.feature)
+    nn_weight = nn_weight.cpu().numpy() * alive[:, None]
+    nn_idx = nn_idx.cpu().numpy()
+
+    M = warp.node_num
+    importance = np.zeros(M)
+    edge_count = np.zeros(M)
+    avg_x = np.zeros((M, x.shape[1]))
+    np.add.at(importance, nn_idx.reshape(-1), (nn_weight * weights_g[:, None]).reshape(-1))
+    np.add.at(edge_count, nn_idx.reshape(-1), nn_weight.reshape(-1))
+    np.add.at(
+        avg_x,
+        nn_idx.reshape(-1),
+        (nn_weight * weights_g[:, None]).reshape(-1, 1) * np.repeat(x, nn_idx.shape[1], axis=0),
+    )
+    avg_x = avg_x / np.maximum(importance[:, None], 1e-12)
+    importance = importance / (edge_count + 1e-7)
+
+    add_mask = (importance > max_grad) & np.isfinite(avg_x).all(axis=1)
+    keep_mask = edge_count > 0
+    if add_mask.sum() == 0 and keep_mask.all():
+        return state
+
+    old_nodes = warp.nodes.cpu().numpy()
+    old_radius = warp.node_radius_log.cpu().numpy()
+    old_weight = warp.node_weight_logit.cpu().numpy()
+    new_nodes = np.concatenate([
+        old_nodes[keep_mask],
+        np.concatenate([avg_x[add_mask, :3], 1e-2 * np.ones((add_mask.sum(), warp.hyper_dim))], -1),
+    ])
+    new_radius = np.concatenate([old_radius[keep_mask], old_radius[add_mask]])
+    new_weight = np.concatenate([old_weight[keep_mask], old_weight[add_mask]])
+    dev = warp.nodes.device
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    new_warp = warp.with_nodes(as_t(new_nodes), as_t(new_radius), as_t(new_weight))
+    # the kept nodes' moments carry over (first), the added nodes' are zero
+    keep_idx = torch.as_tensor(np.nonzero(keep_mask)[0], device=dev)
+    n_new = new_nodes.shape[0]
+
+    def carry(a):
+        fresh = torch.zeros((n_new,) + tuple(a.shape[1:]), dtype=a.dtype, device=dev)
+        fresh[: keep_idx.shape[0]] = a[keep_idx]
+        return fresh
+
+    opt = state.opt_warp
+    new_mu, new_nu = dict(opt.mu), dict(opt.nu)
+    for k in ("nodes", "radius", "weight"):
+        new_mu[k], new_nu[k] = carry(opt.mu[k]), carry(opt.nu[k])
+    return dataclasses.replace(state, warp=new_warp, opt_warp=O.AdamState(mu=new_mu, nu=new_nu, count=opt.count))
+
+
+@torch.no_grad()
+def finalize_nodes(state: Stage1State) -> Stage1State:
+    """End of phase A: the warp's node positions become the alive node
+    Gaussians' (the first ``node_num`` alive, padded with slot 0, as after
+    ``downsample_nodes``). Reads the alive mask from the card once."""
+    alive = state.node_gs.alive.cpu().numpy()
+    M = state.warp.node_num
+    idx = np.zeros(M, np.int64)
+    found = np.nonzero(alive)[0][:M]
+    idx[: found.shape[0]] = found
+    nodes = state.warp.nodes.clone()
+    nodes[:, :3] = state.node_gs.xyz[torch.as_tensor(idx, device=nodes.device)]
+    warp = state.warp.with_nodes(nodes, state.warp.node_radius_log, state.warp.node_weight_logit)
+    return dataclasses.replace(state, warp=warp)
+
+
+def Stage1TrainView(gs, opt, stats) -> TrainState:
+    """A (Gaussians, Adam state, statistics) triple as ``densify_step`` takes it."""
+    return TrainState(gs=gs, opt=opt, stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# The loop
+# ---------------------------------------------------------------------------
+
+
+class Stage1Draws:
+    """The loop's random draws, one method per draw, from one
+    ``torch.Generator`` seeded with ``seed`` on ``device``. A test replays
+    the reference's key chain through an object with the same methods."""
+
+    def __init__(self, seed: int, device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def phase_a(self, fid: torch.Tensor, time_interval: float) -> dict:
+        """A phase-A step's regularizer times (``phase_a_step``'s ``reg_t``)."""
+        return {
+            "elastic": NW.arap_sample_times(self.gen, t=fid, delta_t=time_interval, t_samp_num=8),
+            "acc": NW.sample_time(self.gen, t=fid, delta_t=3 * time_interval),
+            "arap": NW.arap_sample_times(self.gen, device=self.device),
+        }
+
+    def phase_b(self) -> torch.Tensor:
+        """A phase-B step's ARAP sample times."""
+        return NW.arap_sample_times(self.gen, device=self.device)
+
+    def split_noise(self, capacity: int) -> torch.Tensor:
+        """A densification's split noise (2, capacity, 3)."""
+        return G.split_noise(capacity, generator=self.gen, device=self.device)
+
+
+def _overflow(metrics: dict) -> tuple[int, int]:
+    """A step's (overflow_tiles, overflow_rect), read in one copy."""
+    a, b = torch.stack([metrics["overflow_tiles"], metrics["overflow_rect"]]).tolist()
+    return int(a), int(b)
+
+
+def _gs_densify(state: Stage1State, draws, o, extent: float, node: bool) -> Stage1State:
+    """``densify_step`` on the node Gaussians (``node``) or the Gaussians."""
+    gs, opt, stats = (state.node_gs, state.opt_node, state.stats_node) if node else (state.gs, state.opt_gs, state.stats_gs)
+    st = densify_step(Stage1TrainView(gs, opt, stats), draws.split_noise(gs.capacity), o.densify_grad_threshold,
+                      extent, percent_dense=o.percent_dense)
+    if node:
+        return dataclasses.replace(state, node_gs=st.gs, opt_node=st.opt, stats_node=st.stats)
+    return dataclasses.replace(state, gs=st.gs, opt_gs=st.opt, stats_gs=st.stats)
+
+
+def train_stage1(
+    scene: SceneData,
+    cfg: Config,
+    seed: int = 0,
+    log_every: int = 0,
+    eval_every: int = 0,
+    eval_fn=None,
+    step_callback=None,
+    source_path: str | None = None,
+    state: Stage1State | None = None,
+    draws=None,
+    events: list | None = None,
+    device: str | torch.device | None = None,
+):
+    """Train stage 1 on ``scene``; returns (state, history).
+
+    Phase A (``iterations_node_rendering`` steps): ``make_phase_a_auto``
+    steps on sampled frames (progressive, with the node warm-up window,
+    when ``progressive_train_node``), the node Gaussians densified every
+    ``densification_interval`` before ``iterations_node_sampling``, then
+    ``downsample_nodes`` at that step and ``finalize_nodes`` at the end.
+    Phase B (``iterations`` steps, ``it`` from 0): ``make_phase_b_auto``
+    steps with ``LadderPolicy`` riding the first steps; each step's
+    overflow is read one step late (the host never waits for the step it
+    just launched) and refits the ladder as the reference's triggers say;
+    node densify/prune, Gaussian densification (with ``anticipate``) and
+    opacity resets with fresh opacity moments. ``history`` holds
+    (phase, it, scalar metrics) every ``log_every`` steps.
+
+    ``state`` replaces ``init_stage1``'s (seeded from ``seed``), ``draws``
+    the ``Stage1Draws(seed)`` of the random draws. ``events``, when given,
+    receives one dict per event: densifications with the alive counts
+    before and after, node sampling and densify/prune with the node counts,
+    ladder fits, and every step that overflowed. Runs on ``cuda`` unless
+    ``device`` says otherwise."""
+    o = cfg.opt
+    dev = resolve_device(device)
+    frames = scene.train_frames
+    if frames and frames[0].reference_points is not None:
+        raise NotImplementedError("the ZJU reference-point phase (phase_ref_step) is not ported yet (ROADMAP A9)")
+    if source_path is not None and scene.train_image_names is not None:
+        raise NotImplementedError("the optical-flow store (FlowStore) is not ported yet (ROADMAP A9)")
+    if state is None:
+        state = init_stage1(scene, cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    draws = Stage1Draws(seed, dev) if draws is None else draws
+    bg = torch.ones(3, device=dev) if scene.white_background else torch.zeros(3, device=dev)
+    rng = np.random.default_rng(seed)
+    ti = scene.time_interval
+    history = []
+    log = (lambda **e: events.append(e)) if events is not None else (lambda **e: None)
+    alive = lambda g: int(g.num_alive)
+
+    # ---- phase A ----------------------------------------------------------
+    sampler = FrameSampler(frames, rng)
+    step_a = make_phase_a_auto(cfg, ti)
+    prev = None  # (it, metrics) of the previous step: its overflow is read a step late
+    for it in range(o.iterations_node_rendering):
+        frame = frames[sampler.sample(it, o.progressive_train_node, o.progressive_stage_ratio,
+                                      o.progressive_stage_steps,
+                                      warmup_until=o.node_warm_up if o.progressive_train_node else 0)]
+        state, metrics = step_a(state, frame, bg, draws.phase_a(frame.fid, ti), it=it, lambda_dssim=o.lambda_dssim,
+                                max_per_tile=cfg.pipe.max_per_tile)
+        if prev is not None:
+            of_t, of_r = _overflow(prev[1])
+            if of_t or of_r:
+                log(phase="A", it=prev[0], event="overflow", tiles=of_t, rect=of_r)
+        prev = (it, metrics)
+        if 0 < it < o.iterations_node_sampling and it % o.densification_interval == 0:
+            before = alive(state.node_gs)
+            state = _gs_densify(state, draws, o, scene.cameras_extent, node=True)
+            log(phase="A", it=it, event="node_gs densify", before=before, after=alive(state.node_gs))
+        if it == o.iterations_node_sampling:
+            before = alive(state.node_gs)
+            state = downsample_nodes(state, cfg)
+            log(phase="A", it=it, event="node sampling", before=before, after=alive(state.node_gs),
+                nodes=state.warp.node_num)
+        if log_every and it % log_every == 0:
+            history.append(("A", it, {k: float(v) for k, v in metrics.items()}))
+    if prev is not None:
+        of_t, of_r = _overflow(prev[1])
+        if of_t or of_r:
+            log(phase="A", it=prev[0], event="overflow", tiles=of_t, rect=of_r)
+    if o.iterations_node_rendering > o.iterations_node_sampling:
+        state = finalize_nodes(state)
+
+    # ---- phase B ----------------------------------------------------------
+    sampler = FrameSampler(frames, rng)
+    ladder_pol = None
+    if cfg.pipe.use_tile_ladder and cfg.pipe.rasterizer == "tiled":
+        ladder_pol = LadderPolicy(n_buckets=cfg.pipe.ladder_buckets, margin=cfg.pipe.ladder_margin)
+    densified_at = -1
+    state = dataclasses.replace(state, it=torch.zeros((), dtype=torch.int32, device=dev))  # schedules restart
+    step_b = make_phase_b_auto(cfg)
+    use_chamfer = bool(frames) and frames[0].thinned is not None
+    use_motion = o.gt_alpha_mask_as_dynamic_mask and bool(frames) and frames[0].alpha_mask is not None
+    prev = None
+
+    def observe(p_it, p_metrics, of_t):
+        old = ladder_pol.ladder
+        ladder_pol.observe(p_metrics["tile_counts"].cpu().numpy(), of_t)
+        if ladder_pol.ladder != old:
+            log(phase="B", it=p_it, event="ladder fit" if old is None else "ladder refit", ladder=ladder_pol.ladder,
+                refits=ladder_pol.refits)
+
+    for it in range(o.iterations):
+        frame = frames[sampler.sample(it, o.progressive_train, o.progressive_stage_ratio, o.progressive_stage_steps)]
+        state, metrics = step_b(
+            state, frame, bg, draws.phase_b(), it=it, use_chamfer=use_chamfer, use_motion_loss=use_motion,
+            lambda_dssim=o.lambda_dssim, max_per_tile=cfg.pipe.max_per_tile, isotropic=cfg.model.use_isotropic_gs,
+            tile_ladder=ladder_pol.ladder if ladder_pol is not None else None,
+        )
+        if prev is not None:
+            p_it, p_metrics = prev
+            of_t, of_r = _overflow(p_metrics)
+            if of_t or of_r:
+                log(phase="B", it=p_it, event="overflow", tiles=of_t, rect=of_r)
+            if ladder_pol is not None and (ladder_pol.ladder is None or of_t > 0
+                                           or p_it % cfg.pipe.ladder_check_every == 0 or p_it == densified_at + 1):
+                observe(p_it, p_metrics, of_t)
+        prev = (it, metrics)
+        node_dp = (
+            o.node_enable_densify_prune
+            and o.node_densify_from_iter < it < o.node_densify_until_iter
+            and it % o.node_densification_interval == 0
+            and it > o.warm_up
+        ) or it == o.node_force_densify_prune_step
+        if node_dp:
+            before = state.warp.node_num
+            state = node_densify_prune(state, cfg, o.densify_grad_threshold)
+            log(phase="B", it=it, event="node densify/prune", before=before, after=state.warp.node_num)
+        if o.densify_from_iter < it < o.densify_until_iter and it % o.densification_interval == 0:
+            before = alive(state.gs)
+            state = _gs_densify(state, draws, o, scene.cameras_extent, node=False)
+            after = alive(state.gs)
+            densified_at = it
+            log(phase="B", it=it, event="gs densify", before=before, after=after)
+            if ladder_pol is not None and ladder_pol.ladder is not None:
+                # ride ahead of the growth: one refit instead of overflow churn
+                if before > 0 and after > before and ladder_pol.anticipate(after / before):
+                    log(phase="B", it=it, event="ladder anticipate", ladder=ladder_pol.ladder,
+                        refits=ladder_pol.refits)
+        if it > 0 and it % o.opacity_reset_interval == 0:
+            st = reset_opacity_step(Stage1TrainView(state.gs, state.opt_gs, state.stats_gs))
+            state = dataclasses.replace(state, gs=st.gs, opt_gs=st.opt)
+            log(phase="B", it=it, event="opacity reset")
+        if log_every and it % log_every == 0:
+            history.append(("B", it, {k: float(v) for k, v in metrics.items() if v.dim() == 0}))
+        if eval_every and eval_fn is not None and it > 0 and it % eval_every == 0:
+            eval_fn(state, it)
+        if step_callback is not None:
+            step_callback(state, it)
+    if prev is not None:  # the last step's late read
+        of_t, of_r = _overflow(prev[1])
+        if of_t or of_r:
+            log(phase="B", it=prev[0], event="overflow", tiles=of_t, rect=of_r)
+        if ladder_pol is not None:
+            observe(prev[0], prev[1], of_t)
+    if ladder_pol is not None:
+        log(phase="B", it=o.iterations, event="ladder", ladder=ladder_pol.ladder, refits=ladder_pol.refits)
+    return state, history

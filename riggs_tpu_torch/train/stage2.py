@@ -7,7 +7,7 @@ warmup distillation toward the stage-1 deformations), ``stage2_step`` (value
 and gradient, Adam on the skeleton and, outside warmup, on the Gaussians,
 densification statistics), ``stage2_flags`` (the staged flags and lambdas
 of an iteration) and ``make_stage2_auto`` (every schedule derived from
-``state.it``); ``_eval_image`` and ``eval_image``. The training loop
+the caller's iteration count); ``_eval_image`` and ``eval_image``. The training loop
 (``train_stage2``) needs the stage-1 slice and comes with it.
 
 The staged flags (``warm``, ``enable_to``, ``enable_sm``, ``use_chamfer``,
@@ -257,17 +257,17 @@ def stage2_flags(cfg: Config, it: int, uid: int, template_idx: int) -> dict:
 
 
 def make_stage2_auto(cfg: Config, template_idx: int):
-    """The stage-2 step with every schedule derived from ``state.it``: the
-    learning rates and the flags of ``stage2_flags``."""
+    """The stage-2 step with every schedule derived from the host iteration
+    ``it`` (the caller owns the count; the step still increments the device
+    ``state.it``): the learning rates and the flags of ``stage2_flags``."""
     o = cfg.opt
     gs_lr = S.expon_lr_f32(o.position_lr_init, o.position_lr_final,
                            lr_delay_mult=o.position_lr_delay_mult, max_steps=o.position_lr_max_steps)
     skel_lr = S.expon_lr_f32(o.deform_mlp_lr_init, o.deform_mlp_lr_final,
                              lr_delay_mult=o.deform_mlp_lr_delay_mult, max_steps=o.deform_mlp_lr_max_steps)
 
-    def step(state, frame, uid, bg, pre_d_xyz_all, pre_d_joints_all, use_chamfer=True,
+    def step(state, frame, uid, bg, pre_d_xyz_all, pre_d_joints_all, *, it: int, use_chamfer=True,
              lambda_dssim=0.2, max_per_tile=1024, isotropic=False, tile_ladder=None):
-        it = int(state.it)
         flags = stage2_flags(cfg, it, uid, template_idx)
         lrs_gs = {
             "xyz": gs_lr(it),

@@ -230,7 +230,7 @@ def capture_step_calls(B, smoke):
                             ("ladder", ("blend_permuted_gm_fwd", "blend_permuted_gm_bwd"),
                              dict(max_per_tile=cap, tile_ladder=ladder))):
         steps[path] = lambda kw=kw: step(smoke.fresh_state(gs, skel, smoke.TRAIN_ITS[-1], "cuda"), fr, smoke.UID, bg,
-                                         pre_d_xyz, pre_d_joints, **kw)
+                                         pre_d_xyz, pre_d_joints, it=smoke.TRAIN_ITS[-1], **kw)
         with smoke._Capture(B, names) as c:
             steps[path]()
         calls.update(c.calls)

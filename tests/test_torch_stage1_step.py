@@ -232,10 +232,11 @@ def test_phase_b_auto_step_matches(setup, it):
     kw = dict(use_chamfer=True, use_motion_loss=True, max_per_tile=512)
     jnew, jm = JS1.make_phase_b_auto(jcfg)(js, jf, jnp.zeros(3), KEY, **kw)
     ts = _port_state(js, it=it)
-    tnew, tm = TS1.make_phase_b_auto(tcfg)(ts, _port_frame(jf), torch.zeros(3), torch.as_tensor(_reference_arap_t(KEY)), **kw)
+    tnew, tm = TS1.make_phase_b_auto(tcfg)(ts, _port_frame(jf), torch.zeros(3), torch.as_tensor(_reference_arap_t(KEY)),
+                                           it=it, **kw)
     _assert_step(jnew, jm, tnew, tm)
     assert int(tnew.it) == int(jnew.it) == it + 1
     flags = TS1.phase_b_flags(tcfg, it)
     assert flags["warm"] == (it < jcfg.opt.warm_up) and flags["lambda_motion"] > 0 and flags["lambda_arap"] > 0
     with pytest.raises(NotImplementedError):
-        TS1.make_phase_b_auto(tcfg)(ts, _port_frame(jf), torch.zeros(3), torch.zeros(2), use_flow_loss=True)
+        TS1.make_phase_b_auto(tcfg)(ts, _port_frame(jf), torch.zeros(3), torch.zeros(2), it=it, use_flow_loss=True)

@@ -255,7 +255,7 @@ def test_stage2_auto_step_matches(setup, it, ladder):
                      max_per_tile=512, tile_ladder=tl)
     ts = _port_state(js, it=it)
     tnew, tm = tstep(ts, _port_frame(jf), UID, torch.zeros(3), torch.as_tensor(pdx), torch.as_tensor(pdj),
-                     max_per_tile=512, tile_ladder=tl)
+                     it=it, max_per_tile=512, tile_ladder=tl)
     _assert_step(jnew, jm, tnew, tm, warm=it == 0)
     if it == 0:
         for k, v in ts.gs.params_dict().items():
