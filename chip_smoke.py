@@ -83,7 +83,11 @@ Phases, each printed as it runs:
      refits, loss and PSNR at both ends of both phases, ms per step of each
      phase and the device's busy time and idle share over 5 steps of each;
      every parameter finite, no step overflowed but where the ladder
-     reacted one step late, every kernel of the path launched.
+     reacted one step late, every kernel of the path launched; then the
+     four kernels held to their plain versions, as in 3 and 6, on the
+     inputs of three of the loop's own steps (LOOP_HELD: phase A on the
+     densified node cloud and phase B's first probe step at the loop's
+     plain window, its last step on the refitted ladder).
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without CUDA
 it exits 2 and prints no result. Imports nothing of JAX or riggs_tpu.
@@ -179,6 +183,10 @@ LOOP_SCHEDULE = dict(iterations_node_rendering=40, node_warm_up=10, densificatio
                      iterations_node_sampling=30, iterations=40, densify_from_iter=5,
                      node_force_densify_prune_step=20, opacity_reset_interval=30, ladder_check_every=10)
 PROFILE_FROM = 20  # the loop's profiled steps of each phase: [20, 25)
+# the loop's steps whose blend calls are held to the plain versions: phase A
+# on the densified node cloud, phase B's first probe step (plain windows) and
+# its last (the ladder as the loop fitted and refitted it)
+LOOP_HELD = {("A", 25): "phase A it=25", ("B", 0): "phase B probe it=0", ("B", 39): "phase B ladder it=39"}
 
 
 def _bound(nbytes, ops, sfu):
@@ -1346,9 +1354,12 @@ def _stage1_groups(g):
     return out
 
 
-def stage1_phase(blend, gs, cam, bg, frame_train):
-    """Phase 8: the stage-1 phase-B step at full width. Returns the launch
-    counts of its counted run and the forward and backward kernel results."""
+def stage1_setup(gs, bg, fr):
+    """[stage1]'s initial state and windows: init_stage1 from the avatar's
+    alive points and colours at its capacity (seeded), the log-scales
+    jittered; a probe render of ``fr`` gives the plain window (the largest
+    tile count with 25% headroom) and a ladder fitted to it. Returns (cfg,
+    state, window, ladder, largest tile count)."""
     import torch
 
     from riggs_tpu_torch.data.dataset import SceneData
@@ -1356,10 +1367,8 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
     from riggs_tpu_torch.ops.sh import C0
     from riggs_tpu_torch.render.api import render, tier_kwargs
     from riggs_tpu_torch.render.ladder import make_tile_ladder
-    from riggs_tpu_torch.train.optim import grad_tree, tree_leaves
-    from riggs_tpu_torch.train.stage1 import init_stage1, make_phase_b_auto, phase_b_flags, stage1_frame_loss
+    from riggs_tpu_torch.train.stage1 import init_stage1
 
-    t0 = time.perf_counter()
     cfg = _stage1_config(gs.capacity)
     n = int(gs.num_alive)
     pts = gs.xyz[:n].cpu().numpy()
@@ -1374,7 +1383,6 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
     jitter = torch.randn(state0.gs.scaling.shape, generator=torch.Generator(device=DEVICE).manual_seed(4),
                          device=DEVICE)
     state0.gs.scaling = state0.gs.scaling - 0.5 * jitter.abs()
-    fr = frame_train
     tiers = (cfg.pipe.max_tiles_per_gaussian, cfg.pipe.mid_cap, cfg.pipe.mid_side)
     with torch.no_grad():
         d = NW.warp_forward(state0.warp, state0.gs.xyz, fr.fid, state0.gs.feature, state0.gs.motion_mask)
@@ -1384,12 +1392,26 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
         raise RuntimeError(f"[stage1] the initial state overflows the rect caps: {int(probe['overflow_rect'])}")
     counts = probe["tile_counts"].cpu().numpy()
     cap1 = int(-(-int(counts.max() * 1.25) // 128) * 128)  # headroom: the steps move the Gaussians
-    ladder1 = make_tile_ladder(counts[None])
+    return cfg, state0, cap1, make_tile_ladder(counts[None]), int(counts.max())
+
+
+def stage1_phase(blend, gs, cam, bg, frame_train):
+    """Phase 8: the stage-1 phase-B step at full width. Returns the launch
+    counts of its counted run and the forward and backward kernel results."""
+    import torch
+
+    from riggs_tpu_torch.models import node_warp as NW
+    from riggs_tpu_torch.train.optim import grad_tree, tree_leaves
+    from riggs_tpu_torch.train.stage1 import make_phase_b_auto, phase_b_flags, stage1_frame_loss
+
+    t0 = time.perf_counter()
+    fr = frame_train
+    cfg, state0, cap1, ladder1, max_count = stage1_setup(gs, bg, fr)
     torch.cuda.synchronize()
-    print(f"[stage1] init_stage1 {time.perf_counter() - t0:.1f} s: {n} Gaussians of {state0.gs.capacity}, "
-          f"{state0.warp.node_num} nodes, hyper_dim {state0.warp.hyper_dim}, DeformNetwork "
+    print(f"[stage1] init_stage1 {time.perf_counter() - t0:.1f} s: {int(gs.num_alive)} Gaussians of "
+          f"{state0.gs.capacity}, {state0.warp.node_num} nodes, hyper_dim {state0.warp.hyper_dim}, DeformNetwork "
           f"{state0.warp.net.depth}x{state0.warp.net.width} (blender {state0.warp.net.is_blender}); "
-          f"max tile count {int(counts.max())} -> window {cap1}; ladder {ladder1}")
+          f"max tile count {max_count} -> window {cap1}; ladder {ladder1}")
     step = make_phase_b_auto(cfg)
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     paths = (("plain windows", dict(max_per_tile=cap1)), ("ladder", dict(max_per_tile=cap1, tile_ladder=ladder1)))
@@ -1554,23 +1576,19 @@ def prime_sync_debug():
         torch.cuda.set_sync_debug_mode(0)
 
 
-def sync_audit(label, fn, expected=None):
-    """Synchronizing operations in one call of ``fn`` (warmed up by the
-    caller): first under torch.cuda.set_sync_debug_mode("warn") and the
-    profiler, which name each one's source line (and the innermost line of
-    this repository that led to it) and count the call's device-to-host
-    copies and stream synchronizations; ``expected`` ({"file:line": count},
-    none by default) must match exactly, and the copies and
-    synchronizations its total. Then, where none is expected, one more call
-    in "error" mode, in which any synchronizing operation raises. Prints one
-    [sync] line; returns fn's last result."""
+def count_syncs(fn):
+    """One call of ``fn`` (warmed up by the caller) under
+    torch.cuda.set_sync_debug_mode("warn") and the profiler: its
+    synchronizing operations by source line ({"file:line": count}), the
+    innermost line of this repository that led to each, and the call's
+    device-to-host copies and stream synchronizations. Returns (sites,
+    callers, copies, synchronizations, fn's result)."""
     import collections
     import traceback
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    expected = expected or {}
     sites, callers = collections.Counter(), {}
 
     def seen(message, category, filename, lineno, *a, **k):
@@ -1599,11 +1617,24 @@ def sync_audit(label, fn, expected=None):
     # a host read is a copy and a stream synchronize (the profile's own
     # synchronize after the call is a device synchronize)
     syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
+    return dict(sites), callers, dtoh, syncs, out
+
+
+def sync_audit(label, fn, expected=None):
+    """count_syncs of one call of ``fn``: ``expected`` ({"file:line":
+    count}, none by default) must match exactly, and the copies and
+    synchronizations its total. Then, where none is expected, one more call
+    in "error" mode, in which any synchronizing operation raises. Prints one
+    [sync] line; returns fn's last result."""
+    import torch
+
+    expected = expected or {}
+    sites, callers, dtoh, syncs, out = count_syncs(fn)
     total = sum(expected.values())
     found = {k: (v, callers.get(k, "")) for k, v in sites.items()}
     print(f"[sync] {label}: {dtoh} device-to-host copies, {syncs} stream synchronizations, "
           f"{sum(sites.values())} synchronizing operations {found or ''} (expected {expected or 'none'})")
-    if dict(sites) != expected or dtoh != total or syncs != total:
+    if sites != expected or dtoh != total or syncs != total:
         raise RuntimeError(f"[sync] {label}: synchronizing operations {found}, {dtoh} copies, {syncs} syncs; "
                            f"expected {expected or 'none'}")
     if not expected:
@@ -1821,55 +1852,75 @@ def _profile_busy(fn, n):
     return busy
 
 
-class _StepClock:
-    """Wrap the loop's step factories: stamp the host clock at every step
-    call (no synchronize: the loop's own pace), and profile the device over
-    steps [PROFILE_FROM, PROFILE_FROM + 5) of each phase."""
+class _LoopProbe:
+    """train_stage1's step_callback for [loop]: stamps the host clock after
+    every step (no synchronize: the loop's own pace), profiles the device
+    over steps [PROFILE_FROM, PROFILE_FROM + 5) of each phase, and keeps the
+    blend wrappers' arguments of the LOOP_HELD steps (every other step's are
+    dropped at its end)."""
 
-    def __init__(self, s1):
-        self.s1 = s1
+    def __init__(self, blend):
+        self.capture = _Capture(blend, ("blend_cm_fwd", "blend_cm_bwd", "blend_permuted_gm_fwd",
+                                        "blend_permuted_gm_bwd"))
         self.stamps = {"A": [], "B": []}
-        self.busy = {}
+        self.busy, self.held = {}, {}
 
     def __enter__(self):
-        self.orig = (self.s1.make_phase_a_auto, self.s1.make_phase_b_auto)
-        self.s1.make_phase_a_auto = lambda *a, **k: self._wrap("A", self.orig[0](*a, **k))
-        self.s1.make_phase_b_auto = lambda *a, **k: self._wrap("B", self.orig[1](*a, **k))
+        self.capture.__enter__()
         return self
 
     def __exit__(self, *exc):
-        self.s1.make_phase_a_auto, self.s1.make_phase_b_auto = self.orig
+        self.capture.__exit__(*exc)
 
-    def _wrap(self, phase, step):
+    def __call__(self, state, it, phase):
         import torch
         from torch.profiler import ProfilerActivity, profile
 
-        stamps = self.stamps[phase]
-        prof = profile(activities=[ProfilerActivity.CUDA])
-
-        def timed(*a, **k):
-            n = len(stamps)
-            if n == PROFILE_FROM:
-                prof.start()
-            if n == PROFILE_FROM + 5:
-                torch.cuda.synchronize()
-                prof.stop()
-                t = stamps[PROFILE_FROM + 4] - stamps[PROFILE_FROM]
-                busy = sum(e.self_device_time_total for e in prof.key_averages()
-                           if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 5
-                self.busy[phase] = busy
-            stamps.append(time.perf_counter())
-            return step(*a, **k)
-
-        return timed
+        self.stamps[phase].append(time.perf_counter())
+        if (phase, it) in LOOP_HELD:
+            self.held[phase, it] = {k: list(v) for k, v in self.capture.calls.items()}
+        for v in self.capture.calls.values():
+            v.clear()
+        if it == PROFILE_FROM - 1:
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.start()
+        elif it == PROFILE_FROM + 4:
+            torch.cuda.synchronize()
+            self.prof.stop()
+            self.busy[phase] = sum(e.self_device_time_total for e in self.prof.key_averages()
+                                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 5
 
     def ms(self, phase):
-        """(median, mean) host ms between consecutive step calls of a phase,
-        the profiled window's steps left out."""
+        """(median, mean) host ms between consecutive step ends of a phase,
+        the profiled window's steps and the one after (the profile's read)
+        left out."""
         st = self.stamps[phase]
         d = [(b - a) * 1e3 for i, (a, b) in enumerate(zip(st, st[1:]))
-             if not PROFILE_FROM - 1 <= i <= PROFILE_FROM + 5]
+             if not PROFILE_FROM - 1 <= i <= PROFILE_FROM + 4]
         return float(np.median(d)), float(np.mean(d))
+
+
+def check_loop_kernels(blend, held):
+    """The four kernels of the loop held to their plain versions on the
+    LOOP_HELD steps' own inputs: phase A's and the probe step's plain
+    windows at the loop's cap, the last step's ladder buckets. Returns
+    {kernel: {label: result}}."""
+    out = {k: {} for k in ("blend_cm", "blend_permuted_gm", "blend_cm_bwd", "blend_permuted_gm_bwd")}
+    for key, label in LOOP_HELD.items():
+        calls = held[key]
+        for name in ("blend_cm", "blend_permuted_gm"):
+            if not calls[f"{name}_fwd"]:
+                continue
+            tag = f"[loop] {label}"
+            out[name][label] = check_kernels(blend, {name: calls[f"{name}_fwd"]}, tag=tag, per="step")[name]
+            out[f"{name}_bwd"][label] = check_bwd_kernels(blend, {f"{name}_bwd": calls[f"{name}_bwd"]},
+                                                          tag=tag)[f"{name}_bwd"]
+    want = {"blend_cm": ("phase A it=25", "phase B probe it=0"), "blend_permuted_gm": ("phase B ladder it=39",)}
+    for name, labels in want.items():
+        for n in (name, f"{name}_bwd"):
+            if sorted(out[n]) != sorted(labels):
+                raise RuntimeError(f"[loop] {n} was held on {sorted(out[n])}, not on {sorted(labels)}")
+    return out
 
 
 def loop_phase(blend, scene, cap):
@@ -1878,11 +1929,13 @@ def loop_phase(blend, scene, cap):
     before and read just after. Prints the events, the node counts, the
     ladder's refits, loss and PSNR at both ends of both phases, ms per step
     of each phase by host clock and the device's busy time and idle share
-    over 5 steps of each. Returns the launch counts."""
+    over 5 steps of each; then holds the four kernels to their plain
+    versions on the LOOP_HELD steps' inputs. Returns the launch counts and
+    those results."""
     import torch
 
-    from riggs_tpu_torch.train import stage1 as S1
     from riggs_tpu_torch.train.optim import tree_leaves
+    from riggs_tpu_torch.train.stage1 import train_stage1
 
     cfg = _stage1_config(CAPACITY)
     for k, v in LOOP_SCHEDULE.items():
@@ -1892,9 +1945,9 @@ def loop_phase(blend, scene, cap):
     torch.cuda.synchronize()
     blend.reset_launches()
     t0 = time.perf_counter()
-    with _StepClock(S1) as clock:
-        state, hist = S1.train_stage1(scene, cfg, seed=0, log_every=LOOP_SCHEDULE["iterations"] - 1, events=events,
-                                      device=DEVICE)
+    with _LoopProbe(blend) as probe:
+        state, hist = train_stage1(scene, cfg, seed=0, log_every=LOOP_SCHEDULE["iterations"] - 1, events=events,
+                                   step_callback=probe, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(blend.launches)
@@ -1903,9 +1956,9 @@ def loop_phase(blend, scene, cap):
     for p, it, m in hist:
         print(f"[loop] {p} it={it}: loss {m['loss']:.5f} psnr {m['psnr']:.2f}")
     for p in ("A", "B"):
-        med, mean = clock.ms(p)
-        busy = clock.busy[p]
-        print(f"[loop] phase {p}: {len(clock.stamps[p])} steps, {med:.2f} ms per step (host clock, median; mean "
+        med, mean = probe.ms(p)
+        busy = probe.busy[p]
+        print(f"[loop] phase {p}: {len(probe.stamps[p])} steps, {med:.2f} ms per step (host clock, median; mean "
               f"{mean:.2f} with the events), device busy {busy:.2f} ms per step over steps "
               f"{PROFILE_FROM}-{PROFILE_FROM + 4} (idle share {1 - busy / med:.3f})")
     print(f"[loop] train_stage1 {wall:.1f} s; launch counters: {launches}")
@@ -1937,7 +1990,11 @@ def loop_phase(blend, scene, cap):
             raise RuntimeError(f"the loop never launched {name}")
     print(f"[loop] {state.warp.node_num} nodes, {int(state.gs.num_alive)} Gaussians of {state.gs.capacity}, "
           f"every parameter finite; refits {final['refits']}, ladder {final['ladder']}")
-    return launches
+    if sorted(probe.held) != sorted(LOOP_HELD):
+        raise RuntimeError(f"[loop] held the blend calls of steps {sorted(probe.held)}, not {sorted(LOOP_HELD)}")
+    held = probe.held
+    del probe, state
+    return launches, check_loop_kernels(blend, held)
 
 
 def main() -> int:
@@ -2088,7 +2145,13 @@ def main() -> int:
     pa_launches, pa_fwd, pa_bwd = stage1_phase_a(blend, scene)
 
     # 11. a short train_stage1 (its own counted run)
-    loop_launches = loop_phase(blend, scene, loop_cap)
+    loop_launches, loop_held = loop_phase(blend, scene, loop_cap)
+
+    def held(name):
+        """The loop's held steps of a kernel: error, times and bound."""
+        return {label: {"max_abs_err": max(r["err"].values()) if isinstance(r["err"], dict) else r["err"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"]}
+                for label, r in loop_held[name].items()}
 
     # forward kernels: times per frame, launches of the serving run (and per
     # step of each training path); backward kernels: times per training
@@ -2109,6 +2172,7 @@ def main() -> int:
             "started_chunks": r["started"], "active_chunks": r["active"],
             "ms_train": train_fwd[name]["ms"], "ms_stage1": stage1_fwd[name]["ms"],
             "bound_ms_stage1": stage1_fwd[name]["bound_ms"], "launches_loop": loop_launches[name],
+            "held_loop": held(name),
             **({"launches_phase_a": pa_launches[name], "ms_phase_a": pa_fwd[name]["ms"],
                 "bound_ms_phase_a": pa_fwd[name]["bound_ms"], "plain_ms_phase_a": pa_fwd[name]["plain_ms"]}
                if name == "blend_cm" else {}),
@@ -2125,6 +2189,7 @@ def main() -> int:
             "max_rel_column_err": r["rel"], "launches_stage1": stage1_launches[name],
             "bound_term": r["bound_term"], "ms_stage1": stage1_bwd[name]["ms"],
             "bound_ms_stage1": stage1_bwd[name]["bound_ms"], "launches_loop": loop_launches[name],
+            "held_loop": held(name),
             **({"launches_phase_a": pa_launches[name], "ms_phase_a": pa_bwd[name]["ms"],
                 "bound_ms_phase_a": pa_bwd[name]["bound_ms"], "plain_ms_phase_a": pa_bwd[name]["plain_ms"]}
                if name == "blend_cm_bwd" else {}),

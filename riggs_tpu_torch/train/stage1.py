@@ -620,7 +620,10 @@ def train_stage1(
     the ``Stage1Draws(seed)`` of the random draws. ``events``, when given,
     receives one dict per event: densifications with the alive counts
     before and after, node sampling and densify/prune with the node counts,
-    ladder fits, and every step that overflowed. Runs on ``cuda`` unless
+    ladder fits, and every step that overflowed. ``step_callback(state,
+    it, phase)``, when given, is called after every step of both phases
+    (``phase`` "A" or "B") and that step's events; the reference calls its
+    ``step_callback(state, it)`` in phase B only. Runs on ``cuda`` unless
     ``device`` says otherwise."""
     o = cfg.opt
     dev = resolve_device(device)
@@ -665,6 +668,8 @@ def train_stage1(
                 nodes=state.warp.node_num)
         if log_every and it % log_every == 0:
             history.append(("A", it, {k: float(v) for k, v in metrics.items()}))
+        if step_callback is not None:
+            step_callback(state, it, "A")
     if prev is not None:
         of_t, of_r = _overflow(prev[1])
         if of_t or of_r:
@@ -737,7 +742,7 @@ def train_stage1(
         if eval_every and eval_fn is not None and it > 0 and it % eval_every == 0:
             eval_fn(state, it)
         if step_callback is not None:
-            step_callback(state, it)
+            step_callback(state, it, "B")
     if prev is not None:  # the last step's late read
         of_t, of_r = _overflow(prev[1])
         if of_t or of_r:

@@ -1,137 +1,93 @@
 #!/usr/bin/env python3
-"""Before and after of the per-step host reads (ROADMAP C2) on one card.
-
-For each repository tree given, in the order given and each in its own
-process: the serving frame (``_eval_image`` at 800x800, plain windows), the
-stage-2 step (``make_stage2_auto`` at it = 15001, plain windows) and the
-stage-1 phase-B step (``make_phase_b_auto`` at it = 5000 with the chamfer
-and the motion-mask loss, plain windows) of chip_smoke.py's avatar, built by
-that tree's own chip_smoke.py and riggs_tpu_torch. Each is timed by host
-clock around 20 synchronized calls after a warm-up, profiled over 5 calls
-(the device's busy time and idle share), and run once under
-torch.cuda.set_sync_debug_mode("warn"), its synchronizing operations counted
-by source line. One JSON line per tree, beside the card's name and power
-limit.
+"""Host reads and host-clock times of three workloads on one card, for
+each repository tree given, in the order given, each in its own process:
+the serving frame (``_eval_image`` at 800x800, plain windows), the stage-2
+step (``make_stage2_auto`` at it = 15001) and the stage-1 phase-B step
+(``make_phase_b_auto`` at it = 5000 with the chamfer and the motion-mask
+loss), plain windows. Each is timed by host clock around 20 synchronized
+calls after a warm-up, profiled over 5 calls (busy time and idle share) and
+its synchronizing operations counted by source line. One JSON line per
+tree, then the card's name and power limit.
 
     python3 scripts/torch_c2_compare.py .before . . .before   # parent, change, change, parent
 
-A tree whose auto steps read the iteration from ``state.it`` (before C2's
-repair) is called without ``it``.
+The workloads are this checkout's chip_smoke.py builders (``build_avatar``,
+``build_training``, ``stage1_setup``) and its ``count_syncs``; the package
+measured is each tree's own riggs_tpu_torch.
 """
 from __future__ import annotations
 
-import collections
+import dataclasses
+import importlib.util
 import inspect
 import json
 import os
 import subprocess
 import sys
-import time
-import warnings
 from pathlib import Path
 
 SCRIPT = Path(__file__).resolve()
 
 
-def _measure(fn, reps=20, n_prof=5):
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / reps * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n_prof
-    with warnings.catch_warnings():  # the first switch in a process flags itself once
-        warnings.simplefilter("ignore")
-        torch.cuda.set_sync_debug_mode("warn")
-        torch.cuda.set_sync_debug_mode(0)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-    sites = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
-                                if "synchroniz" in str(w.message))
-    return {"ms": ms, "busy_ms": busy, "idle_share": 1 - busy / ms, "syncs": sum(sites.values()),
-            "sync_sites": dict(sites)}
+def _it(step, it):
+    """The host iteration for an auto step; a tree from before the host
+    reads were removed (ROADMAP C2) reads it from ``state.it`` instead."""
+    return {"it": it} if "it" in inspect.signature(step).parameters else {}
 
 
 def worker(tree: Path) -> dict:
     sys.path.insert(0, str(tree))
     os.chdir(tree)
-    import copy
-    import dataclasses
-
+    spec = importlib.util.spec_from_file_location("chip_smoke", SCRIPT.parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
     import numpy as np
     import torch
 
-    import chip_smoke as smoke
-    from riggs_tpu_torch.data.dataset import SceneData
     from riggs_tpu_torch.models import node_warp as NW
-    from riggs_tpu_torch.ops.sh import C0
     from riggs_tpu_torch.render import blend
-    from riggs_tpu_torch.render.api import render, tier_kwargs
-    from riggs_tpu_torch.train.config import Config
-    from riggs_tpu_torch.train.stage1 import init_stage1, make_phase_b_auto
+    from riggs_tpu_torch.train.stage1 import make_phase_b_auto
     from riggs_tpu_torch.train.stage2 import _eval_image, make_stage2_auto
 
+    def measure(fn):
+        fn()
+        fn()
+        ms = smoke._host_ms(fn, 20)
+        busy = smoke._profile_busy(fn, 5)
+        sites = smoke.count_syncs(fn)[0]
+        return {"ms": ms, "busy_ms": busy, "idle_share": 1 - busy / ms, "syncs": sum(sites.values()),
+                "sync_sites": sites}
+
     blend.load_library()
-    dev = "cuda"
+    dev = smoke.DEVICE
     gs, skel, cam, bg = smoke.build_avatar(0, smoke.N_ALIVE, smoke.CAPACITY, smoke.SIZE, dev)
     counts = np.stack([smoke.frame(gs, skel, cam, bg, t=t, max_per_tile=8192)["tile_counts"].cpu().numpy()
                        for t in smoke.PROBE_TIMES])
     cap = int(-(-counts.max() // 128) * 128)
-    out = {"tree": str(tree)}
-    out["serving"] = _measure(lambda: _eval_image(gs, skel, cam, 0.5, bg, max_per_tile=cap))
+    out = {"tree": str(tree), "serving": measure(lambda: _eval_image(gs, skel, cam, 0.5, bg, max_per_tile=cap))}
 
     fr, pre_d_xyz, pre_d_joints, cfg = smoke.build_training(gs, skel, cam, bg, dev)
     step2 = make_stage2_auto(cfg, template_idx=0)
-    it2 = {"it": 15001} if "it" in inspect.signature(step2).parameters else {}
     st2 = smoke.fresh_state(gs, skel, 15001, dev)
 
     def one2():
         nonlocal st2
-        st2, _ = step2(st2, fr, smoke.UID, bg, pre_d_xyz, pre_d_joints, max_per_tile=cap, **it2)
+        st2, _ = step2(st2, fr, smoke.UID, bg, pre_d_xyz, pre_d_joints, max_per_tile=cap, **_it(step2, 15001))
 
-    out["stage2"] = _measure(one2)
+    out["stage2"] = measure(one2)
     del st2
 
-    cfg1 = Config()
-    cfg1.model.capacity, cfg1.model.sh_degree, cfg1.model.gs_with_motion_mask = gs.capacity, smoke.SH_DEGREE, True
-    n = int(gs.num_alive)
-    cols = np.clip(gs.features_dc[:n, 0].cpu().numpy() * C0 + 0.5, 0.0, 1.0)
-    s1 = init_stage1(SceneData(gs.xyz[:n].cpu().numpy(), cols), cfg1,
-                     generator=torch.Generator(device=dev).manual_seed(2), device=dev)
-    s1 = dataclasses.replace(s1, it=torch.tensor(5000, dtype=torch.int32, device=dev))
-    with torch.no_grad():
-        d = NW.warp_forward(s1.warp, s1.gs.xyz, fr.fid, s1.gs.feature, s1.gs.motion_mask)
-        probe = render(fr.cam, s1.gs, bg, d_xyz=d["d_xyz"], d_rotation=d["d_rotation"], max_per_tile=8192,
-                       **tier_kwargs((cfg1.pipe.max_tiles_per_gaussian, cfg1.pipe.mid_cap, cfg1.pipe.mid_side)))
-    cap1 = int(-(-int(int(probe["max_count"]) * 1.25) // 128) * 128)
+    cfg1, st1, cap1, _, _ = smoke.stage1_setup(gs, bg, fr)
+    st1 = dataclasses.replace(st1, it=torch.tensor(5000, dtype=torch.int32, device=dev))
     step1 = make_phase_b_auto(cfg1)
-    it1 = {"it": 5000} if "it" in inspect.signature(step1).parameters else {}
     gen = torch.Generator(device=dev).manual_seed(3)
-    st1 = copy.deepcopy(s1)
 
     def one1():
         nonlocal st1
         st1, _ = step1(st1, fr, bg, NW.arap_sample_times(gen, device=dev), use_chamfer=True, use_motion_loss=True,
-                       max_per_tile=cap1, **it1)
+                       max_per_tile=cap1, **_it(step1, 5000))
 
-    out["stage1"] = _measure(one1)
+    out["stage1"] = measure(one1)
     out["windows"] = {"serving": cap, "stage1": cap1}
     return out
 

@@ -13,11 +13,17 @@ replay the reference's key chain split for split (JaxDraws).
 
 Tolerances: alive masks, node counts, frame picks, ladders and refits
 exactly equal; thinned points exactly equal and cameras_extent to 1e-6;
-scene images 3e-5 (the oracle's, tests/test_torch_render.py); parameters
-after the loop atol 5e-3 + the Adam step size, loss and PSNR histories
-1e-3 relative (from a fresh Adam state each step moves a parameter by about
-its learning rate, so the f32 rounding of a gradient near 0 can flip an
-update's sign: max |d| is recorded in the assertion messages).
+scene images 3e-5 (the oracle's, tests/test_torch_render.py); each
+parameter leaf after the loop within three times the reference's own
+spread, its max and its median |d| each, plus 1e-6; the loss and PSNR
+histories within three times that spread too. The spread is measured in
+every run: the reference's loop twice more with its DeformNetwork's weights
+changed in the last bit (phase A's regularizers normalize
+cancellation-level gradients, so from a fresh Adam state a last-bit change
+moves some weights by about their learning rate). The port's readings
+against it are printed per leaf; planted faults (a phase's warp or node
+Gaussians left untrained, a regularizer weighted 0) must fail the same
+comparison.
 """
 import contextlib
 import dataclasses
@@ -179,6 +185,16 @@ def _scaled_init(init, scale):
     return scaled
 
 
+def _port_loop(loops):
+    """The port's loop from the reference's initial state, on the
+    reference's frames, with its draws replayed from the reference's keys."""
+    events, steps = [], []
+    state, hist = TS1.train_stage1(_port_scene(loops["jscene"]), _loop_cfg(TConfig), seed=SEED, log_every=1,
+                                   state=_port_state(loops["j0"]), draws=JaxDraws(loops["key"]), events=events,
+                                   step_callback=lambda st, it, phase: steps.append((phase, it)), device="cpu")
+    return state, hist, events, steps
+
+
 @pytest.fixture(scope="module")
 def loops():
     """The reference's loop, the port's from the reference's initial state,
@@ -189,23 +205,22 @@ def loops():
     # black they leave every pixel black and phase A's photometric loss has
     # no gradient, so the node densification would select nothing
     jscene = dataclasses.replace(jscene, white_background=True)
-    jcfg, tcfg = _loop_cfg(JConfig), _loop_cfg(TConfig)
+    jcfg = _loop_cfg(JConfig)
     key = jax.random.PRNGKey(SEED)
     key, ik = jax.random.split(key)
     init = JS1.init_stage1
-    j0 = init(ik, jscene, jcfg)
-    jstate, jhist, jrefits, jladder = _reference_loop(jscene, jcfg)
-
-    nudges = [_reference_loop(jscene, jcfg, _scaled_init(init, s)) for s in (1 + 2.0 ** -23, 1 - 2.0 ** -24)]
-    events = []
-    tstate, thist = TS1.train_stage1(_port_scene(jscene), tcfg, seed=SEED, log_every=1, state=_port_state(j0),
-                                     draws=JaxDraws(key), events=events, device="cpu")
-    return dict(jstate=jstate, jhist=jhist, jrefits=jrefits, jladder=jladder, nudges=nudges, tstate=tstate,
-                thist=thist, events=events, cfg=jcfg)
+    out = dict(jscene=jscene, j0=init(ik, jscene, jcfg), key=key, cfg=jcfg)
+    out["jstate"], out["jhist"], out["jrefits"], out["jladder"] = _reference_loop(jscene, jcfg)
+    out["nudges"] = [_reference_loop(jscene, jcfg, _scaled_init(init, s)) for s in (1 + 2.0 ** -23, 1 - 2.0 ** -24)]
+    out["tstate"], out["thist"], out["events"], out["steps"] = _port_loop(out)
+    return out
 
 
 def test_train_stage1_events_fire_and_counts_match(loops):
-    ev = loops["events"]
+    ev, cfg = loops["events"], loops["cfg"]
+    # step_callback after every step of both phases
+    assert loops["steps"] == ([("A", i) for i in range(cfg.opt.iterations_node_rendering)]
+                              + [("B", i) for i in range(cfg.opt.iterations)])
     kinds = [(e["phase"], e["it"], e["event"]) for e in ev]
     for want in [("A", 4, "node_gs densify"), ("A", 6, "node sampling"), ("B", 5, "node densify/prune"),
                  ("B", 12, "gs densify"), ("B", 9, "opacity reset"), ("B", 11, "ladder fit"),
@@ -243,6 +258,47 @@ def _leaves(state):
     return out
 
 
+PAIRS = ((0, 1), (0, 2), (1, 2))
+
+
+def _port_leaves(state):
+    """Every trained leaf of a port state, in _leaves' names and layout."""
+    out = {f"{name}.{k}": v.numpy()[getattr(state, name).alive.numpy()]
+           for name in ("gs", "node_gs") for k, v in getattr(state, name).params_dict().items()}
+    out.update({f"warp{jax.tree_util.keystr(p)}": a for p, a in
+                jax.tree_util.tree_flatten_with_path(_skel_ref_layout(state.warp.params_dict()))[0]})
+    return out
+
+
+def _leaf_readings(loops, tstate):
+    """Per leaf: the port's max and median |d| against the reference, the
+    reference's own spread (the largest max and median |d| among its three
+    runs), and whether the port is within 3x each plus 1e-6."""
+    runs = [_leaves(loops["jstate"])] + [_leaves(n[0]) for n in loops["nudges"]]
+    port, ref = _port_leaves(tstate), runs[0]
+    assert set(port) == set(ref)
+    out = {}
+    for k in ref:
+        if port[k].shape != ref[k].shape:  # a node count or an alive count differs
+            out[k] = dict(port_max=np.inf, port_median=np.inf, ref_max=0.0, ref_median=0.0, ok=False)
+            continue
+        pm, p50 = _spread(port[k], ref[k])
+        sm = max(_spread(runs[i][k], runs[j][k])[0] for i, j in PAIRS)
+        s50 = max(_spread(runs[i][k], runs[j][k])[1] for i, j in PAIRS)
+        out[k] = dict(port_max=pm, port_median=p50, ref_max=sm, ref_median=s50,
+                      ok=pm <= 3 * sm + 1e-6 and p50 <= 3 * s50 + 1e-6)
+    return out
+
+
+def _discrete_mismatches(loops, tstate):
+    """The discrete outcomes of the port's loop that differ from the
+    reference's: alive masks and the node count."""
+    js = loops["jstate"]
+    bad = [name for name in ("gs", "node_gs")
+           if not np.array_equal(getattr(tstate, name).alive.numpy(), np.asarray(getattr(js, name).alive))]
+    return bad + (["node_num"] if tstate.warp.node_num != js.warp.node_num else [])
+
+
 def test_train_stage1_parameters_and_history_match(loops):
     """Each parameter leaf within three times the reference's own spread
     (the largest max and median |d| among its three runs) plus 1e-6, and
@@ -250,25 +306,18 @@ def test_train_stage1_parameters_and_history_match(loops):
     normalize cancellation-level gradients (acc_loss divides the second
     difference of the node trajectories by its own detached norm), so from
     a fresh Adam state a last-bit change moves the reference's own weights
-    by about their learning rate. Alive masks and counts exactly equal."""
-    runs = [_leaves(loops["jstate"])] + [_leaves(n[0]) for n in loops["nudges"]]
-    port = {f"{name}.{k}": v.numpy()[getattr(loops["tstate"], name).alive.numpy()]
-            for name in ("gs", "node_gs") for k, v in getattr(loops["tstate"], name).params_dict().items()}
-    port.update({f"warp{jax.tree_util.keystr(p)}": a for p, a in
-                 jax.tree_util.tree_flatten_with_path(_skel_ref_layout(loops["tstate"].warp.params_dict()))[0]})
-    ref = runs[0]
-    assert set(port) == set(ref)
+    by about their learning rate. Alive masks and counts exactly equal.
+    Prints each leaf's readings (pytest -s)."""
     for n in loops["nudges"]:
         np.testing.assert_array_equal(np.asarray(n[0].gs.alive), np.asarray(loops["jstate"].gs.alive))
         assert n[2] == loops["jrefits"]
-    pairs = [(0, 1), (0, 2), (1, 2)]
-    bad = {}
-    for k in ref:
-        pm, p50 = _spread(port[k], ref[k])
-        sm = max(_spread(runs[i][k], runs[j][k])[0] for i, j in pairs)
-        s50 = max(_spread(runs[i][k], runs[j][k])[1] for i, j in pairs)
-        if not (pm <= 3 * sm + 1e-6 and p50 <= 3 * s50 + 1e-6):
-            bad[k] = dict(port_max=pm, port_median=p50, ref_max=sm, ref_median=s50)
+    assert _discrete_mismatches(loops, loops["tstate"]) == []
+    readings = _leaf_readings(loops, loops["tstate"])
+    for k, r in readings.items():
+        print(f"{k}: port max {r['port_max']:.3e} median {r['port_median']:.3e}; reference spread max "
+              f"{r['ref_max']:.3e} median {r['ref_median']:.3e}; ratios {r['port_max'] / max(r['ref_max'], 1e-30):.2f} "
+              f"{r['port_median'] / max(r['ref_median'], 1e-30):.2f}")
+    bad = {k: r for k, r in readings.items() if not r["ok"]}
     assert not bad, bad
     hists = [loops["jhist"]] + [n[1] for n in loops["nudges"]]
     th = loops["thist"]
@@ -278,10 +327,48 @@ def test_train_stage1_parameters_and_history_match(loops):
         trows = [m for p, _, m in th if p == phase]
         for k in ("loss", "psnr"):
             port_d = max(abs(b[k] - a[k]) for a, b in zip(rows[0], trows))
-            ref_d = max(abs(rows[i][t][k] - rows[j][t][k]) for i, j in pairs for t in range(len(trows)))
+            ref_d = max(abs(rows[i][t][k] - rows[j][t][k]) for i, j in PAIRS for t in range(len(trows)))
             assert port_d <= 3 * ref_d + 1e-6 * max(abs(a[k]) for a in rows[0]), (phase, k, port_d, ref_d)
         for k in ("n_gs", "n_node_gs"):
             assert all(b[k] == a[k] for a, b in zip(rows[0], trows) if k in a), (phase, k)
+
+
+def _untrained(step_name, field, opt_field):
+    """Replace stage 1's ``step_name`` by one that returns ``field`` (and
+    its Adam state ``opt_field``) as it was before the step."""
+    real = getattr(TS1, step_name)
+
+    def step(state, *a, **k):
+        new, metrics = real(state, *a, **k)
+        return dataclasses.replace(new, **{field: getattr(state, field), opt_field: getattr(state, opt_field)}), metrics
+
+    return mock.patch.object(TS1, step_name, step)
+
+
+def _zero_weight(loss_name):
+    real = getattr(TS1.NW, loss_name)
+    return mock.patch.object(TS1.NW, loss_name, lambda *a, **k: 0.0 * real(*a, **k))
+
+
+FAULTS = {
+    "phase A warp untrained": lambda: _untrained("phase_a_step", "warp", "opt_warp"),
+    "phase A node Gaussians untrained": lambda: _untrained("phase_a_step", "node_gs", "opt_node"),
+    "phase B warp untrained": lambda: _untrained("phase_b_step", "warp", "opt_warp"),
+    "elastic weight 0": lambda: _zero_weight("elastic_loss"),
+    "acceleration weight 0": lambda: _zero_weight("acc_loss"),
+}
+
+
+@pytest.mark.parametrize("fault", list(FAULTS))
+def test_train_stage1_comparison_rejects_a_planted_fault(loops, fault):
+    """The port's loop with ``fault`` planted fails the comparison above: a
+    discrete outcome differs, or some leaf leaves its bound."""
+    with FAULTS[fault]():
+        tstate = _port_loop(loops)[0]
+    discrete = _discrete_mismatches(loops, tstate)
+    out = [k for k, r in _leaf_readings(loops, tstate).items() if not r["ok"]]
+    print(f"{fault}: discrete outcomes differing {discrete}, {len(out)} leaves out of bounds {out}")
+    assert discrete or out
 
 
 def test_loop_modules_import_without_jax():
