@@ -6,7 +6,8 @@ check them.
 
 Phases, each printed as it runs:
   1. device: the card's name and power limit (nvidia-smi), CUDA, nvcc;
-  2. build: the blend kernels from riggs_tpu_torch/csrc/ with nvcc (sm_90a);
+  2. build: the blend and rotation-fit kernels from riggs_tpu_torch/csrc/
+     with nvcc (sm_90a), one nvcc per source, started together;
   3. kernels: each forward kernel against its plain PyTorch version on the
      windows the full-width scene really bins (plain windows and every
      ladder bucket): tentry bitwise equal (so the same active (tile, chunk)
@@ -60,14 +61,19 @@ Phases, each printed as it runs:
      before and read just after; gradients finite and nonzero where the
      flags give one, kernel path against plain-version path; each forward
      and backward kernel against its plain version on a real step's inputs,
-     with each call's time; step time, busy time and idle share; the node
-     warp timed alone;
+     with each call's time, and the rotation-fit kernel on the step's ARAP
+     covariances (max |d R| on the well-posed fits, det R on every fit, the
+     ill-posed ones counted, beside torch.linalg.svd's time), then on
+     planted fits against the choices csrc/rotfit.cu documents; step time,
+     busy time and idle share; the node warp timed alone;
   9. sync: each auto step (make_stage2_auto and make_phase_b_auto on both
      window paths, make_phase_a_auto) and the serving frame's render, one
      call each under torch.cuda.set_sync_debug_mode("error") (any
      synchronizing operation raises) with its device-to-host copies and
-     stream synchronizations counted by the profiler: zero each; eval_image
-     in "warn" mode, its two overflow reads by design and no other;
+     stream synchronizations counted by the profiler: zero each (the
+     stage-1 steps' rotation fit is a kernel that reads nothing back);
+     eval_image in "warn" mode, its two overflow reads by design and no
+     other;
   10. stage1 phase A: init_stage1 as in 8 (8192 node-Gaussian slots, 512
      nodes, SH 0, a shared isotropic scale) on the [loop] scene's first
      frame, make_phase_a_auto at it = 0 (d_xyz detached, chamfer and
@@ -75,7 +81,8 @@ Phases, each printed as it runs:
      before and read just after; gradients finite and nonzero exactly where
      the toggles give one, kernel path against plain-version path; blend_cm
      and blend_cm_bwd against their plain versions on the node cloud's
-     windows with each call's time and bound; no overflow;
+     windows with each call's time and bound, the rotation fit on the
+     step's covariances; no overflow;
   11. loop: train_stage1 on a full-width scene (8 frames of the avatar from
      an arc of cameras at 800x800 on white, alpha masks from the render's
      acc, thinned skeletons, cameras_extent from compute_scene_extent),
@@ -84,10 +91,24 @@ Phases, each printed as it runs:
      phase and the device's busy time and idle share over 5 steps of each;
      every parameter finite, no step overflowed but where the ladder
      reacted one step late, every kernel of the path launched; then the
-     four kernels held to their plain versions, as in 3 and 6, on the
-     inputs of three of the loop's own steps (LOOP_HELD: phase A on the
-     densified node cloud and phase B's first probe step at the loop's
-     plain window, its last step on the refitted ladder).
+     four kernels held to their plain versions, as in 3 and 6, and the
+     rotation fit as in 8, on the inputs of three of the loop's own steps
+     (LOOP_HELD: phase A on the densified node cloud and phase B's first
+     probe step at the loop's plain window, its last step on the refitted
+     ladder);
+  12. pipeline: from the loop's trained state, init_stage2 (the loop's
+     frames through the trained node warp, skeleton extraction from up to
+     200 of its nodes, the template bake, three 8x256 MLPs on the ~103k
+     alive Gaussians of 131072 slots) and train_stage2 with only the
+     schedule cut (STAGE2_SCHEDULE): the skeleton, the bake and the
+     extraction's host time; the events (the FPS reset, densification, the
+     ladder fit and refits, the test evaluation on two test frames between
+     the train frames); loss and PSNR at both ends of the warm-up and the
+     main phase; ms per step of each and busy time and idle share over 5
+     steps of each; the host reads of one step with no event (exactly the
+     one late copy of the overflow counters); every parameter finite, every
+     kernel of the path launched; the four kernels held to their plain
+     versions on three of its steps (PIPE_HELD).
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without CUDA
 it exits 2 and prints no result. Imports nothing of JAX or riggs_tpu.
@@ -182,11 +203,39 @@ LOOP_ARC_DEG = 30.0  # its cameras on an arc of +-30 degrees about the front vie
 LOOP_SCHEDULE = dict(iterations_node_rendering=40, node_warm_up=10, densification_interval=10,
                      iterations_node_sampling=30, iterations=40, densify_from_iter=5,
                      node_force_densify_prune_step=20, opacity_reset_interval=30, ladder_check_every=10)
+LOOP_TEST_BETWEEN = (2, 5)  # the two test frames lie halfway after these train frames
 PROFILE_FROM = 20  # the loop's profiled steps of each phase: [20, 25)
 # the loop's steps whose blend calls are held to the plain versions: phase A
 # on the densified node cloud, phase B's first probe step (plain windows) and
 # its last (the ladder as the loop fitted and refitted it)
 LOOP_HELD = {("A", 25): "phase A it=25", ("B", 0): "phase B probe it=0", ("B", 39): "phase B ladder it=39"}
+# the [pipeline] schedule of train_stage2: only these are cut from the
+# defaults (PERF.md section 4); densification at 30, 40 and 50, the FPS
+# reset and the template offsets' unlock at 40, a test evaluation at 30
+STAGE2_SCHEDULE = dict(iterations_stage2=60, skeleton_warm_up=20, optimize_template_offsets_iters=40,
+                       gs_densification_iterations=25, densify_from_iter=25, densify_until_iter=55,
+                       densification_interval=10, ladder_check_every=10)
+PIPE_TEST_EVERY = 30
+# its profiled steps: the warm-up's [14, 19) and the main phase's [45, 50);
+# the step whose host reads are counted (no event: the ladder fitted at 11,
+# no check, densification, reset, log or test due)
+PIPE_PROFILE_FROM = {"W": 14, "M": 45}
+PIPE_SYNC_STEP = 34
+# the steps whose blend calls are held to the plain versions: a warm-up
+# probe step (plain windows), the step after the FPS reset and the last
+# (both on the ladder)
+PIPE_HELD = {("W", 5): "warm-up probe it=5", ("M", 40): "after the FPS reset it=40", ("M", 59): "ladder it=59"}
+
+
+# the rotation fit (csrc/rotfit.cu) against its plain version: max |d R|
+# on the well-posed fits and |det R - 1| on every fit; a fit is ill-posed
+# where min(s1 + s2, s1 + d s3, s2 + d s3) < ILL_POSED * s1
+ROTFIT_TOL = 1e-5
+ILL_POSED = 1e-2
+# its bound: the function's bytes (a 3x3 f32 matrix in, one out, 72 B a
+# fit) over HBM; the kernel's f64 Jacobi sweeps are its design, not the
+# function's work
+ROTFIT_BYTES = 72
 
 
 def _bound(nbytes, ops, sfu):
@@ -1397,10 +1446,12 @@ def stage1_setup(gs, bg, fr):
 
 def stage1_phase(blend, gs, cam, bg, frame_train):
     """Phase 8: the stage-1 phase-B step at full width. Returns the launch
-    counts of its counted run and the forward and backward kernel results."""
+    counts of its counted run and the forward, backward and rotation-fit
+    kernel results."""
     import torch
 
     from riggs_tpu_torch.models import node_warp as NW
+    from riggs_tpu_torch.ops import geometry as GEO
     from riggs_tpu_torch.train.optim import grad_tree, tree_leaves
     from riggs_tpu_torch.train.stage1 import make_phase_b_auto, phase_b_flags, stage1_frame_loss
 
@@ -1424,6 +1475,7 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
     # the main path: make_phase_b_auto steps, counters zeroed just before
     torch.cuda.synchronize()
     blend.reset_launches()
+    GEO.reset_launches()
     for it in STAGE1_ITS:
         for label, kw in paths:
             st = fresh(it)
@@ -1440,9 +1492,9 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
             print(f"[stage1] it={it} {label}: {STAGE1_STEPS} steps, loss {float(m['loss']):.5f} psnr "
                   f"{float(m['psnr']):.2f} arap {float(m['arap']):.3e} chamfer {float(m['chamfer']):.2f}")
     torch.cuda.synchronize()
-    launches = dict(blend.launches)
+    launches = dict(blend.launches, **GEO.launches)
     print(f"[stage1] launch counters over the stage-1 main path: {launches}")
-    for name in ("blend_cm", "blend_permuted_gm", "blend_cm_bwd", "blend_permuted_gm_bwd"):
+    for name in ("blend_cm", "blend_permuted_gm", "blend_cm_bwd", "blend_permuted_gm_bwd", "fit_rotations"):
         if launches[name] <= 0:
             raise RuntimeError(f"the stage-1 path never launched {name}")
 
@@ -1486,14 +1538,17 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
     names = ("blend_cm_bwd", "blend_permuted_gm_bwd")
     fwd_names = ("blend_cm_fwd", "blend_permuted_gm_fwd")
     captured, fwd_captured = {}, {}
-    for (label, kw), name, fname in zip(paths, names, fwd_names):
-        with _Capture(blend, names + fwd_names) as c:
-            step(fresh(STAGE1_ITS[-1]), fr, bg, arap_t, it=STAGE1_ITS[-1], **flags, **kw)
-        captured[name] = c.calls[name]
-        fwd_captured[fname.removesuffix("_fwd")] = c.calls[fname]
+    with _RotCapture() as rc:
+        for (label, kw), name, fname in zip(paths, names, fwd_names):
+            with _Capture(blend, names + fwd_names) as c:
+                step(fresh(STAGE1_ITS[-1]), fr, bg, arap_t, it=STAGE1_ITS[-1], **flags, **kw)
+            captured[name] = c.calls[name]
+            fwd_captured[fname.removesuffix("_fwd")] = c.calls[fname]
     fres = check_kernels(blend, fwd_captured, tag="[stage1]", per="step")
     bres = check_bwd_kernels(blend, captured, tag="[stage1]")
-    del captured, fwd_captured
+    rres = check_rotfit(rc.covs, "[stage1]")
+    rres["planted"] = check_rotfit_planted("[stage1]")
+    del captured, fwd_captured, rc
 
     # step time and the device's share of it
     for label, kw in paths:
@@ -1506,7 +1561,7 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
         one()  # warm-up
         ms = _host_ms(one, 5)
         profile_stage1(one, label, ms)
-        sync_audit(f"make_phase_b_auto ({label}, it={STAGE1_ITS[-1]})", one, expected=svd_reads())
+        sync_audit(f"make_phase_b_auto ({label}, it={STAGE1_ITS[-1]})", one)
 
     # the node warp alone: warp_forward and its backward at the step's shapes
     st = fresh(STAGE1_ITS[-1])
@@ -1521,7 +1576,7 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
     warp_fb()
     print(f"[stage1] node warp (warp_forward + its backward, {st.gs.capacity} x {st.warp.node_num}): "
           f"{_event_ms(warp_fb, 5):.3f} ms (CUDA events)")
-    return launches, fres, bres
+    return launches, fres, bres, rres
 
 
 def profile_stage1(one, label, step_ms, n=3):
@@ -1555,13 +1610,197 @@ def _site(func, text):
     return f"{Path(inspect.getsourcefile(func)).name}:{first + n}"
 
 
-def svd_reads():
-    """The host reads left in a stage-1 step (ROADMAP Queue C): the ARAP
-    rotation fit's torch.linalg.svd checks its convergence flags on the
-    host, two reads for the step's one fit."""
-    from riggs_tpu_torch.ops.geometry import fit_rotations
+class _RotCapture:
+    """Record the covariances the ARAP loss hands to fit_rotations."""
 
-    return {_site(fit_rotations, "linalg.svd"): 2}
+    def __init__(self):
+        from riggs_tpu_torch.ops import arap
+
+        self.arap, self.covs = arap, []
+
+    def __enter__(self):
+        self.orig = self.arap.fit_rotations
+
+        def rec(cov):
+            self.covs.append(cov.detach().clone())
+            return self.orig(cov)
+
+        self.arap.fit_rotations = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.arap.fit_rotations = self.orig
+
+
+def _conditioning(cov):
+    """Per fit, min(s1 + s2, s1 + d s3, s2 + d s3) / s1 (d = det(U V^T)),
+    from a float64 SVD: the error that f32 rounding puts into R scales as
+    its inverse, and below ILL_POSED the fit is ill-posed."""
+    import torch
+
+    u, sv, vh = torch.linalg.svd(cov.double())
+    d = torch.sign(torch.linalg.det(u @ vh))
+    low = torch.minimum(torch.minimum(sv[:, 0] + sv[:, 1], sv[:, 0] + d * sv[:, 2]), sv[:, 1] + d * sv[:, 2])
+    return low / sv[:, 0].clamp_min(1e-300)
+
+
+def check_rotfit(covs, tag):
+    """The rotation-fit kernel against its plain version (torch.linalg.svd)
+    on the covariances of real steps: finite, a second launch bitwise
+    equal, max |d R| <= ROTFIT_TOL on the well-posed fits, |det R - 1| <=
+    ROTFIT_TOL on every fit; the ill-posed fits counted. Times on the last
+    batch (CUDA events, plain, kernel, kernel, plain), beside
+    torch.linalg.svd alone (the library call) and the bound."""
+    import torch
+
+    from riggs_tpu_torch.ops import geometry as GEO
+
+    if not covs:
+        raise RuntimeError(f"{tag}: the step made no rotation fit")
+    err = det_err = scaled = 0.0
+    fits = ill = 0
+    for cov in covs:
+        R, R2, P = GEO.fit_rotations(cov), GEO.fit_rotations(cov), GEO.fit_rotations_plain(cov)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(R).all()):
+            raise RuntimeError(f"{tag} fit_rotations {tuple(cov.shape)}: non-finite kernel output")
+        if not _same_bits(R, R2):
+            raise RuntimeError(f"{tag} fit_rotations {tuple(cov.shape)}: two launches on the same inputs differ")
+        ratio = _conditioning(cov)
+        well = ratio >= ILL_POSED
+        d = (R - P).abs().amax(dim=(-2, -1)).double()
+        if bool(well.any()):
+            err = max(err, float(d[well].max()))
+            scaled = max(scaled, float((d * ratio)[well].max()))
+        det_err = max(det_err, float((torch.linalg.det(R.double()) - 1.0).abs().max()))
+        fits += cov.shape[0]
+        ill += int((~well).sum())
+    if not (err <= ROTFIT_TOL and det_err <= ROTFIT_TOL):
+        raise RuntimeError(f"{tag} fit_rotations: max |d R| {err:.3e} on well-posed fits, max |det R - 1| "
+                           f"{det_err:.3e}; the limit is {ROTFIT_TOL}")
+    cov = covs[-1]
+    for fn in (lambda: GEO.fit_rotations(cov), lambda: GEO.fit_rotations_plain(cov), lambda: torch.linalg.svd(cov)):
+        fn()
+    torch.cuda.synchronize()
+    p1 = _event_ms(lambda: GEO.fit_rotations_plain(cov), 5)
+    k1 = _event_ms(lambda: GEO.fit_rotations(cov), 50)
+    k2 = _event_ms(lambda: GEO.fit_rotations(cov), 50)
+    p2 = _event_ms(lambda: GEO.fit_rotations_plain(cov), 5)
+    lib = _event_ms(lambda: torch.linalg.svd(cov), 5)
+    n = cov.shape[0]
+    bound = _bound(n * ROTFIT_BYTES, 0, 0)
+    print(f"{tag} fit_rotations: {len(covs)} fit(s) of {fits} matrices, {ill} ill-posed (conditioning < "
+          f"{ILL_POSED}); max |d R| {err:.3e} on the well-posed (x conditioning {scaled:.3e}), max |det R - 1| "
+          f"{det_err:.3e}; a second launch bitwise equal; kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms, "
+          f"torch.linalg.svd {lib:.3f} ms per batch of {n}; bound {bound['bound_ms']:.2e} ms by {bound['bound_by']}")
+    return dict(err=err, det_err=det_err, scaled_err=scaled, fits=fits, ill_posed=ill, ms=(k1 + k2) / 2,
+                plain_ms=(p1 + p2) / 2, library_ms=lib, batch=n, **bound)
+
+
+def _rotations(rng, n):
+    """n random proper rotations (float64), from unit quaternions."""
+    q = rng.normal(size=(n, 4))
+    w, x, y, z = (q / np.linalg.norm(q, axis=-1, keepdims=True)).T
+    return np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+                     2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+                     2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1).reshape(n, 3, 3)
+
+
+def planted_covariances(seed=13):
+    """Fits whose answer csrc/rotfit.cu documents or whose conditioning is
+    planted, by kind: cov = 0; rank 1 s u v^T (integer entries, exactly
+    rank 1, and random ones rounded to f32); rank 2 U diag(s1, s2, 0) V^T;
+    near-reflections U diag(1, 1/2, -(1/2 - e)) V^T (d = -1, conditioning
+    e, from well- to ill-posed); a NaN entry; U diag(1, 0.7, 0.4) V^T
+    scaled by 1e-30. Returns {kind: (cov (n, 3, 3) f32, u, v)} (u, v: rank 1's
+    vectors, else None)."""
+    rng = np.random.default_rng(seed)
+    out = {"zero": (np.zeros((4, 3, 3)), None, None)}
+    quads = np.array([[1, 2, 2], [2, 3, 6], [1, 4, 8], [4, 4, 7], [2, 6, 9], [6, 6, 7]], np.float64)
+    sign = lambda n: np.where(rng.uniform(size=(n, 3)) < 0.5, -1.0, 1.0)
+    iu, iv = rng.integers(0, len(quads), 24), rng.integers(0, len(quads), 24)
+    a, b = quads[iu] * sign(24), quads[iv] * sign(24)
+    perm = lambda x: np.take_along_axis(x, np.argsort(rng.uniform(size=x.shape), -1), -1)
+    a, b = perm(a), perm(b)
+    out["rank 1 exact"] = (a[:, :, None] * b[:, None, :], a / np.linalg.norm(a, axis=-1, keepdims=True),
+                           b / np.linalg.norm(b, axis=-1, keepdims=True))
+    u, v = rng.normal(size=(24, 3)), rng.normal(size=(24, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    out["rank 1 rounded"] = (np.exp(rng.uniform(-3, 3, (24, 1, 1))) * u[:, :, None] * v[:, None, :], u, v)
+    U, V = _rotations(rng, 24), _rotations(rng, 24)
+    s = np.stack([np.ones(24), np.exp(rng.uniform(-4, 0, 24)), np.zeros(24)], -1)
+    out["rank 2"] = (np.einsum("nab,nb,ncb->nac", U, s, V), None, None)
+    e = np.repeat([1e-1, 3e-2, 3e-3, 1e-3, 1e-4, 1e-5, 0.0], 4)
+    U, V = _rotations(rng, len(e)), _rotations(rng, len(e))
+    s = np.stack([np.ones(len(e)), np.full(len(e), 0.5), -(0.5 - e)], -1)
+    out["near reflection"] = (np.einsum("nab,nb,ncb->nac", U, s, V), None, None)
+    nan = rng.normal(size=(4, 3, 3))
+    nan.reshape(4, 9)[np.arange(4), rng.integers(0, 9, 4)] = np.nan
+    out["nan"] = (nan, None, None)
+    U, V = _rotations(rng, 8), _rotations(rng, 8)
+    out["scaled 1e-30"] = (np.einsum("nab,b,ncb->nac", U, [1.0, 0.7, 0.4], V) * 1e-30, None, None)
+    return {k: (np.asarray(c, np.float32), u, v) for k, (c, u, v) in out.items()}
+
+
+def check_rotfit_planted(tag):
+    """The rotation-fit kernel on planted_covariances, each kind held to
+    what csrc/rotfit.cu says: cov = 0 -> the identity bitwise; rank 1 -> a
+    proper rotation with R v = u (|R v - u| <= ROTFIT_TOL); a NaN entry ->
+    NaN in every entry; every other fit finite with |det R - 1| and
+    |R R^T - I| <= ROTFIT_TOL, and within ROTFIT_TOL of the plain version
+    where well-posed; the 1e-30 batch within ROTFIT_TOL of the kernel and
+    the plain version on the same matrices unscaled. Returns the readings."""
+    import torch
+
+    from riggs_tpu_torch.ops import geometry as GEO
+
+    fails, res = [], {}
+    for kind, (c, u, v) in planted_covariances().items():
+        cov = torch.as_tensor(c, device="cuda")
+        R = GEO.fit_rotations(cov)
+        Rd = R.double()
+        if kind == "nan":
+            if not bool(torch.isnan(R).all()):
+                fails.append(f"{kind}: not NaN in every entry")
+            res[kind] = dict(n=len(c))
+            continue
+        if not bool(torch.isfinite(R).all()):
+            fails.append(f"{kind}: non-finite output")
+            continue
+        eye = torch.eye(3, dtype=torch.float64, device="cuda")
+        det_err = float((torch.linalg.det(Rd) - 1.0).abs().max())
+        orth_err = float((Rd @ Rd.transpose(-1, -2) - eye).abs().max())
+        # the 1e-30 batch is held, like the plain version, at its unscaled size
+        base = cov if kind != "scaled 1e-30" else \
+            torch.as_tensor(c.astype(np.float64) * 1e30, dtype=torch.float32, device="cuda")
+        well = _conditioning(base) >= ILL_POSED
+        plain_err = float((R - GEO.fit_rotations_plain(base)).abs().amax(dim=(-2, -1))[well].max()) \
+            if bool(well.any()) else None
+        r = dict(n=len(c), ill_posed=int((~well).sum()), det_err=det_err, orth_err=orth_err, plain_err=plain_err)
+        if det_err > ROTFIT_TOL or orth_err > ROTFIT_TOL:
+            fails.append(f"{kind}: |det R - 1| {det_err:.3e}, |R R^T - I| {orth_err:.3e}")
+        if plain_err is not None and plain_err > ROTFIT_TOL:
+            fails.append(f"{kind}: max |d R| {plain_err:.3e} against the plain version on the well-posed fits")
+        if kind == "zero" and not _same_bits(R, eye.float().expand_as(R).contiguous()):
+            fails.append(f"{kind}: not the identity")
+        if u is not None:
+            rv = torch.einsum("nab,nb->na", Rd, torch.as_tensor(v, device="cuda"))
+            r["rv_err"] = float((rv - torch.as_tensor(u, device="cuda")).abs().max())
+            if r["rv_err"] > ROTFIT_TOL:
+                fails.append(f"{kind}: |R v - u| {r['rv_err']:.3e}")
+        if kind == "scaled 1e-30":
+            r["scale_err"] = float((R - GEO.fit_rotations(base)).abs().max())
+            if r["scale_err"] > ROTFIT_TOL:
+                fails.append(f"{kind}: max |d R| {r['scale_err']:.3e} against the unscaled fits")
+        res[kind] = r
+    print(f"{tag} fit_rotations on planted fits: " + "; ".join(
+        f"{k} {r['n']}" + "".join(f", {m} {r[m]:.2e}" for m in ("det_err", "orth_err", "plain_err", "rv_err",
+                                                                   "scale_err") if r.get(m) is not None)
+        + (f", {r['ill_posed']} ill-posed" if "ill_posed" in r else "") for k, r in res.items()))
+    if fails:
+        raise RuntimeError(f"{tag} fit_rotations on planted fits: " + "; ".join(fails))
+    return res
 
 
 def prime_sync_debug():
@@ -1576,48 +1815,68 @@ def prime_sync_debug():
         torch.cuda.set_sync_debug_mode(0)
 
 
-def count_syncs(fn):
-    """One call of ``fn`` (warmed up by the caller) under
-    torch.cuda.set_sync_debug_mode("warn") and the profiler: its
-    synchronizing operations by source line ({"file:line": count}), the
-    innermost line of this repository that led to each, and the call's
-    device-to-host copies and stream synchronizations. Returns (sites,
-    callers, copies, synchronizations, fn's result)."""
-    import collections
-    import traceback
+class SyncCounter:
+    """Synchronizing operations between ``start()`` and ``stop()`` under
+    torch.cuda.set_sync_debug_mode("warn") and the profiler: by source line
+    ({"file:line": count}), the innermost line of this repository that led
+    to each, and the device-to-host copies and stream synchronizations."""
 
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    def start(self):
+        import collections
 
-    sites, callers = collections.Counter(), {}
+        import torch
+        from torch.profiler import ProfilerActivity, profile
 
-    def seen(message, category, filename, lineno, *a, **k):
+        self.sites, self.callers = collections.Counter(), {}
+        prime_sync_debug()
+        torch.cuda.synchronize()
+        self._warn = warnings.catch_warnings()
+        self._warn.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = self._seen
+        self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self._prof.__enter__()
+        torch.cuda.set_sync_debug_mode("warn")
+
+    def _seen(self, message, category, filename, lineno, *a, **k):
+        import traceback
+
         if "synchroniz" not in str(message):
             return
         key = f"{Path(filename).name}:{lineno}"
-        sites[key] += 1
+        self.sites[key] += 1
         stack = traceback.extract_stack()[:-1]
         ours = [f for f in stack if "riggs_tpu_torch" in f.filename] or stack[-3:]
-        callers[key] = " < ".join(f"{Path(f.filename).name}:{f.lineno} {f.line}" for f in ours[-1:] + stack[-2:-1])
+        self.callers[key] = " < ".join(f"{Path(f.filename).name}:{f.lineno} {f.line}" for f in ours[-1:] + stack[-2:-1])
 
-    prime_sync_debug()
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = seen
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                out = fn()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
+    def stop(self):
+        """Returns (sites, callers, copies, synchronizations)."""
+        import torch
+
+        try:
+            torch.cuda.set_sync_debug_mode(0)
             torch.cuda.synchronize()
-    events = prof.key_averages()
-    dtoh = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA and "DtoH" in e.key)
-    # a host read is a copy and a stream synchronize (the profile's own
-    # synchronize after the call is a device synchronize)
-    syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
-    return dict(sites), callers, dtoh, syncs, out
+        finally:
+            self._prof.__exit__(None, None, None)
+            self._warn.__exit__(None, None, None)
+        events = self._prof.key_averages()
+        dtoh = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA and "DtoH" in e.key)
+        # a host read is a copy and a stream synchronize (the profile's own
+        # synchronize after the call is a device synchronize)
+        syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
+        return dict(self.sites), self.callers, dtoh, syncs
+
+
+def count_syncs(fn):
+    """One call of ``fn`` (warmed up by the caller) under a SyncCounter.
+    Returns (sites, callers, copies, synchronizations, fn's result)."""
+    counter = SyncCounter()
+    counter.start()
+    try:
+        out = fn()
+    finally:
+        res = counter.stop()
+    return (*res, out)
 
 
 def sync_audit(label, fn, expected=None):
@@ -1649,10 +1908,11 @@ def sync_audit(label, fn, expected=None):
 def build_loop_scene(gs, skel):
     """The [loop] scene: LOOP_FRAMES train frames at SIZE x SIZE, the avatar
     posed by its own skeleton at times i / LOOP_FRAMES seen from cameras on
-    an arc about its front, on a white background; alpha masks from the render's acc, the
-    thinned 2D skeleton of each mask (thin_mask_skeleton), the point cloud
-    the avatar's alive means and colours, cameras_extent by
-    compute_scene_extent."""
+    an arc about its front, on a white background; alpha masks from the
+    render's acc, the thinned 2D skeleton of each mask (thin_mask_skeleton),
+    the point cloud the avatar's alive means and colours, cameras_extent by
+    compute_scene_extent; and two test frames, each halfway between two
+    train frames in time and on the arc."""
     import torch
 
     from riggs_tpu_torch.camera import make_camera
@@ -1662,12 +1922,15 @@ def build_loop_scene(gs, skel):
 
     t0 = time.perf_counter()
     white = torch.ones(3, device=DEVICE)
-    cams = []
-    for a in np.radians(np.linspace(-LOOP_ARC_DEG, LOOP_ARC_DEG, LOOP_FRAMES)):
+
+    def arc_camera(a):
         # the [scene] camera swung about the avatar's vertical axis
         R = np.array([[np.cos(a), 0.0, -np.sin(a)], [0.0, -1.0, 0.0], [-np.sin(a), 0.0, -np.cos(a)]])
         center = np.array([2.6 * np.sin(a), 0.15, 2.6 * np.cos(a)])
-        cams.append(make_camera(R, -R.T @ center, SIZE, SIZE, fovx=0.8, fovy=0.8, device=DEVICE))
+        return make_camera(R, -R.T @ center, SIZE, SIZE, fovx=0.8, fovy=0.8, device=DEVICE)
+
+    angles = np.radians(np.linspace(-LOOP_ARC_DEG, LOOP_ARC_DEG, LOOP_FRAMES))
+    cams = [arc_camera(a) for a in angles]
     frames, thin_s, n_thin, max_count = [], 0.0, [], 0
     for i, cam in enumerate(cams):
         t = i / LOOP_FRAMES
@@ -1683,9 +1946,17 @@ def build_loop_scene(gs, skel):
         frames.append(Frame(cam=dataclasses.replace(cam, fid=torch.tensor(t, device=DEVICE)), image=out["render"],
                             alpha_mask=alpha, thinned=torch.as_tensor(tp, device=DEVICE),
                             thinned_mask=torch.as_tensor(tm, device=DEVICE)))
+    # the test frames: halfway between two train frames, in time and on the arc
+    tests = []
+    for i in LOOP_TEST_BETWEEN:
+        t = (i + 0.5) / LOOP_FRAMES
+        cam = arc_camera((angles[i] + angles[i + 1]) / 2)
+        out = frame(gs, skel, cam, white, t=t, max_per_tile=16384)
+        _check_frame(out, SIZE, f"loop scene test frame at t={t}")
+        tests.append(Frame(cam=dataclasses.replace(cam, fid=torch.tensor(t, device=DEVICE)), image=out["render"]))
     n = int(gs.num_alive)
     cols = np.clip(gs.features_dc[:n, 0].cpu().numpy() * C0 + 0.5, 0.0, 1.0)
-    scene = SceneData(gs.xyz[:n].cpu().numpy(), cols, is_blender=True, train_frames=frames,
+    scene = SceneData(gs.xyz[:n].cpu().numpy(), cols, is_blender=True, train_frames=frames, test_frames=tests,
                       cameras_extent=compute_scene_extent(cams), white_background=True)
     # the plain-window cap of phase B's probe steps: the frames' largest
     # tile count with headroom for the motion and for densification to full
@@ -1725,9 +1996,11 @@ def stage1_phase_a(blend, scene):
     exactly where the toggles give one, kernel path against plain-version
     path; blend_cm and blend_cm_bwd against their plain versions on the
     node cloud's windows; step time, busy time and idle share; the sync
-    audit. Returns (launch counts, forward and backward kernel results)."""
+    audit. Returns (launch counts, forward, backward and rotation-fit kernel
+    results)."""
     import torch
 
+    from riggs_tpu_torch.ops import geometry as GEO
     from riggs_tpu_torch.train.optim import grad_tree, tree_leaves
     from riggs_tpu_torch.train.stage1 import Stage1Draws, init_stage1, make_phase_a_auto, phase_a_flags, phase_a_loss
 
@@ -1751,6 +2024,7 @@ def stage1_phase_a(blend, scene):
     # the main path: make_phase_a_auto steps, counters zeroed just before
     torch.cuda.synchronize()
     blend.reset_launches()
+    GEO.reset_launches()
     for it in PHASE_A_ITS:
         st = fresh(it)
         for k in range(STAGE1_STEPS):
@@ -1766,9 +2040,9 @@ def stage1_phase_a(blend, scene):
         print(f"[stage1] phase A it={it} ({phase_a_flags(cfg, it)}): {STAGE1_STEPS} steps, loss "
               f"{float(m['loss']):.5f} psnr {float(m['psnr']):.2f}, no overflow")
     torch.cuda.synchronize()
-    launches = dict(blend.launches)
+    launches = dict(blend.launches, **GEO.launches)
     print(f"[stage1] phase A launch counters: {launches}")
-    for name in ("blend_cm", "blend_cm_bwd"):
+    for name in ("blend_cm", "blend_cm_bwd", "fit_rotations"):
         if launches[name] <= 0:
             raise RuntimeError(f"phase A never launched {name}")
 
@@ -1814,11 +2088,12 @@ def stage1_phase_a(blend, scene):
     print(f"[stage1] phase A gradients finite and nonzero exactly where the toggles give one, at it {PHASE_A_ITS}")
 
     # blend_cm and blend_cm_bwd against their plain versions on a real step's inputs
-    with _Capture(blend, ("blend_cm_fwd", "blend_cm_bwd")) as c:
+    with _Capture(blend, ("blend_cm_fwd", "blend_cm_bwd")) as c, _RotCapture() as rc:
         step(fresh(PHASE_A_ITS[-1]), fr, bg, reg_t, it=PHASE_A_ITS[-1], **kw)
     fres = check_kernels(blend, {"blend_cm": c.calls["blend_cm_fwd"]}, tag="[stage1] phase A", per="step")
     bres = check_bwd_kernels(blend, {"blend_cm_bwd": c.calls["blend_cm_bwd"]}, tag="[stage1] phase A")
-    del c
+    rres = check_rotfit(rc.covs, "[stage1] phase A")
+    del c, rc
 
     # step time, the device's share of it, and the sync audit
     st = fresh(PHASE_A_ITS[-1])
@@ -1832,8 +2107,8 @@ def stage1_phase_a(blend, scene):
     busy = _profile_busy(one, 5)
     print(f"[stage1] phase A: step {ms:.2f} ms (host clock, synchronized, it={PHASE_A_ITS[-1]}, {SIZE}x{SIZE}); "
           f"device busy {busy:.2f} ms (idle share {1 - busy / ms:.3f})")
-    sync_audit(f"make_phase_a_auto (it={PHASE_A_ITS[-1]})", one, expected=svd_reads())
-    return launches, fres, bres
+    sync_audit(f"make_phase_a_auto (it={PHASE_A_ITS[-1]})", one)
+    return launches, fres, bres, rres
 
 
 def _profile_busy(fn, n):
@@ -1853,73 +2128,82 @@ def _profile_busy(fn, n):
 
 
 class _LoopProbe:
-    """train_stage1's step_callback for [loop]: stamps the host clock after
-    every step (no synchronize: the loop's own pace), profiles the device
-    over steps [PROFILE_FROM, PROFILE_FROM + 5) of each phase, and keeps the
-    blend wrappers' arguments of the LOOP_HELD steps (every other step's are
-    dropped at its end)."""
+    """A training loop's step_callback: stamps the host clock after every
+    step (no synchronize: the loop's own pace), profiles the device over
+    steps [start, start + 5) of each phase (``profile_from``: phase ->
+    start), and keeps the blend wrappers' arguments and the ARAP fit's
+    covariances of the ``held`` steps ((phase, it) -> label; every other
+    step's are dropped at its end)."""
 
-    def __init__(self, blend):
+    def __init__(self, blend, held=LOOP_HELD, profile_from=None):
         self.capture = _Capture(blend, ("blend_cm_fwd", "blend_cm_bwd", "blend_permuted_gm_fwd",
                                         "blend_permuted_gm_bwd"))
-        self.stamps = {"A": [], "B": []}
-        self.busy, self.held = {}, {}
+        self.rot = _RotCapture()
+        self.held_keys, self.profile_from = held, profile_from or {"A": PROFILE_FROM, "B": PROFILE_FROM}
+        self.stamps = {p: [] for p in self.profile_from}
+        self.busy, self.held, self.held_rot = {}, {}, {}
 
     def __enter__(self):
         self.capture.__enter__()
+        self.rot.__enter__()
         return self
 
     def __exit__(self, *exc):
+        self.rot.__exit__(*exc)
         self.capture.__exit__(*exc)
 
     def __call__(self, state, it, phase):
         import torch
         from torch.profiler import ProfilerActivity, profile
 
-        self.stamps[phase].append(time.perf_counter())
-        if (phase, it) in LOOP_HELD:
+        self.stamps[phase].append((it, time.perf_counter()))
+        if (phase, it) in self.held_keys:
             self.held[phase, it] = {k: list(v) for k, v in self.capture.calls.items()}
+            self.held_rot[phase, it] = list(self.rot.covs)
         for v in self.capture.calls.values():
             v.clear()
-        if it == PROFILE_FROM - 1:
+        self.rot.covs.clear()
+        start = self.profile_from[phase]
+        if it == start - 1:
             self.prof = profile(activities=[ProfilerActivity.CUDA])
             self.prof.start()
-        elif it == PROFILE_FROM + 4:
+        elif it == start + 4:
             torch.cuda.synchronize()
             self.prof.stop()
             self.busy[phase] = sum(e.self_device_time_total for e in self.prof.key_averages()
                                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 5
+            del self.prof
 
     def ms(self, phase):
         """(median, mean) host ms between consecutive step ends of a phase,
         the profiled window's steps and the one after (the profile's read)
         left out."""
-        st = self.stamps[phase]
-        d = [(b - a) * 1e3 for i, (a, b) in enumerate(zip(st, st[1:]))
-             if not PROFILE_FROM - 1 <= i <= PROFILE_FROM + 4]
+        st, start = self.stamps[phase], self.profile_from[phase]
+        d = [(b - a) * 1e3 for (_, a), (it, b) in zip(st, st[1:]) if not start <= it <= start + 5]
         return float(np.median(d)), float(np.mean(d))
 
 
-def check_loop_kernels(blend, held):
-    """The four kernels of the loop held to their plain versions on the
-    LOOP_HELD steps' own inputs: phase A's and the probe step's plain
-    windows at the loop's cap, the last step's ladder buckets. Returns
-    {kernel: {label: result}}."""
+def check_loop_kernels(blend, held, labels=LOOP_HELD, want=None, tag="[loop]"):
+    """The four kernels of a loop held to their plain versions on the held
+    steps' own inputs (``labels``: (phase, it) -> label; ``want``: kernel
+    -> the labels it must be held on; the loop's by default: phase A's and
+    the probe step's plain windows at the loop's cap, the last step's
+    ladder buckets). Returns {kernel: {label: result}}."""
+    want = want or {"blend_cm": ("phase A it=25", "phase B probe it=0"), "blend_permuted_gm": ("phase B ladder it=39",)}
     out = {k: {} for k in ("blend_cm", "blend_permuted_gm", "blend_cm_bwd", "blend_permuted_gm_bwd")}
-    for key, label in LOOP_HELD.items():
+    for key, label in labels.items():
         calls = held[key]
         for name in ("blend_cm", "blend_permuted_gm"):
             if not calls[f"{name}_fwd"]:
                 continue
-            tag = f"[loop] {label}"
-            out[name][label] = check_kernels(blend, {name: calls[f"{name}_fwd"]}, tag=tag, per="step")[name]
+            t = f"{tag} {label}"
+            out[name][label] = check_kernels(blend, {name: calls[f"{name}_fwd"]}, tag=t, per="step")[name]
             out[f"{name}_bwd"][label] = check_bwd_kernels(blend, {f"{name}_bwd": calls[f"{name}_bwd"]},
-                                                          tag=tag)[f"{name}_bwd"]
-    want = {"blend_cm": ("phase A it=25", "phase B probe it=0"), "blend_permuted_gm": ("phase B ladder it=39",)}
-    for name, labels in want.items():
+                                                          tag=t)[f"{name}_bwd"]
+    for name, labels_ in want.items():
         for n in (name, f"{name}_bwd"):
-            if sorted(out[n]) != sorted(labels):
-                raise RuntimeError(f"[loop] {n} was held on {sorted(out[n])}, not on {sorted(labels)}")
+            if sorted(out[n]) != sorted(labels_):
+                raise RuntimeError(f"{tag} {n} was held on {sorted(out[n])}, not on {sorted(labels_)}")
     return out
 
 
@@ -1929,11 +2213,13 @@ def loop_phase(blend, scene, cap):
     before and read just after. Prints the events, the node counts, the
     ladder's refits, loss and PSNR at both ends of both phases, ms per step
     of each phase by host clock and the device's busy time and idle share
-    over 5 steps of each; then holds the four kernels to their plain
-    versions on the LOOP_HELD steps' inputs. Returns the launch counts and
-    those results."""
+    over 5 steps of each; then holds the four kernels and the rotation fit
+    to their plain versions on the LOOP_HELD steps' inputs. Returns the
+    launch counts, the blend and rotation-fit results and the trained
+    state."""
     import torch
 
+    from riggs_tpu_torch.ops import geometry as GEO
     from riggs_tpu_torch.train.optim import tree_leaves
     from riggs_tpu_torch.train.stage1 import train_stage1
 
@@ -1944,13 +2230,14 @@ def loop_phase(blend, scene, cap):
     events = []
     torch.cuda.synchronize()
     blend.reset_launches()
+    GEO.reset_launches()
     t0 = time.perf_counter()
     with _LoopProbe(blend) as probe:
         state, hist = train_stage1(scene, cfg, seed=0, log_every=LOOP_SCHEDULE["iterations"] - 1, events=events,
                                    step_callback=probe, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(blend.launches)
+    launches = dict(blend.launches, **GEO.launches)
     for e in events:
         print(f"[loop] event {e}")
     for p, it, m in hist:
@@ -1985,16 +2272,194 @@ def loop_phase(blend, scene, cap):
               + tree_leaves(state.warp.params_dict()))
     if not all(bool(torch.isfinite(v).all()) for v in leaves):
         raise RuntimeError("[loop] non-finite parameters")
-    for name in ("blend_cm", "blend_cm_bwd", "blend_permuted_gm", "blend_permuted_gm_bwd"):
+    for name in ("blend_cm", "blend_cm_bwd", "blend_permuted_gm", "blend_permuted_gm_bwd", "fit_rotations"):
         if launches[name] <= 0:
             raise RuntimeError(f"the loop never launched {name}")
     print(f"[loop] {state.warp.node_num} nodes, {int(state.gs.num_alive)} Gaussians of {state.gs.capacity}, "
           f"every parameter finite; refits {final['refits']}, ladder {final['ladder']}")
     if sorted(probe.held) != sorted(LOOP_HELD):
         raise RuntimeError(f"[loop] held the blend calls of steps {sorted(probe.held)}, not {sorted(LOOP_HELD)}")
+    held, held_rot = probe.held, probe.held_rot
+    del probe
+    rot = {label: check_rotfit(held_rot[key], f"[loop] {label}") for key, label in LOOP_HELD.items()}
+    return launches, check_loop_kernels(blend, held), rot, state
+
+
+class _PipelineProbe(_LoopProbe):
+    """train_stage2's step_callback for [pipeline]: _LoopProbe's stamps,
+    profiles and held calls by phase ("W" the warm-up, "M" the main phase);
+    the SyncCounter over PIPE_SYNC_STEP (from the end of the step before it
+    to its own end); and the step metrics of the ends of both phases,
+    caught from make_stage2_auto's step."""
+
+    def __init__(self, blend, warm_up, n_steps):
+        super().__init__(blend, held=PIPE_HELD, profile_from=PIPE_PROFILE_FROM)
+        self.warm_up, self.keep = warm_up, {0, warm_up - 1, warm_up, n_steps - 1}
+        self.metrics, self.syncs = {}, None
+
+    def __enter__(self):
+        from riggs_tpu_torch.train import stage2 as S2
+
+        super().__enter__()
+        self.S2, self.real_auto = S2, S2.make_stage2_auto
+
+        def auto(*a, **k):
+            step = self.real_auto(*a, **k)
+
+            def run(*sa, it, **sk):
+                state, metrics = step(*sa, it=it, **sk)
+                if it in self.keep:
+                    self.metrics[it] = metrics
+                return state, metrics
+            return run
+
+        S2.make_stage2_auto = auto
+        return self
+
+    def __exit__(self, *exc):
+        self.S2.make_stage2_auto = self.real_auto
+        super().__exit__(*exc)
+
+    def __call__(self, state, it):
+        if it == PIPE_SYNC_STEP:
+            self.syncs = self.counter.stop()
+        super().__call__(state, it, "W" if it < self.warm_up else "M")
+        if it == PIPE_SYNC_STEP - 1:
+            self.counter = SyncCounter()
+            self.counter.start()
+
+
+def _stage2_config(cap):
+    cfg = _stage1_config(CAPACITY)
+    cfg.model.use_skinning_weight_mlp = cfg.model.use_template_offsets = True
+    for k, v in STAGE2_SCHEDULE.items():
+        setattr(cfg.pipe if k == "ladder_check_every" else cfg.opt, k, v)
+    cfg.pipe.max_per_tile = cap  # the probe steps' plain window (the ladder, once fitted, sets its own caps)
+    return cfg
+
+
+def pipeline_phase(blend, scene, cap, stage1_state):
+    """Phase 12: from the [loop]'s trained stage-1 state, init_stage2
+    (precompute_deformations over the loop's frames, skeleton extraction
+    from up to 200 of its nodes, the template bake, the 8x256 MLPs) and a
+    train_stage2 of STAGE2_SCHEDULE (only the schedule cut) with its test
+    evaluation on the two test frames, the counters zeroed just before and
+    read just after. Prints the skeleton, the bake, the extraction's host
+    time, the events, loss and PSNR at both ends of both phases, the test
+    metrics, ms per step of each phase and the device's busy time and idle
+    share over 5 steps of each, and the host reads of one step with no
+    event (the one late copy of the overflow counters); then holds the four
+    kernels to their plain versions on the PIPE_HELD steps' inputs. Returns
+    the launch counts and those results."""
+    import torch
+
+    from riggs_tpu_torch.ops import geometry as GEO
+    from riggs_tpu_torch.train import stage1 as S1
+    from riggs_tpu_torch.train import stage2 as S2
+    from riggs_tpu_torch.train.optim import tree_leaves
+
+    cfg = _stage2_config(cap)
+    o = cfg.opt
+    timed = {}
+    real_extract, real_init = S2.obtain_skeleton_tree, S2.init_stage2
+
+    def extract(*a, **k):
+        t = time.perf_counter()
+        out = real_extract(*a, **k)
+        timed["extract"] = time.perf_counter() - t
+        return out
+
+    def init(*a, **k):
+        t = time.perf_counter()
+        out = real_init(*a, **k)
+        torch.cuda.synchronize()
+        timed["init"] = time.perf_counter() - t
+        return out
+
+    events = []
+    torch.cuda.synchronize()
+    blend.reset_launches()
+    GEO.reset_launches()
+    t0 = time.perf_counter()
+    S2.obtain_skeleton_tree, S2.init_stage2 = extract, init
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                _PipelineProbe(blend, o.skeleton_warm_up, o.iterations_stage2) as probe:
+            warnings.simplefilter("always")
+            state, info, _ = S2.train_stage2(stage1_state, scene, cfg, seed=0, test_every=PIPE_TEST_EVERY,
+                                             events=events, step_callback=probe, device=DEVICE)
+    finally:
+        S2.obtain_skeleton_tree, S2.init_stage2 = real_extract, real_init
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(blend.launches, **GEO.launches)
+    for w in caught:
+        if "capacity limits" in str(w.message):
+            raise RuntimeError(f"[pipeline] eval_image truncated a test frame: {w.message}")
+    template = float(info.d_xyz[info.template_idx].abs().max())
+    print(f"[pipeline] init_stage2 {timed['init']:.1f} s (skeleton extraction {timed['extract']:.2f} s on the host) "
+          f"from {stage1_state.warp.node_num} nodes (at most {o.skeleton_max_candidates} candidates), "
+          f"{int(state.gs.num_alive)} Gaussians of {state.gs.capacity}: J = {len(info.joints)}, parents "
+          f"{info.parents.tolist()}, template frame {info.template_idx}, joint nodes "
+          f"{info.joint_node_indices.tolist()}; baked template max |d_xyz| {template:.3e}")
+    if not template <= 1e-5 or len(info.joints) < 2:
+        raise RuntimeError(f"[pipeline] the template bake left max |d_xyz| {template} or J = {len(info.joints)}")
+    for e in events:
+        print(f"[pipeline] event " + str({k: (v.shape if isinstance(v, torch.Tensor) else v) for k, v in e.items()}))
+    for it in sorted(probe.metrics):
+        m = probe.metrics[it]
+        print(f"[pipeline] it={it} ({'warm-up' if it < o.skeleton_warm_up else 'main'}): loss {float(m['loss']):.5f} "
+              f"psnr {float(m['psnr']):.2f}")
+    for p, name in (("W", "warm-up"), ("M", "main")):
+        med, mean = probe.ms(p)
+        busy = probe.busy[p]
+        print(f"[pipeline] {name}: {len(probe.stamps[p])} steps, {med:.2f} ms per step (host clock, median; mean "
+              f"{mean:.2f} with the events), device busy {busy:.2f} ms per step over steps "
+              f"{PIPE_PROFILE_FROM[p]}-{PIPE_PROFILE_FROM[p] + 4} (idle share {1 - busy / med:.3f})")
+    print(f"[pipeline] train_stage2 {wall:.1f} s with init_stage2; launch counters: {launches}")
+    kinds = {e["event"] for e in events}
+    for want in ("fps reset", "gs densify", "ladder fit", "test"):
+        if want not in kinds:
+            raise RuntimeError(f"[pipeline] no {want} event")
+    if [e["it"] for e in events if e["event"] == "fps reset"] != [o.optimize_template_offsets_iters]:
+        raise RuntimeError("[pipeline] the FPS reset did not fire at the unlock")
+    if not [e for e in events if e["event"] == "gs densify" and e["after"] != e["before"]]:
+        raise RuntimeError("[pipeline] no Gaussian densification changed the alive count")
+    final = [e for e in events if e["event"] == "ladder"][-1]
+    if final["refits"] < 1:
+        raise RuntimeError("[pipeline] the ladder was never refitted")
+    refit_at = {e["it"] for e in events if e["event"] in ("ladder refit", "ladder fit")}
+    late = [e for e in events if e["event"] == "overflow"]
+    bad = [e for e in late if e["rect"] or e["it"] not in refit_at]
+    if bad:
+        raise RuntimeError(f"[pipeline] steps overflowed without the ladder reacting: {bad}")
+    test = [e for e in events if e["event"] == "test"][0]
+    if not all(np.isfinite(test[k]) for k in ("psnr", "ssim", "ms_ssim")):
+        raise RuntimeError(f"[pipeline] non-finite test metrics {test}")
+    print(f"[pipeline] test at it={test['it']} on {len(scene.test_frames)} frames: psnr {test['psnr']:.3f} ssim "
+          f"{test['ssim']:.4f} ms_ssim {test['ms_ssim']:.4f}; overflow answered by a refit one step late: {late}")
+    sites, callers, dtoh, syncs = probe.syncs
+    expected = {_site(S1._overflow, "tolist"): 1}
+    print(f"[sync] train_stage2 step {PIPE_SYNC_STEP} (no event): {dtoh} device-to-host copies, {syncs} stream "
+          f"synchronizations, synchronizing operations {({k: (v, callers.get(k, '')) for k, v in sites.items()})} "
+          f"(expected {expected}: the previous step's overflow counters)")
+    if sites != expected or dtoh != 1 or syncs != 1:
+        raise RuntimeError(f"[sync] train_stage2 step {PIPE_SYNC_STEP}: {sites}, {dtoh} copies, {syncs} syncs; "
+                           f"expected {expected}")
+    leaves = tree_leaves(state.gs.params_dict()) + tree_leaves(state.skel.params_dict())
+    if not all(bool(torch.isfinite(v).all()) for v in leaves):
+        raise RuntimeError("[pipeline] non-finite parameters")
+    for name in ("blend_cm", "blend_cm_bwd", "blend_permuted_gm", "blend_permuted_gm_bwd"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"the pipeline never launched {name}")
+    print(f"[pipeline] {int(state.gs.num_alive)} Gaussians of {state.gs.capacity}, J = {state.skel.net.n_joints}, "
+          f"every parameter finite; refits {final['refits']}, ladder {final['ladder']}")
+    if sorted(probe.held) != sorted(PIPE_HELD):
+        raise RuntimeError(f"[pipeline] held the blend calls of steps {sorted(probe.held)}, not {sorted(PIPE_HELD)}")
     held = probe.held
     del probe, state
-    return launches, check_loop_kernels(blend, held)
+    want = {"blend_cm": ("warm-up probe it=5",), "blend_permuted_gm": ("after the FPS reset it=40", "ladder it=59")}
+    return launches, check_loop_kernels(blend, held, PIPE_HELD, want, tag="[pipeline]")
 
 
 def main() -> int:
@@ -2004,7 +2469,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from riggs_tpu_torch import cuda_build
     from riggs_tpu_torch.eval.synthesis import random_motion_poses, render_rigged
+    from riggs_tpu_torch.ops import geometry as GEO
     from riggs_tpu_torch.render import blend
     from riggs_tpu_torch.render.ladder import ladder_rows, make_tile_ladder
     from riggs_tpu_torch.train.stage2 import _eval_image, eval_image
@@ -2012,15 +2479,17 @@ def main() -> int:
     # 1. device
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    nvcc = subprocess.run([blend._nvcc(), "--version"], capture_output=True, text=True, check=True).stdout
+    nvcc = subprocess.run([cuda_build.nvcc(), "--version"], capture_output=True, text=True, check=True).stdout
     print(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"nvcc: {[l for l in nvcc.splitlines() if 'release' in l][0].strip()}")
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
+    cuda_build.build_all({blend.LIB_STEM: blend.CSRC, GEO.LIB_STEM: GEO.CSRC})
     blend.load_library()
-    print(f"[build] blend kernels (sm_90a) built and loaded in {time.perf_counter() - t0:.1f} s")
-    for line in blend.build_log().splitlines():
+    GEO.load_library()
+    print(f"[build] blend and rotation-fit kernels (sm_90a) built and loaded in {time.perf_counter() - t0:.1f} s")
+    for line in (blend.build_log() + GEO.build_log()).splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build]   {line.strip()}")
 
@@ -2138,20 +2607,24 @@ def main() -> int:
     runs_launches, runs_fwd, runs_bwd = runs_phase(blend, gs, skel, cam, bg, cap, frame_train.image)
 
     # 8. the stage-1 phase-B step (its own counted run)
-    stage1_launches, stage1_fwd, stage1_bwd = stage1_phase(blend, gs, cam, bg, frame_train)
+    stage1_launches, stage1_fwd, stage1_bwd, stage1_rot = stage1_phase(blend, gs, cam, bg, frame_train)
 
     # 9-10. the [loop] scene; the stage-1 phase-A step (its own counted run)
     scene, loop_cap = build_loop_scene(gs, skel)
-    pa_launches, pa_fwd, pa_bwd = stage1_phase_a(blend, scene)
+    pa_launches, pa_fwd, pa_bwd, pa_rot = stage1_phase_a(blend, scene)
 
     # 11. a short train_stage1 (its own counted run)
-    loop_launches, loop_held = loop_phase(blend, scene, loop_cap)
+    loop_launches, loop_held, loop_rot, stage1_state = loop_phase(blend, scene, loop_cap)
 
-    def held(name):
-        """The loop's held steps of a kernel: error, times and bound."""
+    # 12. init_stage2 and a short train_stage2 from the loop's state (its own counted run)
+    pipe_launches, pipe_held = pipeline_phase(blend, scene, loop_cap, stage1_state)
+    del stage1_state
+
+    def held(name, results=loop_held):
+        """A loop's held steps of a kernel: error, times and bound."""
         return {label: {"max_abs_err": max(r["err"].values()) if isinstance(r["err"], dict) else r["err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"]}
-                for label, r in loop_held[name].items()}
+                for label, r in results[name].items()}
 
     # forward kernels: times per frame, launches of the serving run (and per
     # step of each training path); backward kernels: times per training
@@ -2172,7 +2645,7 @@ def main() -> int:
             "started_chunks": r["started"], "active_chunks": r["active"],
             "ms_train": train_fwd[name]["ms"], "ms_stage1": stage1_fwd[name]["ms"],
             "bound_ms_stage1": stage1_fwd[name]["bound_ms"], "launches_loop": loop_launches[name],
-            "held_loop": held(name),
+            "held_loop": held(name), "launches_pipeline": pipe_launches[name], "held_pipeline": held(name, pipe_held),
             **({"launches_phase_a": pa_launches[name], "ms_phase_a": pa_fwd[name]["ms"],
                 "bound_ms_phase_a": pa_fwd[name]["bound_ms"], "plain_ms_phase_a": pa_fwd[name]["plain_ms"]}
                if name == "blend_cm" else {}),
@@ -2189,7 +2662,7 @@ def main() -> int:
             "max_rel_column_err": r["rel"], "launches_stage1": stage1_launches[name],
             "bound_term": r["bound_term"], "ms_stage1": stage1_bwd[name]["ms"],
             "bound_ms_stage1": stage1_bwd[name]["bound_ms"], "launches_loop": loop_launches[name],
-            "held_loop": held(name),
+            "held_loop": held(name), "launches_pipeline": pipe_launches[name], "held_pipeline": held(name, pipe_held),
             **({"launches_phase_a": pa_launches[name], "ms_phase_a": pa_bwd[name]["ms"],
                 "bound_ms_phase_a": pa_bwd[name]["bound_ms"], "plain_ms_phase_a": pa_bwd[name]["plain_ms"]}
                if name == "blend_cm_bwd" else {}),
@@ -2214,6 +2687,21 @@ def main() -> int:
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
         "launches_per_step": r["launches_per_step"], "max_rel_column_err": r["rel"],
         "bound_term": r["bound_term"],
+    })
+    # the rotation fit: no Pallas kernel (a stock SVD in riggs_tpu, C2a);
+    # times on the loop's last held phase-B step, launches of the loop
+    r = loop_rot["phase B ladder it=39"]
+    rot_runs = {"stage1": stage1_rot, "phase_a": pa_rot, **{f"loop {k}": v for k, v in loop_rot.items()}}
+    rows.append({
+        "name": "fit_rotations", "route": "cuda", "source": "riggs_tpu_torch/csrc/rotfit.cu",
+        "replaces": "riggs_tpu/ops/geometry.py:41", "replaces_kind": "stock op in riggs_tpu (jnp.linalg.svd), C2a",
+        "launches": loop_launches["fit_rotations"], "max_abs_err": max(v["err"] for v in rot_runs.values()),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "batch": r["batch"], "launches_stage1": stage1_launches["fit_rotations"],
+        "launches_phase_a": pa_launches["fit_rotations"], "planted": stage1_rot["planted"],
+        "max_det_err": max(v["det_err"] for v in rot_runs.values()),
+        "held": {k: {key: v[key] for key in ("fits", "ill_posed", "err", "scaled_err", "ms", "plain_ms", "library_ms",
+                                             "bound_ms")} for k, v in rot_runs.items()},
     })
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -112,18 +112,23 @@ def skeleton_warp_from_numpy(
     K: int = -1,
     use_skinning_mlp: bool = True,
     use_template_offsets: bool = True,
+    control_nodes=None,
     device: str | torch.device | None = None,
 ):
     """``params`` is the reference's ``SkeletonWarp.params_dict()``: radius,
-    pose, and skinning_mlp / detail_net when the net uses them."""
+    pose, and skinning_mlp / detail_net when the net uses them;
+    ``control_nodes`` its (C, 3) buffer (512 zero rows when not given)."""
     dev = resolve_device(device)
     skel = init_skeleton_warp(
         np.asarray(joints, np.float32), parents,
         node_radius_log=np.asarray(params["radius"], np.float32), K=K,
         use_skinning_mlp=use_skinning_mlp, use_template_offsets=use_template_offsets,
+        n_control_nodes=512 if control_nodes is None else len(control_nodes),
         generator=torch.Generator(device=dev).manual_seed(0),  # overwritten below
         device=dev,
     )
+    if control_nodes is not None:
+        skel.control_nodes.copy_(_t(control_nodes, dev))
     _load_mlp(skel.pose_mlp, params["pose"])
     if use_skinning_mlp:
         _load_mlp(skel.weight_mlp, params["skinning_mlp"])
@@ -143,15 +148,16 @@ def camera_from_numpy(w2c, intrinsics, fid, width: int, height: int,
 
 
 def frame_from_numpy(w2c, intrinsics, fid, width: int, height: int, image, alpha_mask=None,
-                     thinned=None, thinned_mask=None, device: str | torch.device | None = None) -> Frame:
+                     thinned=None, thinned_mask=None, semantic_seg=None,
+                     device: str | torch.device | None = None) -> Frame:
     """A training ``Frame``: the camera and the supervision, (row, col)
-    thinned pixels padded with their mask."""
+    thinned pixels padded with their mask, int32 semantic labels."""
     dev = resolve_device(device)
     opt = lambda a, dtype=torch.float32: None if a is None else _t(a, dev, dtype)
     return Frame(
         cam=camera_from_numpy(w2c, intrinsics, fid, width, height, device=dev),
         image=_t(image, dev), alpha_mask=opt(alpha_mask), thinned=opt(thinned),
-        thinned_mask=opt(thinned_mask, torch.bool),
+        thinned_mask=opt(thinned_mask, torch.bool), semantic_seg=opt(semantic_seg, torch.int32),
     )
 
 
@@ -191,16 +197,19 @@ def stage2_state_from_numpy(
     K: int = -1,
     use_skinning_mlp: bool = True,
     use_template_offsets: bool = True,
+    control_nodes=None,
     device: str | torch.device | None = None,
 ) -> Stage2State:
     """A ``Stage2State`` from the reference's: the Gaussians' and skeleton's
     ``params_dict`` trees, both Adam states as (mu, nu, count) with mu and nu
     in the params' trees, the densification statistics as
-    (xyz_gradient_accum, denom, max_radii2d), ``proj_loss`` and ``it``."""
+    (xyz_gradient_accum, denom, max_radii2d), ``proj_loss``, ``it`` and
+    the skeleton's ``control_nodes``."""
     dev = resolve_device(device)
     gs = gaussians_from_numpy(gs_params, alive, max_sh_degree, isotropic, with_motion_mask, device=dev)
     skel = skeleton_warp_from_numpy(skel_params, joints, parents, K=K, use_skinning_mlp=use_skinning_mlp,
-                                    use_template_offsets=use_template_offsets, device=dev)
+                                    use_template_offsets=use_template_offsets, control_nodes=control_nodes,
+                                    device=dev)
 
     return Stage2State(
         gs=gs,

@@ -4,7 +4,8 @@ Port of ``riggs_tpu/data/dataset.py``: the ``Frame`` container (:24-38),
 ``pad_thinned`` and ``thin_mask_skeleton`` (:45-65) and ``SceneData``
 (:70+). A frame carries its camera, the target image and the optional
 supervision the training steps read: the alpha mask and the thinned
-2D-skeleton pixels, padded to a fixed count with a validity mask. The
+2D-skeleton pixels, padded to a fixed count with a validity mask, and the
+semantic part labels that skeleton extraction reads. The
 readers of real datasets come with a later slice.
 
 ``SceneData`` keeps the reference's fields, with the point cloud first
@@ -28,6 +29,7 @@ class Frame:
     alpha_mask: torch.Tensor | None = None  # (H, W) float32
     thinned: torch.Tensor | None = None  # (P, 2) (row, col) float32, padded
     thinned_mask: torch.Tensor | None = None  # (P,) bool
+    semantic_seg: torch.Tensor | None = None  # (H, W) int32 part labels
     # SMPL reference points (ZJU scenes; their training branch is not ported)
     reference_points: torch.Tensor | None = None  # (M, 3)
 

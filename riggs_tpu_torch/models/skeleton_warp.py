@@ -1,7 +1,6 @@
 """SkeletonWarp: skeleton-driven deformation of the rigged avatar (stage 2).
 
-Port of ``riggs_tpu/models/skeleton_warp.py`` (the linear-blend path; the
-dual-quaternion variant comes later):
+Port of ``riggs_tpu/models/skeleton_warp.py``:
 
   * PoseMLP maps time -> per-joint local quaternions (+[1,0,0,0] bias added
     after the head) and a global translation;
@@ -9,7 +8,9 @@ dual-quaternion variant comes later):
   * Gaussians are skinned densely to every bone by a Gaussian kernel of the
     distance to the bone segment, optionally modulated by the WeightMLP, with
     an exact top-K mask when ``K > 0``;
-  * the detail MLP adds per-Gaussian template offsets from (position, pose).
+  * the detail MLP adds per-Gaussian template offsets from (position, pose);
+  * ``deform_by_pose_dq`` skins by dual-quaternion blending instead, over the
+    gathered weights of ``cal_nn_weight_skeleton``.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from riggs_tpu_torch.models.mlp import MLP, embed_dim, linear_params, make_linea
 from riggs_tpu_torch.ops.fk import forward_kinematics
 from riggs_tpu_torch.ops.geometry import point_segment_dist2
 from riggs_tpu_torch.ops.knn import _small_k
-from riggs_tpu_torch.ops.quaternion import quat_to_rotmat, rotmat_to_quat
+from riggs_tpu_torch.ops.quaternion import dq_apply, dq_blend, qt_to_dq, quat_to_rotmat, rotmat_to_quat
 from riggs_tpu_torch.train.optim import tree_map
 
 ROT_BIAS = (1.0, 0.0, 0.0, 0.0)
@@ -213,6 +214,39 @@ def _flag_in_graph(flag) -> bool:
     return not (isinstance(flag, bool) and not flag)
 
 
+def cal_nn_weight_skeleton(
+    warp: SkeletonWarp,
+    x: torch.Tensor,
+    joints: torch.Tensor | None = None,
+    use_skinning_mlp: bool | torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gathered skinning weights: the K nearest bones of each point (K > 0;
+    ties to the lower bone, as ``lax.top_k``) or all of them (K <= 0).
+    Returns (weight (N, K'), dist2 (N, K'), joint_idx (N, K')), joint_idx
+    the bone's child joint (bone index + 1)."""
+    use_sm = warp.net.use_skinning_mlp if use_skinning_mlp is None else use_skinning_mlp
+    if warp.weight_mlp is None:
+        use_sm = False
+    d2 = bone_dist2(warp, x.detach(), joints)
+    if warp.net.K > 0:
+        nn_d2, bone_idx = torch.sort(d2, dim=-1, stable=True)
+        nn_d2, bone_idx = nn_d2[:, : warp.net.K], bone_idx[:, : warp.net.K]
+        offs = torch.gather(skinning_mlp_weights(warp, x), 1, bone_idx) if _flag_in_graph(use_sm) else None
+        joint_idx = (bone_idx + 1).to(torch.int32)
+    else:
+        nn_d2 = d2
+        joint_idx = torch.arange(1, warp.net.n_joints, dtype=torch.int32, device=d2.device)[None, :].expand(d2.shape)
+        offs = skinning_mlp_weights(warp, x) if _flag_in_graph(use_sm) else None
+    radius = warp.node_radius[joint_idx.to(torch.int64)]
+    w = torch.exp(-nn_d2 / (2.0 * radius**2))
+    if offs is not None:
+        w_sm = use_sm.to(torch.float32) if isinstance(use_sm, torch.Tensor) else float(use_sm)
+        w = w * (1.0 + w_sm * (offs - 1.0))
+    w = w + 1e-7
+    w = w / torch.sum(w, dim=-1, keepdim=True)
+    return w, nn_d2, joint_idx
+
+
 def _dense_skin_weights(
     warp: SkeletonWarp,
     x: torch.Tensor,
@@ -320,6 +354,40 @@ def skeleton_forward(
         enable_template_offsets=enable_template_offsets,
         enable_skinning_mlp=enable_skinning_mlp,
     )
+
+
+def deform_by_pose_dq(
+    warp: SkeletonWarp,
+    x: torch.Tensor,
+    local_rotation: torch.Tensor,
+    global_trans: torch.Tensor,
+    motion_mask: torch.Tensor,
+) -> dict:
+    """Dual-quaternion skinning variant of ``deform_by_pose``: each bone's
+    global transform becomes a unit dual quaternion, blended per point with
+    ``cal_nn_weight_skeleton``'s weights (no candy-wrapper collapse on
+    twisting joints). No template offsets."""
+    x = x.detach()
+    rot_mats = quat_to_rotmat(local_rotation)
+    nn_weight, _, nn_idx = cal_nn_weight_skeleton(warp, x)
+    posed_joints, G = forward_kinematics(rot_mats, warp.joints, warp.net.parents)
+    q_r, q_d = qt_to_dq(rotmat_to_quat(G[:, :3, :3]), G[:, :3, 3])  # (J, 4) each
+    idx = nn_idx.to(torch.int64)
+    b_r, b_d = dq_blend(q_r[idx], q_d[idx], nn_weight)  # (N, 4)
+    new_x = dq_apply(b_r, b_d, x) + global_trans
+    return {
+        "d_xyz": (new_x - x) * motion_mask,
+        "d_rotation": b_r.detach() * motion_mask,
+        "d_scaling": torch.zeros_like(x),
+        "d_nodes": posed_joints + global_trans,
+        "nn_idx": nn_idx,
+        "nn_weight": nn_weight,
+        "local_rotation": local_rotation,
+        "global_trans": global_trans,
+        "template_offsets": torch.zeros_like(x),
+        "d_opacity": None,
+        "d_color": None,
+    }
 
 
 def node_deformation(warp: SkeletonWarp, local_rotation: torch.Tensor, global_trans: torch.Tensor) -> torch.Tensor:

@@ -2,10 +2,33 @@
 
 Port of ``riggs_tpu/ops/geometry.py``: ``point_segment_dist2`` (bone
 skinning), ``fit_rotations`` (the ARAP losses) and ``safe_norm``.
+
+``fit_rotations`` is a hand kernel on the card (``csrc/rotfit.cu``: one
+thread per 3x3 matrix, a Jacobi eigen-decomposition of cov^T cov in f64),
+because ``torch.linalg.svd`` there checks its convergence flags on the host,
+two blocking reads a call. On a CPU tensor it runs its plain version,
+``fit_rotations_plain`` (the SVD); on a CUDA tensor it launches the kernel
+or raises. No backward: the ARAP losses detach the rotations.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
+
+from riggs_tpu_torch import cuda_build
+
+CSRC = cuda_build.CSRC_DIR / "rotfit.cu"
+LIB_STEM = "libriggs_rotfit"
+
+# launches of the kernel since the last reset_launches(); the wrapper adds
+# one where it launches it and nowhere else
+launches = {"fit_rotations": 0}
+
+
+def reset_launches() -> None:
+    launches["fit_rotations"] = 0
 
 
 def point_segment_dist2(a: torch.Tensor, b: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
@@ -21,14 +44,54 @@ def point_segment_dist2(a: torch.Tensor, b: torch.Tensor, points: torch.Tensor) 
     return torch.sum(diff * diff, dim=-1)
 
 
-def fit_rotations(cov: torch.Tensor) -> torch.Tensor:
-    """Best-fit rotations (..., 3, 3) from correlation matrices: with cov =
-    U S V^T, R = U diag(1, 1, det(U V^T)) V^T (det(R) = +1). R does not
-    depend on the signs the SVD gives its singular vectors."""
+def fit_rotations_plain(cov: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``fit_rotations``: with cov = U S V^T, R = U diag(1,
+    1, det(U V^T)) V^T (det(R) = +1). R does not depend on the signs the
+    SVD gives its singular vectors."""
     u, _, vt = torch.linalg.svd(cov)
     det = torch.linalg.det(u @ vt)
     d = torch.cat([torch.ones_like(det)[..., None].expand(*det.shape, 2), det[..., None]], dim=-1)
     return torch.einsum("...ab,...b,...bc->...ac", u, d, vt)
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build ``csrc/rotfit.cu`` for sm_90a (once per source version) and load it."""
+    lib = cuda_build.load(CSRC, LIB_STEM)
+    lib.riggs_fit_rotations.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.riggs_fit_rotations.restype = ctypes.c_int
+    return lib
+
+
+def build_log() -> str:
+    """ptxas's report of the build ``load_library`` made or found."""
+    return cuda_build.lib_path(CSRC, LIB_STEM).with_suffix(".log").read_text()
+
+
+def fit_rotations(cov: torch.Tensor) -> torch.Tensor:
+    """Best-fit rotations (..., 3, 3) from correlation matrices (..., 3, 3):
+    the proper rotation R maximizing trace(R^T cov), R = U diag(1, 1,
+    det(U V^T)) V^T for cov = U S V^T. The kernel on CUDA (float32), the
+    plain version on the CPU. Where the fit is ill-posed (``csrc/rotfit.cu``
+    says which rotation the kernel returns) the two may differ."""
+    if cov.device.type == "cpu":
+        return fit_rotations_plain(cov)
+    if cov.device.type != "cuda":
+        raise ValueError(f"unsupported device {cov.device}")
+    if cov.dtype != torch.float32 or cov.shape[-2:] != (3, 3):
+        raise ValueError(f"cov must be float32 (..., 3, 3), got {cov.dtype} {tuple(cov.shape)}")
+    c = cov.detach().contiguous()
+    rot = torch.empty_like(c)
+    n = c.numel() // 9
+    if n:
+        lib = load_library()
+        with torch.cuda.device(c.device):
+            err = lib.riggs_fit_rotations(c.data_ptr(), rot.data_ptr(), n,
+                                          torch.cuda.current_stream(c.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"fit_rotations launch failed: CUDA error {err}")
+        launches["fit_rotations"] += 1
+    return rot
 
 
 def safe_norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:

@@ -1,11 +1,14 @@
 """Quaternion and rotation math, batched over leading dimensions.
 
-Port of ``riggs_tpu/ops/quaternion.py`` (the parts the serving path uses).
-Quaternions are (w, x, y, z); the quaternion axis is the last one.
+Port of ``riggs_tpu/ops/quaternion.py`` (the parts the serving path and the
+dual-quaternion skinning use). Quaternions are (w, x, y, z); the quaternion
+axis is the last one. A dual quaternion is a pair (q_r, q_d), each (..., 4).
 """
 from __future__ import annotations
 
 import torch
+
+from riggs_tpu_torch.device import constant
 
 _EPS = 1e-12
 
@@ -14,6 +17,19 @@ def quat_normalize(q: torch.Tensor, eps: float = _EPS) -> torch.Tensor:
     """Unit quaternion via q / sqrt(|q|^2 + eps^2) (zero quats stay finite)."""
     norm = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True) + eps * eps)
     return q / norm
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    """(w, x, y, z) -> (w, -x, -y, -z)."""
+    return q * constant((1.0, -1.0, -1.0, -1.0), q)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v (..., 3) by unit quaternions q (..., 4)."""
+    qvec = q[..., 1:]
+    uv = torch.linalg.cross(qvec, v)
+    uuv = torch.linalg.cross(qvec, uv)
+    return v + 2.0 * (q[..., :1] * uv + uuv)
 
 
 def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -116,3 +132,44 @@ def rotmat_to_quat(m: torch.Tensor) -> torch.Tensor:
     q = torch.gather(cands, -2, idx)[..., 0, :]
     q = quat_normalize(q)
     return q * torch.where(q[..., :1] < 0.0, -1.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# dual quaternions
+# ---------------------------------------------------------------------------
+
+
+def qt_to_dq(q: torch.Tensor, t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rotation quat, translation) -> dual quaternion (q_r, q_d)."""
+    q = quat_normalize(q)
+    t_quat = torch.cat([torch.zeros_like(t[..., :1]), t], dim=-1)
+    return q, 0.5 * quat_multiply(t_quat, q)
+
+
+def dq_to_qt(q_r: torch.Tensor, q_d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dual quaternion -> (rotation quat, translation)."""
+    norm = torch.clamp(torch.linalg.vector_norm(q_r, dim=-1, keepdim=True), min=_EPS)
+    q_r = q_r / norm
+    q_d = q_d / norm
+    t_quat = 2.0 * quat_multiply(q_d, quat_conjugate(q_r))
+    return q_r, t_quat[..., 1:]
+
+
+def dq_blend(q_r: torch.Tensor, q_d: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dual-quaternion linear blending: q_r, q_d (..., K, 4) per bone, w
+    (..., K) weights; each bone's pair is first put in the hemisphere of the
+    first bone's. Returns the normalized blend."""
+    ref = q_r[..., :1, :]
+    sign = torch.where(torch.sum(q_r * ref, dim=-1, keepdim=True) < 0.0, -1.0, 1.0)
+    q_r = q_r * sign
+    q_d = q_d * sign
+    b_r = torch.sum(w[..., None] * q_r, dim=-2)
+    b_d = torch.sum(w[..., None] * q_d, dim=-2)
+    norm = torch.clamp(torch.linalg.vector_norm(b_r, dim=-1, keepdim=True), min=_EPS)
+    return b_r / norm, b_d / norm
+
+
+def dq_apply(q_r: torch.Tensor, q_d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Apply a unit dual quaternion's rigid transform to points x (..., 3)."""
+    _, t = dq_to_qt(q_r, q_d)
+    return quat_rotate(q_r, x) + t

@@ -63,13 +63,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
+
+from riggs_tpu_torch import cuda_build
 
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
@@ -81,8 +79,8 @@ OUT_ROWS = 8  # 5 used
 TILE = 32
 P_TILE = TILE * TILE
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc" / "blend.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / ".torch_ext"
+CSRC = cuda_build.CSRC_DIR / "blend.cu"
+LIB_STEM = "libriggs_blend"
 
 # launches of each kernel since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else
@@ -303,16 +301,8 @@ def blend_runs_bwd_plain(g_runs, counts, sblk, tentry, dout, tiles_x: int):
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the blend kernels build with the CUDA toolkit")
-    return nvcc
-
-
 def _lib_path() -> Path:
-    src = CSRC.read_bytes()
-    return BUILD_DIR / f"libriggs_blend_{hashlib.sha256(src).hexdigest()[:12]}.so"
+    return cuda_build.lib_path(CSRC, LIB_STEM)
 
 
 def build_log() -> str:
@@ -321,29 +311,10 @@ def build_log() -> str:
     return _lib_path().with_suffix(".log").read_text()
 
 
-def build(src: Path, lib_path: Path):
-    """Compile ``src`` for sm_90a into ``lib_path``, with ptxas's report
-    beside it (``.log``)."""
-    lib_path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(src),
-    ]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    lib_path.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, lib_path)
-
-
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build ``csrc/blend.cu`` for sm_90a (once per source version) and load it."""
-    lib_path = _lib_path()
-    if not lib_path.exists():
-        build(CSRC, lib_path)
-    return bind(ctypes.CDLL(str(lib_path)))
+    return bind(cuda_build.load(CSRC, LIB_STEM))
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

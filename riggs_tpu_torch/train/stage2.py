@@ -7,8 +7,13 @@ warmup distillation toward the stage-1 deformations), ``stage2_step`` (value
 and gradient, Adam on the skeleton and, outside warmup, on the Gaussians,
 densification statistics), ``stage2_flags`` (the staged flags and lambdas
 of an iteration) and ``make_stage2_auto`` (every schedule derived from
-the caller's iteration count); ``_eval_image`` and ``eval_image``. The training loop
-(``train_stage2``) needs the stage-1 slice and comes with it.
+the caller's iteration count); ``_eval_image`` and ``eval_image``; then the
+pipeline from a trained stage-1 state: ``PretrainInfo`` and
+``precompute_deformations`` (the stage-1 deformation of every train frame,
+the nodes' semantic labels, the template frame, skeleton extraction),
+``init_stage2`` (the template bake, the skeleton and fresh optimizer
+state), ``evaluate_stage2`` and the loop ``train_stage2`` with its
+``Stage2Draws``. Checkpoints, logging and resume are not ported yet.
 
 The staged flags (``warm``, ``enable_to``, ``enable_sm``, ``use_chamfer``,
 ``active_sh``) are host values: eager PyTorch has no compiled program whose
@@ -33,20 +38,29 @@ import dataclasses
 import warnings
 from typing import Any
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from riggs_tpu_torch.camera.camera import project_nodes_2d
-from riggs_tpu_torch.data.dataset import Frame
-from riggs_tpu_torch.device import constant, static_index
+from riggs_tpu_torch.data.dataset import Frame, SceneData
+from riggs_tpu_torch.device import constant, resolve_device, static_index
+from riggs_tpu_torch.eval.metrics import evaluate_image
 from riggs_tpu_torch.models import gaussians as G
+from riggs_tpu_torch.models import node_warp as NW
 from riggs_tpu_torch.models import skeleton_warp as SW
+from riggs_tpu_torch.ops.fps import farthest_point_sample
 from riggs_tpu_torch.ops.knn import chamfer_distance
 from riggs_tpu_torch.render.api import render, tier_kwargs
+from riggs_tpu_torch.render.ladder import LadderPolicy
+from riggs_tpu_torch.skeleton.extract import fps_on, obtain_skeleton_tree
 from riggs_tpu_torch.train import losses as L
 from riggs_tpu_torch.train import optim as O
 from riggs_tpu_torch.train import schedule as S
 from riggs_tpu_torch.train.config import Config
+from riggs_tpu_torch.train.sampling import FrameSampler
+from riggs_tpu_torch.train.stage1 import _overflow
+from riggs_tpu_torch.train.static import TrainState, densify_step
 
 MAX_PER_TILE_LIMIT = 8192
 MAX_TILES_LIMIT = 1024
@@ -343,3 +357,250 @@ def eval_image(gs, skel, cam, t, bg, max_per_tile=512, max_tiles_per_gaussian=16
                 f"overflow_rect={of_r}); returning truncated render"
             )
             return img
+
+
+# ---------------------------------------------------------------------------
+# From a trained stage-1 state to the rigged model
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PretrainInfo:
+    """The stage-1 deformations of every train frame and the extracted skeleton."""
+
+    d_xyz: torch.Tensor  # (F, C, 3) on the device, the Gaussians' capacity layout
+    d_joints: torch.Tensor  # (F, J, 3) on the device, the joints' nodes per frame
+    template_idx: int
+    joints: np.ndarray  # (J, 3)
+    parents: np.ndarray  # (J,), parents[0] = -1
+    joint_node_indices: np.ndarray  # (J,) the stage-1 node behind each joint
+
+
+@torch.no_grad()
+def precompute_deformations(stage1_state, scene: SceneData, cfg: Config) -> tuple[PretrainInfo, list[Frame]]:
+    """Run the trained node warp over the time-sorted train frames; label
+    the nodes by projecting them into each frame's ``semantic_seg`` (the
+    median label over frames); pick the template frame (of the 5 frames
+    whose nodes lie closest to their mean trajectory, the one with the most
+    alpha-mask coverage, unless ``manually_key_frame`` names one); extract
+    the skeleton from the node trajectories with the config's ``skeleton_*``
+    knobs, its FPS on the state's device. Returns (info, sorted frames).
+    The deformations stay on the device; the nodes, labels and masks come
+    to the host once."""
+    warp, gs = stage1_state.warp, stage1_state.gs
+    frames = sorted(scene.train_frames, key=lambda f: float(f.fid))
+    all_d_xyz, all_d_nodes, sem_labels = [], [], []
+    for f in frames:
+        d = NW.warp_forward(warp, gs.xyz, f.fid, gs.feature, gs.motion_mask, local_frame=warp.net.local_frame)
+        all_d_xyz.append(d["d_xyz"])
+        all_d_nodes.append(d["d_nodes"])
+        if f.semantic_seg is not None:
+            seg = f.semantic_seg
+            proj = project_nodes_2d(f.cam, d["d_nodes"]).to(torch.int64)  # truncation, as numpy's astype
+            rows = proj[:, 0].clamp(0, seg.shape[0] - 1)
+            cols = proj[:, 1].clamp(0, seg.shape[1] - 1)
+            sem_labels.append(seg[rows, cols])
+    d_xyz = torch.stack(all_d_xyz)  # (F, C, 3)
+    d_nodes_dev = torch.stack(all_d_nodes)  # (F, M, 3)
+    d_nodes = d_nodes_dev.cpu().numpy()
+
+    mean_nodes = d_nodes.mean(axis=0, keepdims=True)
+    mean_dev = np.linalg.norm(d_nodes - mean_nodes, axis=-1).mean(axis=-1)
+    if cfg.opt.manually_key_frame >= 0:
+        template_idx = cfg.opt.manually_key_frame
+    else:
+        cand = np.argsort(mean_dev)[:5]
+        if frames[0].alpha_mask is not None:
+            coverage = [float(frames[i].alpha_mask.cpu().numpy().sum()) for i in cand]
+            template_idx = int(cand[int(np.argmax(coverage))])
+        else:
+            template_idx = int(cand[0])
+    med_seg = None
+    if sem_labels:
+        med_seg = np.median(torch.stack(sem_labels).cpu().numpy(), axis=0).astype(np.int64)
+
+    o = cfg.opt
+    joints, parents, joint_idx = obtain_skeleton_tree(
+        d_nodes[template_idx], d_nodes, med_seg,
+        max_candidates=o.skeleton_max_candidates, fps_fn=fps_on(d_xyz.device),
+        leaf_prune_hops=o.skeleton_leaf_prune_hops, junction_merge_hops=o.skeleton_junction_merge_hops,
+        simplify_dist_thres=o.skeleton_simplify_dist_thres, simplify_max_edges=o.skeleton_simplify_max_edges,
+    )
+    idx = torch.as_tensor(joint_idx, dtype=torch.int64).to(d_xyz.device)
+    info = PretrainInfo(d_xyz=d_xyz, d_joints=d_nodes_dev[:, idx], template_idx=template_idx, joints=joints,
+                        parents=parents, joint_node_indices=joint_idx)
+    return info, frames
+
+
+@torch.no_grad()
+def init_stage2(stage1_state, scene: SceneData, cfg: Config, generator: torch.Generator | None = None,
+                device: str | torch.device | None = None) -> tuple[Stage2State, PretrainInfo, list[Frame]]:
+    """``precompute_deformations``, then the stage-2 state: the Gaussians
+    (an FPS subset when ``num_gs_sample`` > 10) with the template frame's
+    deformation baked into their means (and taken off every frame's
+    ``d_xyz``), a ``SkeletonWarp`` on the extracted joints whose radii are
+    the joints' stage-1 nodes' (its MLPs drawn from ``generator``), fresh
+    Adam states and statistics, ``proj_loss`` 1e5. Runs on ``cuda`` unless
+    ``device`` says otherwise; the stage-1 state must live there."""
+    dev = resolve_device(device)
+    info, frames = precompute_deformations(stage1_state, scene, cfg)
+    gs = stage1_state.gs
+    if cfg.opt.num_gs_sample > 10:
+        gs = G.sampling_and_prune(gs, cfg.opt.num_gs_sample)
+    template_offsets = info.d_xyz[info.template_idx]
+    gs = dataclasses.replace(gs, xyz=gs.xyz + template_offsets)
+    info.d_xyz = info.d_xyz - template_offsets[None]
+    radius_log = stage1_state.warp.node_radius_log.detach().cpu().numpy()[info.joint_node_indices]
+    skel = SW.init_skeleton_warp(
+        info.joints, info.parents, node_radius_log=radius_log, K=cfg.opt.skeleton_weight_knn,
+        use_skinning_mlp=cfg.model.use_skinning_weight_mlp, use_template_offsets=cfg.model.use_template_offsets,
+        n_control_nodes=cfg.model.skeleton_gs_sample_num, generator=generator, device=dev,
+    )
+    state = Stage2State(
+        gs=gs, skel=skel, opt_gs=O.adam_init(gs.params_dict()), opt_skel=O.adam_init(skel.params_dict()),
+        stats_gs=G.init_densify_stats(gs.capacity, device=dev),
+        proj_loss=torch.full((len(frames),), 1.0e5, device=dev),
+        it=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    return state, info, frames
+
+
+def evaluate_stage2(state: Stage2State, test_frames, bg: torch.Tensor, tile_ladder=None) -> dict:
+    """Mean psnr, ssim and ms_ssim over the test frames, each rendered by
+    ``eval_image`` (which escalates its caps until nothing is truncated)."""
+    rows = [evaluate_image(eval_image(state.gs, state.skel, f.cam, f.fid, bg, tile_ladder=tile_ladder), f.image)
+            for f in test_frames]
+    return {k: float(np.mean([r[k] for r in rows])) for k in rows[0]} if rows else {}
+
+
+class Stage2Draws:
+    """The stage-2 loop's random draws, from one ``torch.Generator`` seeded
+    with ``seed`` on ``device``. A test replays the reference's key chain
+    through an object with the same method."""
+
+    def __init__(self, seed: int, device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def split_noise(self, capacity: int) -> torch.Tensor:
+        """A densification's split noise (2, capacity, 3)."""
+        return G.split_noise(capacity, generator=self.gen, device=self.device)
+
+
+def train_stage2(
+    stage1_state,
+    scene: SceneData,
+    cfg: Config,
+    seed: int = 0,
+    log_every: int = 0,
+    step_callback=None,
+    test_every: int = 0,
+    model_path=None,
+    logger=None,
+    resume: bool = False,
+    state: Stage2State | None = None,
+    draws=None,
+    events: list | None = None,
+    device: str | torch.device | None = None,
+):
+    """Train stage 2 from a trained stage-1 state; returns (state, info, history).
+
+    ``init_stage2`` (its skeleton drawn from a generator seeded with
+    ``seed``), then ``iterations_stage2`` (or ``iterations``)
+    ``make_stage2_auto`` steps on sampled frames: the skeleton warm-up
+    (distillation toward the stage-1 deformations, the Gaussians frozen),
+    then the photometric phase; at ``optimize_template_offsets_iters`` the
+    control nodes are reset to an FPS of the alive Gaussians; the tile
+    ladder rides the first steps (``LadderPolicy``), each step's overflow
+    read one step late; past the warm-up and ``gs_densification_iterations``
+    the Gaussians densify on the usual cadence, with the ladder's
+    anticipatory refit; every ``test_every`` steps ``evaluate_stage2`` on
+    the test frames. ``history`` holds (it, scalar metrics) every
+    ``log_every`` steps.
+
+    ``state`` replaces ``init_stage2``'s state (the pretrain info is still
+    computed), ``draws`` the ``Stage2Draws(seed)`` of the split noise.
+    ``events``, when given, receives one dict per event: the FPS reset with
+    its indices (a device tensor), densifications with the alive counts
+    before and after, ladder fits and refits, every step that overflowed and
+    each test evaluation. ``step_callback(state, it)``, when given, is
+    called after every step. A step with no event reads the card once: the
+    previous step's two overflow counters. Runs on ``cuda`` unless
+    ``device`` says otherwise."""
+    if model_path is not None or logger is not None or resume:
+        raise NotImplementedError("stage-2 checkpoints, logging and resume are not ported yet (ROADMAP A7)")
+    o = cfg.opt
+    dev = resolve_device(device)
+    init, info, frames = init_stage2(stage1_state, scene, cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+                                     device=dev)
+    state = init if state is None else state
+    draws = Stage2Draws(seed, dev) if draws is None else draws
+    bg = torch.ones(3, device=dev) if scene.white_background else torch.zeros(3, device=dev)
+    sampler = FrameSampler(frames, np.random.default_rng(seed))
+    step_auto = make_stage2_auto(cfg, int(info.template_idx))
+    state = dataclasses.replace(state, it=torch.zeros((), dtype=torch.int32, device=dev))
+    use_chamfer = frames[0].thinned is not None and o.lambda_deformed_node_prjection > 1e-8
+    log = (lambda **e: events.append(e)) if events is not None else (lambda **e: None)
+    history = []
+    ladder_pol = None
+    if cfg.pipe.use_tile_ladder and cfg.pipe.rasterizer == "tiled":
+        ladder_pol = LadderPolicy(n_buckets=cfg.pipe.ladder_buckets, margin=cfg.pipe.ladder_margin)
+    densified_at = -1
+    n_iters = o.iterations if o.iterations_stage2 is None else o.iterations_stage2
+    prev = None  # (it, metrics) of the previous step: its overflow is read a step late
+
+    def late_read(p_it, p_metrics, last=False):
+        of_t, of_r = _overflow(p_metrics)
+        if of_t or of_r:
+            log(it=p_it, event="overflow", tiles=of_t, rect=of_r)
+        if ladder_pol is not None and (last or ladder_pol.ladder is None or of_t > 0
+                                       or p_it % cfg.pipe.ladder_check_every == 0 or p_it == densified_at + 1):
+            old = ladder_pol.ladder
+            ladder_pol.observe(p_metrics["tile_counts"].cpu().numpy(), of_t)
+            if ladder_pol.ladder != old:
+                log(it=p_it, event="ladder fit" if old is None else "ladder refit", ladder=ladder_pol.ladder,
+                    refits=ladder_pol.refits)
+
+    for it in range(n_iters):
+        uid = sampler.sample(it, o.progressive_train, o.progressive_stage_ratio, o.progressive_stage_steps)
+        frame = frames[uid]
+        warm = it < o.skeleton_warm_up
+        if it == o.optimize_template_offsets_iters:
+            # the staged unlock: the control nodes restart from the alive Gaussians
+            idx = farthest_point_sample(state.gs.xyz, cfg.model.skeleton_gs_sample_num, mask=state.gs.alive)
+            state.skel.control_nodes = state.gs.xyz[idx.to(torch.int64)].detach()
+            log(it=it, event="fps reset", idx=idx)
+        state, metrics = step_auto(
+            state, frame, uid, bg, info.d_xyz, info.d_joints, it=it, use_chamfer=use_chamfer,
+            lambda_dssim=o.lambda_dssim, max_per_tile=cfg.pipe.max_per_tile, isotropic=cfg.model.use_isotropic_gs,
+            tile_ladder=ladder_pol.ladder if ladder_pol is not None else None,
+        )
+        if prev is not None:
+            late_read(*prev)
+        prev = (it, metrics)
+        if (not warm and o.gs_densification_iterations < it < o.densify_until_iter and it > o.densify_from_iter
+                and it % o.densification_interval == 0):
+            before = int(metrics["n_gs"])
+            st = densify_step(TrainState(state.gs, state.opt_gs, state.stats_gs), draws.split_noise(state.gs.capacity),
+                              o.densify_grad_threshold, scene.cameras_extent, percent_dense=o.percent_dense)
+            state = dataclasses.replace(state, gs=st.gs, opt_gs=st.opt, stats_gs=st.stats)
+            after = int(st.gs.num_alive)
+            densified_at = it
+            log(it=it, event="gs densify", before=before, after=after)
+            if ladder_pol is not None and ladder_pol.ladder is not None:
+                # ride ahead of the growth: one refit instead of overflow churn
+                if before > 0 and after > before and ladder_pol.anticipate(after / before):
+                    log(it=it, event="ladder anticipate", ladder=ladder_pol.ladder, refits=ladder_pol.refits)
+        if log_every and it % log_every == 0:
+            history.append((it, {k: float(v) for k, v in metrics.items() if v.dim() == 0}))
+        if test_every and it > 0 and it % test_every == 0 and scene.test_frames:
+            means = evaluate_stage2(state, scene.test_frames, bg,
+                                    tile_ladder=ladder_pol.ladder if ladder_pol is not None else None)
+            log(it=it, event="test", **means)
+        if step_callback is not None:
+            step_callback(state, it)
+    if prev is not None:  # the last step's late read
+        late_read(*prev, last=True)
+    if ladder_pol is not None:
+        log(it=n_iters, event="ladder", ladder=ladder_pol.ladder, refits=ladder_pol.refits)
+    return state, info, history

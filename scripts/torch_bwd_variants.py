@@ -189,8 +189,10 @@ def variant_source(src: str, name: str) -> str:
 def build_variants(B):
     """Every variant's source and library under .torch_ext/variants/, built
     in parallel; returns {name: bound ctypes library}."""
+    from riggs_tpu_torch import cuda_build
+
     src = B.CSRC.read_text()
-    out = B.BUILD_DIR / "variants"
+    out = cuda_build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in list(VARIANTS) + list(SECTIONS):
@@ -198,7 +200,7 @@ def build_variants(B):
         path.write_text(variant_source(src, name))
         jobs[name] = (path, out / f"libblend_{name}.so")
     with ThreadPoolExecutor(len(jobs)) as pool:
-        for f in [pool.submit(B.build, s, lib) for s, lib in jobs.values()]:
+        for f in [pool.submit(cuda_build.build, s, lib) for s, lib in jobs.values()]:
             f.result()
     libs = {}
     for name, (_, lib) in jobs.items():

@@ -59,6 +59,17 @@ from tests.test_torch_stage2_step import _np, _skel_ref_layout
 SEED = 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch ops on one intra-op thread: a loop of many small
+    ops under the suite's parallel workers otherwise oversubscribes the
+    cores, and the idle threads' spinning slowed such files some 40-fold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class _Fid:
     def __init__(self, fid):
         self.fid = fid

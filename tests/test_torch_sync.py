@@ -41,6 +41,7 @@ from riggs_tpu_torch.train.config import Config
 from riggs_tpu_torch.train.optim import adam_init
 
 from tests.test_torch_render import _cams, _scene, _t, j_cov, j_project
+from tests.test_torch_stage1_loop import one_torch_thread  # noqa: F401 (autouse)
 
 aten = torch.ops.aten
 _READS = {aten._local_scalar_dense.default: "a device value read on the host (.item(), int(), bool(), 0-dim index)",
@@ -251,3 +252,51 @@ def test_auto_steps_take_their_rates_from_the_callers_it(stage1, stage2, monkeyp
     want_skel = S.expon_lr_f32(o.deform_mlp_lr_init, o.deform_mlp_lr_final, lr_delay_mult=o.deform_mlp_lr_delay_mult,
                                max_steps=o.deform_mlp_lr_max_steps)(it - o.skeleton_warm_up)
     assert a[3]["xyz"] == want_xyz and a[4] == want_skel and k["warm"] is False
+
+
+def test_train_stage2_non_event_step_reads_only_the_late_overflow(stage1, plain_blends_exempt, monkeypatch):
+    """One step of train_stage2 with no event (the ladder fitted, no check,
+    densification, reset, log or test due): from the end of step 13 to the
+    end of step 14 nothing reads the card but the one copy of step 13's two
+    overflow counters."""
+    cfg1, s1, fr = stage1
+    frames = [dataclasses.replace(fr, cam=dataclasses.replace(fr.cam, fid=torch.tensor(t))) for t in (0.1, 0.5, 0.8)]
+    scene = SceneData(np.zeros((1, 3), np.float32), np.zeros((1, 3), np.float32), train_frames=frames)
+    cfg = Config()
+    cfg.model.capacity, cfg.model.node_num, cfg.model.gs_with_motion_mask = 192, 24, True
+    cfg.model.use_template_offsets = cfg.model.use_skinning_weight_mlp = True
+    cfg.model.skeleton_gs_sample_num = 32
+    cfg.pipe.max_per_tile = 512
+    cfg.opt.iterations_stage2, cfg.opt.skeleton_warm_up, cfg.opt.optimize_template_offsets_iters = 15, 3, 6
+    metrics, reads, window = [], [], {}
+    real_auto, real_overflow = TS2.make_stage2_auto, TS2._overflow
+
+    def auto(*a, **k):
+        step = real_auto(*a, **k)
+
+        def run(*sa, **sk):
+            out = step(*sa, **sk)
+            metrics.append(out[1])
+            return out
+        return run
+
+    def overflow(m):
+        reads.append(m)
+        return real_overflow(m)
+
+    def callback(state, it):
+        if it == 13:
+            window["guard"] = HostReads().__enter__()
+            window["reads"] = len(reads)
+        elif it == 14:
+            window["guard"].__exit__(None, None, None)
+            window["reads"] = reads[window["reads"]:]
+
+    monkeypatch.setattr(TS2, "make_stage2_auto", auto)
+    monkeypatch.setattr(TS2, "_overflow", overflow)
+    events = []
+    TS2.train_stage2(s1, scene, cfg, seed=1, events=events, step_callback=callback, device="cpu")
+    assert [e["it"] for e in events if e["event"] == "ladder fit"] == [11]
+    assert not [e for e in events if 12 <= e["it"] <= 14 and e["event"] != "ladder"], events
+    _assert_no_reads(window["guard"].hits, "train_stage2 step 14")
+    assert len(window["reads"]) == 1 and window["reads"][0] is metrics[13]
