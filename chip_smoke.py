@@ -108,7 +108,26 @@ Phases, each printed as it runs:
      steps of each; the host reads of one step with no event (exactly the
      one late copy of the overflow counters); every parameter finite, every
      kernel of the path launched; the four kernels held to their plain
-     versions on three of its steps (PIPE_HELD).
+     versions on three of its steps (PIPE_HELD);
+  13. io: the pipeline's rig saved (state .npz, PLY, skeleton tree, OBJ,
+     cfg.json) and loaded back into a fresh init_stage2 template, every leaf
+     bitwise, and the PLY's alive Gaussians bitwise, with the seconds and
+     the file sizes; train_stage2 resumed from the checkpoint for
+     IO_RESUME_STEPS steps with a recording logger (it starts at the saved
+     iteration, one test evaluation and one best-PSNR checkpoint, the
+     newest); render_test_set on the two test frames with the skinning
+     render and LPIPS alex and vgg from seeded files of
+     scripts/make_lpips_ckpt.py, the card's LPIPS held to the CPU's on the
+     same images (LPIPS_REL_TOL), the per-frame overflow counters, host
+     reads and ms a frame with and without the skinning render, with the
+     counters zeroed just before the resume and read after the test set;
+     then the forward blend calls of one test frame and its skinning render
+     held to their plain versions, as in 3;
+  14. cli: scripts/torch_run_pipeline.py --synthetic as a process of its
+     own on the card (CLI_SCHEDULE cuts only the schedule), exit 0, every
+     file scripts/run_pipeline.py writes, a finite numerical_res.txt, and
+     its rig/ reloaded as scripts/torch_render_rig.py loads it, reproducing
+     that table.
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without CUDA
 it exits 2 and prints no result. Imports nothing of JAX or riggs_tpu.
@@ -225,6 +244,21 @@ PIPE_SYNC_STEP = 34
 # probe step (plain windows), the step after the FPS reset and the last
 # (both on the ladder)
 PIPE_HELD = {("W", 5): "warm-up probe it=5", ("M", 40): "after the FPS reset it=40", ("M", 59): "ladder it=59"}
+# [io]: the pipeline's rig resumed from its checkpoint at 60 for 16 steps
+# (the ladder refits after its 12 probe steps, the last 4 run on it), one
+# test evaluation and one best-PSNR checkpoint at 70, the logger every 5
+IO_RESUME_STEPS = 16
+IO_TEST_AT = 70
+IO_LOG_EVERY = 5
+LPIPS_REL_TOL = 1e-4  # the card's LPIPS against the CPU's on the same images: TF32 off
+# [cli]: scripts/torch_run_pipeline.py --synthetic (16 frames at 128 x 128,
+# the default widths: 65536 slots, 512 nodes, three 8x256 MLPs), only the
+# schedule cut (PERF.md section 4); stage 2 runs `iterations` steps too
+CLI_SCHEDULE = dict(iterations_node_rendering=40, node_warm_up=10, iterations_node_sampling=30, iterations=40,
+                    densify_from_iter=5, densification_interval=10, node_force_densify_prune_step=20,
+                    opacity_reset_interval=30, ladder_check_every=10, skeleton_warm_up=10,
+                    optimize_template_offsets_iters=20, gs_densification_iterations=15, densify_until_iter=35)
+CLI_TEST_EVERY = 30
 
 
 # the rotation fit (csrc/rotfit.cu) against its plain version: max |d R|
@@ -2457,9 +2491,267 @@ def pipeline_phase(blend, scene, cap, stage1_state):
     if sorted(probe.held) != sorted(PIPE_HELD):
         raise RuntimeError(f"[pipeline] held the blend calls of steps {sorted(probe.held)}, not {sorted(PIPE_HELD)}")
     held = probe.held
-    del probe, state
+    del probe
     want = {"blend_cm": ("warm-up probe it=5",), "blend_permuted_gm": ("after the FPS reset it=40", "ladder it=59")}
-    return launches, check_loop_kernels(blend, held, PIPE_HELD, want, tag="[pipeline]")
+    return launches, check_loop_kernels(blend, held, PIPE_HELD, want, tag="[pipeline]"), state, info, cfg
+
+
+def _same_leaves(a, b):
+    """Keys of two states' leaf tables whose tensors differ in any bit."""
+    import torch
+
+    from riggs_tpu_torch.io.checkpoint import state_leaves
+
+    la, lb = state_leaves(a), state_leaves(b)
+    if set(la) != set(lb):
+        return sorted(set(la) ^ set(lb))
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    return [k for k in la if la[k][0].shape != lb[k][0].shape or not torch.equal(bits(la[k][0]), bits(lb[k][0]))]
+
+
+class _Recorder:
+    """A TrainLogger stand-in that keeps every scalars call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def scalars(self, step, prefix, values):
+        self.calls.append((step, prefix, sorted(values)))
+
+
+def io_phase(blend, scene, stage1_state, state, info, cfg):
+    """Phase 13, on [pipeline]'s trained rig at full width: save it (state
+    .npz, PLY, skeleton tree, OBJ, cfg.json), load it back into a fresh
+    init_stage2 template (every leaf bitwise) and the PLY (the alive
+    Gaussians bitwise); resume train_stage2 from the checkpoint for
+    IO_RESUME_STEPS steps with a recording logger, one test evaluation and
+    one best-PSNR checkpoint; render_test_set on the two test frames with
+    the skinning render and LPIPS alex and vgg from seeded files
+    (scripts/make_lpips_ckpt.py), the card's LPIPS held to the CPU's, the
+    per-frame overflow counters, host reads and times; then the forward
+    blend calls of one test frame and its skinning render held to their
+    plain versions. The launch counters are zeroed just before the resume
+    and read after the test set. Returns (launches, the held forward's
+    results)."""
+    import tempfile
+
+    import torch
+
+    from riggs_tpu_torch.eval import synthesis as SYN
+    from riggs_tpu_torch.eval.metrics import LpipsModel
+    from riggs_tpu_torch.io import checkpoint as CK
+    from riggs_tpu_torch.io.obj import read_skeleton_obj, write_skeleton_obj
+    from riggs_tpu_torch.io.ply import load_gaussians_ply
+    from riggs_tpu_torch.ops import geometry as GEO
+    from riggs_tpu_torch.train import stage2 as S2
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rig, saved_at = Path(tmp) / "rig", cfg.opt.iterations_stage2
+        # 1. save and load back
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CK.save_checkpoint(rig, saved_at, state, gs=state.gs, cfg=cfg)
+        CK.save_skeleton_tree(rig, info.joints, info.parents, info.joint_node_indices, info.template_idx)
+        write_skeleton_obj(rig / "skeleton.obj", info.joints, info.parents)
+        save_s = time.perf_counter() - t0
+        sizes = {str(f.relative_to(rig)): f.stat().st_size for f in sorted(rig.rglob("*")) if f.is_file()}
+        template, _, _ = S2.init_stage2(stage1_state, scene, cfg, generator=torch.Generator(device=DEVICE).manual_seed(1),
+                                        device=DEVICE)
+        if not _same_leaves(template, state):
+            raise RuntimeError("[io] the fresh template already equals the trained state")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded, it = CK.load_checkpoint(rig, template)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gs_ply = load_gaussians_ply(rig / "point_cloud" / f"iteration_{saved_at}" / "point_cloud.ply",
+                                    capacity=state.gs.capacity, max_sh_degree=state.gs.max_sh_degree,
+                                    isotropic=state.gs.isotropic, with_motion_mask=state.gs.with_motion_mask,
+                                    device=DEVICE)
+        torch.cuda.synchronize()
+        ply_s = time.perf_counter() - t0
+        differ = _same_leaves(loaded, state)
+        n = int(state.gs.num_alive)
+        alive = state.gs.alive
+        ply_bad = [f for f in ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity", "feature")
+                   if not _same_bits(getattr(gs_ply, f)[:n], getattr(state.gs, f)[alive])]
+        joints, edges = read_skeleton_obj(rig / "skeleton.obj")
+        print(f"[io] saved the rig at iteration {saved_at} in {save_s:.2f} s, files (bytes) {sizes}; loaded back into a "
+              f"fresh init_stage2 template in {load_s:.2f} s ({len(CK.state_leaves(loaded))} leaves, "
+              f"{len(differ)} differing in any bit), the PLY in {ply_s:.2f} s ({n} alive Gaussians, fields differing "
+              f"{ply_bad}); skeleton.obj {len(joints)} joints, {len(edges)} bones")
+        if it != saved_at or differ or ply_bad or int(gs_ply.num_alive) != n or len(joints) != len(info.joints):
+            raise RuntimeError(f"[io] the saved rig did not load back: iteration {it}, leaves {differ[:5]}, PLY {ply_bad}")
+        del loaded, template, gs_ply
+
+        # 2. resume train_stage2 from the checkpoint
+        cfg_r = copy.deepcopy(cfg)
+        cfg_r.opt.iterations_stage2 = saved_at + IO_RESUME_STEPS
+        logger, events, stamps = _Recorder(), [], []
+        torch.cuda.synchronize()
+        blend.reset_launches()
+        GEO.reset_launches()
+        t0 = time.perf_counter()
+        resumed, _, _ = S2.train_stage2(stage1_state, scene, cfg_r, seed=0, log_every=IO_LOG_EVERY, test_every=IO_TEST_AT,
+                                        model_path=rig, logger=logger, resume=True, events=events,
+                                        step_callback=lambda st, i: stamps.append((i, time.perf_counter())),
+                                        device=DEVICE)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        kinds = [(e["it"], e["event"]) for e in events]
+        steps = [i for i, _ in stamps]
+        newest = CK.search_max_iteration(rig / "checkpoints")
+        want_logs = [(i, "train_skeleton") for i in range(saved_at, saved_at + IO_RESUME_STEPS)
+                     if i % IO_LOG_EVERY == 0]
+        want_logs.insert([i for i, _ in want_logs].index(IO_TEST_AT) + 1, (IO_TEST_AT, "test"))
+        step_ms = [(b - a) * 1e3 for (i, a), (j, b) in zip(stamps, stamps[1:])
+                   if j not in (IO_TEST_AT, saved_at + 12) and j % IO_LOG_EVERY]  # no event, no log
+        print(f"[io] resumed train_stage2: events {kinds}; steps {steps[0]}-{steps[-1]}, {np.median(step_ms):.2f} ms a "
+              f"step with no event (host clock, median of {len(step_ms)}), {resume_s:.1f} s with init_stage2; logger "
+              f"calls {[(i, p) for i, p, _ in logger.calls]} ({len(logger.calls[0][2])} train_skeleton scalars); "
+              f"newest checkpoint iteration_{newest}")
+        test = [e for e in events if e["event"] == "test"]
+        if (kinds[0] != (saved_at, "resume") or steps != list(range(saved_at, saved_at + IO_RESUME_STEPS))
+                or [(i, p) for i, p, _ in logger.calls] != want_logs or len(test) != 1
+                or [e["it"] for e in events if e["event"] == "checkpoint"] != [IO_TEST_AT] or newest != IO_TEST_AT
+                or not [e for e in events if e["event"] in ("ladder fit", "ladder refit")]):
+            raise RuntimeError(f"[io] the resumed loop: events {kinds}, steps {steps}, logger {logger.calls}, "
+                               f"newest {newest}")
+        if not all(np.isfinite(test[0][k]) for k in ("psnr", "ssim", "ms_ssim")):
+            raise RuntimeError(f"[io] non-finite test metrics {test[0]}")
+
+        # 3. the test-set report with the skinning render and LPIPS
+        lp_dir = Path(tmp) / "lpips"
+        subprocess.run([sys.executable, str(Path(__file__).resolve().parent / "scripts" / "make_lpips_ckpt.py"),
+                        "--out", str(lp_dir)], check=True, capture_output=True, text=True, timeout=300)
+        frames = scene.test_frames
+        bg = torch.ones(3, device=DEVICE) if scene.white_background else torch.zeros(3, device=DEVICE)
+        real_rr, outs = SYN.render_rigged, []
+
+        def rec_rr(*a, **k):
+            out = real_rr(*a, **k)
+            outs.append(out)
+            return out
+
+        rows = {}
+        SYN.render_rigged = rec_rr
+        try:
+            for net in ("alex", "vgg"):
+                lp = LpipsModel.from_torch_file(lp_dir / f"{net}_backbone.pth", lp_dir / f"{net}.pth", net=net,
+                                                device=DEVICE)
+                rows[net], _, images = SYN.render_test_set(resumed.gs, resumed.skel, frames, bg=bg, lpips_model=lp,
+                                                           max_per_tile=cfg.pipe.max_per_tile)
+                lp_cpu = LpipsModel.from_torch_file(lp_dir / f"{net}_backbone.pth", lp_dir / f"{net}.pth", net=net,
+                                                    device="cpu")
+                for i, (f, r) in enumerate(zip(frames, rows[net])):
+                    ref = float(lp_cpu(torch.from_numpy(images[i]), f.image.cpu()))
+                    rel = abs(r[f"lpips_{net}"] - ref) / abs(ref)
+                    print(f"[io] frame {i} lpips_{net}: card {r[f'lpips_{net}']:.8f}, CPU {ref:.8f}, rel |d| {rel:.2e}")
+                    if not rel <= LPIPS_REL_TOL:
+                        raise RuntimeError(f"[io] lpips_{net} on the card {r} against the CPU's {ref}")
+                img0 = torch.from_numpy(images[0]).to(DEVICE)
+                lp_ms = _event_ms(lambda: lp(img0, frames[0].image), 10)
+                print(f"[io] lpips_{net} {lp_ms:.3f} ms a frame (CUDA events, mean of 10 calls)")
+        finally:
+            SYN.render_rigged = real_rr
+        torch.cuda.synchronize()
+        launches = dict(blend.launches, **GEO.launches)
+        of = [(int(o["overflow_tiles"]), int(o["overflow_rect"])) for o in outs]
+        for net, rs in rows.items():
+            for i, r in enumerate(rs):
+                print(f"[io] render_test_set ({net}) frame {i}: " + " ".join(f"{k} {v:.6f}" for k, v in r.items()))
+        print(f"[io] render_test_set overflow (tiles, rect) per frame: {of} (max_per_tile {cfg.pipe.max_per_tile}; "
+              "the reference's report neither escalates nor reports them)")
+        print(f"[io] launch counters over the resume and the test set: {launches}")
+        for name in ("blend_cm", "blend_cm_bwd", "blend_permuted_gm", "blend_permuted_gm_bwd"):
+            if launches[name] <= 0:
+                raise RuntimeError(f"[io] never launched {name}")
+        for rs in rows.values():
+            if not all(np.isfinite(v) for r in rs for v in r.values()):
+                raise RuntimeError(f"[io] non-finite test-set rows {rs}")
+        lp = LpipsModel.from_torch_file(lp_dir / "alex_backbone.pth", lp_dir / "alex.pth", device=DEVICE)
+        for vis in (True, False):
+            run = lambda: SYN.render_test_set(resumed.gs, resumed.skel, frames, bg=bg, lpips_model=lp,
+                                              with_skinning_vis=vis, max_per_tile=cfg.pipe.max_per_tile)
+            run()
+            sites, callers, dtoh, syncs, _ = count_syncs(run)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / (3 * len(frames)) * 1e3
+            print(f"[io] render_test_set {'with' if vis else 'without'} the skinning render: {ms:.2f} ms a frame (host "
+                  f"clock, 3 x {len(frames)} frames, with LPIPS alex); host reads a frame: {dtoh / len(frames):g} "
+                  f"copies, {syncs / len(frames):g} synchronizations, sites "
+                  f"{({k: (v, callers.get(k, '')) for k, v in sites.items()})}")
+            if dtoh != 2 * len(frames):
+                raise RuntimeError(f"[io] render_test_set read the card {dtoh} times for {len(frames)} frames")
+
+    # 4. the forward blends of one test frame and its skinning render against their plain versions
+    f = frames[0]
+    with _Capture(blend) as cap_io:
+        SYN.render_rigged(resumed.gs, resumed.skel, f.cam, t=f.fid, bg=bg, with_skinning_vis=True,
+                          max_per_tile=cfg.pipe.max_per_tile)
+    if len(cap_io.calls["blend_cm"]) != 2 or cap_io.calls["blend_permuted_gm"]:
+        raise RuntimeError(f"[io] a test frame made {len(cap_io.calls['blend_cm'])} blend_cm calls, not 2")
+    held = check_kernels(blend, {"blend_cm": cap_io.calls["blend_cm"]}, tag="[io] test frame 0 and its skinning render")
+    return launches, held["blend_cm"]
+
+
+def cli_phase():
+    """Phase 14: scripts/torch_run_pipeline.py --synthetic as a process of
+    its own on the card (CLI_SCHEDULE), then its rig/ loaded as
+    scripts/torch_render_rig.py loads it and its test set rendered again:
+    exit 0, every file scripts/run_pipeline.py writes, a finite
+    numerical_res.txt equal to the reloaded rig's."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    from riggs_tpu_torch.data.synthetic import make_scene_data
+    from riggs_tpu_torch.eval.synthesis import format_numerical_res, render_test_set
+    from riggs_tpu_torch.train.config import Config
+
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "run"
+        cmd = [sys.executable, str(root / "scripts" / "torch_run_pipeline.py"), "--synthetic", "--model_path", str(out),
+               "--test_every", str(CLI_TEST_EVERY)]
+        for k, v in CLI_SCHEDULE.items():
+            cmd += [f"--{k}", str(v)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        tail = [line for line in res.stdout.splitlines() if line.strip()][-4:]
+        print(f"[cli] torch_run_pipeline.py --synthetic exit {res.returncode} in {wall:.1f} s: {tail}")
+        if res.returncode != 0:
+            raise RuntimeError(f"[cli] torch_run_pipeline.py failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        n = CLI_SCHEDULE["iterations"]
+        want = ["cfg.json", "skeleton_tree.npz", "skeleton.obj", "numerical_res.txt",
+                f"checkpoints/iteration_{n}/state.npz", f"point_cloud/iteration_{n}/point_cloud.ply",
+                f"rig/checkpoints/iteration_{CLI_TEST_EVERY}/state.npz", f"rig/checkpoints/iteration_{n}/state.npz",
+                f"rig/point_cloud/iteration_{n}/point_cloud.ply", "rig/cfg.json"]
+        missing = [w for w in want if not (out / w).exists()]
+        text = (out / "numerical_res.txt").read_text() if (out / "numerical_res.txt").exists() else ""
+        vals = [float(x) for line in text.splitlines()[1:] for x in line.split("\t")[1:]]
+        if missing or not vals or not all(np.isfinite(vals)):
+            raise RuntimeError(f"[cli] missing {missing}; numerical_res.txt {text!r}")
+        spec = importlib.util.spec_from_file_location("torch_render_rig", root / "scripts" / "torch_render_rig.py")
+        rr = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(rr)
+        cfg = Config.load(out / "cfg.json")
+        _, scene = make_scene_data(n_train=16, n_test=4, width=128, height=128, device=DEVICE)
+        state, it = rr.load_rig(out, cfg, scene, DEVICE)
+        rows, means, _ = render_test_set(state.gs, state.skel, scene.test_frames, max_per_tile=cfg.pipe.max_per_tile)
+        again = format_numerical_res(rows, means)
+        print(f"[cli] rig/ reloaded at iteration {it} ({int(state.gs.num_alive)} Gaussians of {state.gs.capacity}, "
+              f"J = {state.skel.net.n_joints}); test means {means}; numerical_res.txt reproduced: {again == text}")
+        if it != n or again != text:
+            raise RuntimeError(f"[cli] the reloaded rig (iteration {it}) gives\n{again}\nnot\n{text}")
+        torch.cuda.synchronize()
 
 
 def main() -> int:
@@ -2617,8 +2909,14 @@ def main() -> int:
     loop_launches, loop_held, loop_rot, stage1_state = loop_phase(blend, scene, loop_cap)
 
     # 12. init_stage2 and a short train_stage2 from the loop's state (its own counted run)
-    pipe_launches, pipe_held = pipeline_phase(blend, scene, loop_cap, stage1_state)
-    del stage1_state
+    pipe_launches, pipe_held, pipe_state, pipe_info, pipe_cfg = pipeline_phase(blend, scene, loop_cap, stage1_state)
+
+    # 13. save, reload and resume the rig; the test-set report (its own counted run)
+    io_launches, io_held = io_phase(blend, scene, stage1_state, pipe_state, pipe_info, pipe_cfg)
+    del stage1_state, pipe_state
+
+    # 14. the CLI twin of the pipeline as a process of its own
+    cli_phase()
 
     def held(name, results=loop_held):
         """A loop's held steps of a kernel: error, times and bound."""
@@ -2646,8 +2944,11 @@ def main() -> int:
             "ms_train": train_fwd[name]["ms"], "ms_stage1": stage1_fwd[name]["ms"],
             "bound_ms_stage1": stage1_fwd[name]["bound_ms"], "launches_loop": loop_launches[name],
             "held_loop": held(name), "launches_pipeline": pipe_launches[name], "held_pipeline": held(name, pipe_held),
+            "launches_io": io_launches[name],
             **({"launches_phase_a": pa_launches[name], "ms_phase_a": pa_fwd[name]["ms"],
-                "bound_ms_phase_a": pa_fwd[name]["bound_ms"], "plain_ms_phase_a": pa_fwd[name]["plain_ms"]}
+                "bound_ms_phase_a": pa_fwd[name]["bound_ms"], "plain_ms_phase_a": pa_fwd[name]["plain_ms"],
+                "held_io": {"max_abs_err": max(io_held["err"].values()), "ms": io_held["ms"],
+                            "plain_ms": io_held["plain_ms"], "bound_ms": io_held["bound_ms"]}}
                if name == "blend_cm" else {}),
         })
     for name, replaces in (("blend_cm_bwd", "riggs_tpu/render/pallas_blend.py:221"),
@@ -2663,6 +2964,7 @@ def main() -> int:
             "bound_term": r["bound_term"], "ms_stage1": stage1_bwd[name]["ms"],
             "bound_ms_stage1": stage1_bwd[name]["bound_ms"], "launches_loop": loop_launches[name],
             "held_loop": held(name), "launches_pipeline": pipe_launches[name], "held_pipeline": held(name, pipe_held),
+            "launches_io": io_launches[name],
             **({"launches_phase_a": pa_launches[name], "ms_phase_a": pa_bwd[name]["ms"],
                 "bound_ms_phase_a": pa_bwd[name]["bound_ms"], "plain_ms_phase_a": pa_bwd[name]["plain_ms"]}
                if name == "blend_cm_bwd" else {}),
@@ -2698,7 +3000,8 @@ def main() -> int:
         "launches": loop_launches["fit_rotations"], "max_abs_err": max(v["err"] for v in rot_runs.values()),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"], "batch": r["batch"], "launches_stage1": stage1_launches["fit_rotations"],
-        "launches_phase_a": pa_launches["fit_rotations"], "planted": stage1_rot["planted"],
+        "launches_phase_a": pa_launches["fit_rotations"], "launches_io": io_launches["fit_rotations"],
+        "planted": stage1_rot["planted"],
         "max_det_err": max(v["det_err"] for v in rot_runs.values()),
         "held": {k: {key: v[key] for key in ("fits", "ill_posed", "err", "scaled_err", "ms", "plain_ms", "library_ms",
                                              "bound_ms")} for k, v in rot_runs.items()},

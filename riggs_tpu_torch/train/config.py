@@ -4,10 +4,12 @@ A copy of ``riggs_tpu/train/config.py`` (``ModelConfig``, ``PipelineConfig``,
 ``OptimizationConfig``, ``Config``; the port keeps its own copy rather than
 import the JAX package). Field defaults are the reference's, and JSON written
 by either package loads in the other. ``data_device`` defaults to ``cuda``.
-The argparse helpers are not copied yet.
+``add_config_args`` and ``config_from_args`` (the reference's ``:190-217``)
+reflect every field into a command-line flag for the CLI twins.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 from dataclasses import dataclass, field
@@ -181,3 +183,34 @@ class Config:
     @classmethod
     def load(cls, path: str | Path) -> "Config":
         return cls.from_json(Path(path).read_text())
+
+
+def add_config_args(parser: argparse.ArgumentParser, cfg: Config | None = None) -> argparse.ArgumentParser:
+    """Every config field as a ``--flag`` with its default (booleans as
+    ``store_true``, tuples as ``nargs="+"`` floats)."""
+    cfg = cfg or Config()
+    for group_name in ("model", "pipe", "opt"):
+        group = getattr(cfg, group_name)
+        for f in dataclasses.fields(group):
+            name = f"--{f.name}"
+            default = getattr(group, f.name)
+            if isinstance(default, bool):
+                parser.add_argument(name, action="store_true", default=default)
+            elif isinstance(default, tuple):
+                parser.add_argument(name, nargs="+", type=float, default=default)
+            else:
+                parser.add_argument(name, type=type(default), default=default)
+    return parser
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    cfg = Config()
+    for group_name in ("model", "pipe", "opt"):
+        group = getattr(cfg, group_name)
+        for f in dataclasses.fields(group):
+            if hasattr(args, f.name):
+                v = getattr(args, f.name)
+                if isinstance(v, list):
+                    v = tuple(v)
+                setattr(group, f.name, v)
+    return cfg

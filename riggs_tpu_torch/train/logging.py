@@ -1,0 +1,134 @@
+"""Observability: per-step timing, profiler traces, TensorBoard scalars, eval reports.
+
+Port of ``riggs_tpu/train/logging.py``: ``StepTimer`` (host clock with an
+EMA), ``profile_trace`` (a ``torch.profiler`` scope that writes a Chrome
+trace into ``log_dir``, where the reference starts ``jax.profiler``),
+``TrainLogger`` (a TensorBoard writer from ``torch.utils.tensorboard`` or
+``tensorboardX``, and a no-op when neither imports) and
+``evaluation_report``.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from pathlib import Path
+from typing import Callable
+
+import numpy as np
+import torch
+
+from riggs_tpu_torch.eval.metrics import evaluate_image
+
+
+class StepTimer:
+    """Host-clock per-step timing with an EMA. On the card, time only what
+    ends in a synchronize: the clock otherwise measures the enqueue."""
+
+    def __init__(self, ema: float = 0.9):
+        self.ema = ema
+        self.avg_ms: float | None = None
+        self._t0 = 0.0
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = (time.perf_counter() - self._t0) * 1000.0
+        self.avg_ms = dt if self.avg_ms is None else self.ema * self.avg_ms + (1 - self.ema) * dt
+        return False
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str | Path, enabled: bool = True):
+    """A ``torch.profiler`` scope over the host and, when there is one, the
+    card; on exit its Chrome trace is written to ``log_dir/trace.json``."""
+    if not enabled:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        Path(log_dir).mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+
+
+class TrainLogger:
+    """TensorBoard writer + best-metric tracking. No-op without a log dir or
+    without a TensorBoard writer to import."""
+
+    def __init__(self, log_dir: str | Path | None):
+        self.writer = None
+        if log_dir is not None:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self.writer = SummaryWriter(str(log_dir))
+            except ImportError:
+                try:
+                    from tensorboardX import SummaryWriter
+
+                    self.writer = SummaryWriter(str(log_dir))
+                except ImportError:
+                    self.writer = None
+        self.best = {"psnr": 0.0, "iteration": 0}
+
+    def scalars(self, step: int, prefix: str, values: dict):
+        if self.writer is None:
+            return
+        for k, v in values.items():
+            try:
+                self.writer.add_scalar(f"{prefix}/{k}", float(v), step)
+            except (TypeError, ValueError):
+                pass
+
+    def image(self, step: int, tag: str, img):
+        if self.writer is None:
+            return
+        self.writer.add_image(tag, np.clip(_host(img), 0, 1), step, dataformats="HWC")
+
+    def histogram(self, step: int, tag: str, values):
+        if self.writer is None:
+            return
+        self.writer.add_histogram(tag, _host(values), step)
+
+    def close(self):
+        if self.writer is not None:
+            self.writer.close()
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def evaluation_report(
+    logger: TrainLogger,
+    step: int,
+    render_fn: Callable,
+    test_frames: list,
+    lpips_model=None,
+    log_images: int = 3,
+    prefix: str = "test",
+) -> dict:
+    """Held-out evaluation: ``render_fn(frame) -> image`` on every test
+    frame, the mean metrics and the first ``log_images`` renders logged (the
+    targets too at step 0), the best PSNR tracked. Returns the means."""
+    rows = []
+    for i, frame in enumerate(test_frames):
+        img = render_fn(frame)
+        rows.append(evaluate_image(img, frame.image, lpips_model))
+        if i < log_images:
+            logger.image(step, f"{prefix}/render_{i}", img)
+            if step == 0:
+                logger.image(step, f"{prefix}/gt_{i}", frame.image)
+    means = {k: float(np.mean([r[k] for r in rows])) for k in rows[0]} if rows else {}
+    logger.scalars(step, prefix, means)
+    if means.get("psnr", 0.0) > logger.best["psnr"]:
+        logger.best = {"psnr": means["psnr"], "iteration": step, **means}
+    return means

@@ -33,6 +33,7 @@ The warp's parameters are its ``nn.Module``'s own and are updated in place
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 
 import numpy as np
 import torch
@@ -587,6 +588,14 @@ def _gs_densify(state: Stage1State, draws, o, extent: float, node: bool) -> Stag
     return dataclasses.replace(state, gs=st.gs, opt_gs=st.opt, stats_gs=st.stats)
 
 
+def _has_flow_files(source_path, image_names) -> bool:
+    """Whether ``raft_neighbouring/`` holds a flow file of a train image, the
+    condition under which the reference's loop trains with optical flow."""
+    flow_dir = pathlib.Path(source_path) / "raft_neighbouring"
+    names = [e.name for e in flow_dir.iterdir()] if flow_dir.exists() else []
+    return any(n.startswith(name + ".") for name in image_names for n in names)
+
+
 def train_stage1(
     scene: SceneData,
     cfg: Config,
@@ -614,7 +623,10 @@ def train_stage1(
     just launched) and refits the ladder as the reference's triggers say;
     node densify/prune, Gaussian densification (with ``anticipate``) and
     opacity resets with fresh opacity moments. ``history`` holds
-    (phase, it, scalar metrics) every ``log_every`` steps.
+    (phase, it, scalar metrics) every ``log_every`` steps. A
+    ``source_path`` whose ``raft_neighbouring/`` holds a train image's flow
+    file (the reference then trains with optical flow) and a scene with
+    reference points raise: their branches are not ported (A9).
 
     ``state`` replaces ``init_stage1``'s (seeded from ``seed``), ``draws``
     the ``Stage1Draws(seed)`` of the random draws. ``events``, when given,
@@ -630,7 +642,8 @@ def train_stage1(
     frames = scene.train_frames
     if frames and frames[0].reference_points is not None:
         raise NotImplementedError("the ZJU reference-point phase (phase_ref_step) is not ported yet (ROADMAP A9)")
-    if source_path is not None and scene.train_image_names is not None:
+    if source_path is not None and scene.train_image_names is not None and _has_flow_files(
+            source_path, scene.train_image_names):
         raise NotImplementedError("the optical-flow store (FlowStore) is not ported yet (ROADMAP A9)")
     if state is None:
         state = init_stage1(scene, cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)

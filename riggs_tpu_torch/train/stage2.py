@@ -526,22 +526,45 @@ def train_stage2(
     each test evaluation. ``step_callback(state, it)``, when given, is
     called after every step. A step with no event reads the card once: the
     previous step's two overflow counters. Runs on ``cuda`` unless
-    ``device`` says otherwise."""
-    if model_path is not None or logger is not None or resume:
-        raise NotImplementedError("stage-2 checkpoints, logging and resume are not ported yet (ROADMAP A7)")
+    ``device`` says otherwise.
+
+    With ``model_path``, a test evaluation that beats the best PSNR so far
+    saves a checkpoint (the state and its PLY, ``io/checkpoint.py``): the
+    only copies of the state to the host. ``logger`` (a ``TrainLogger``)
+    gets the ``train_skeleton`` scalars every ``log_every`` steps and the
+    ``test`` means at each evaluation. ``resume`` with a ``model_path``
+    loads its latest checkpoint into the initial state and continues from
+    its iteration; a checkpoint inside the warm-up, none, or one that does
+    not fit (``KeyError``, ``ValueError``) means training from the initial
+    state at 0. The frame sampler and the split noise start fresh from
+    ``seed`` either way, as the reference's do."""
     o = cfg.opt
     dev = resolve_device(device)
+    log = (lambda **e: events.append(e)) if events is not None else (lambda **e: None)
     init, info, frames = init_stage2(stage1_state, scene, cfg, generator=torch.Generator(device=dev).manual_seed(seed),
                                      device=dev)
     state = init if state is None else state
+    start_it = 0
+    if resume and model_path is not None:
+        from riggs_tpu_torch.io.checkpoint import load_checkpoint
+
+        try:
+            loaded, start_it = load_checkpoint(model_path, state)
+            if start_it < o.skeleton_warm_up:
+                raise FileNotFoundError(f"checkpoint at {start_it} inside the warm-up")
+            state = loaded
+            log(it=start_it, event="resume")
+        except (FileNotFoundError, ValueError, KeyError) as e:
+            start_it = 0
+            log(it=0, event="no resume", reason=str(e))
     draws = Stage2Draws(seed, dev) if draws is None else draws
     bg = torch.ones(3, device=dev) if scene.white_background else torch.zeros(3, device=dev)
     sampler = FrameSampler(frames, np.random.default_rng(seed))
     step_auto = make_stage2_auto(cfg, int(info.template_idx))
-    state = dataclasses.replace(state, it=torch.zeros((), dtype=torch.int32, device=dev))
+    state = dataclasses.replace(state, it=torch.full((), start_it, dtype=torch.int32, device=dev))
     use_chamfer = frames[0].thinned is not None and o.lambda_deformed_node_prjection > 1e-8
-    log = (lambda **e: events.append(e)) if events is not None else (lambda **e: None)
     history = []
+    best_psnr = -1.0
     ladder_pol = None
     if cfg.pipe.use_tile_ladder and cfg.pipe.rasterizer == "tiled":
         ladder_pol = LadderPolicy(n_buckets=cfg.pipe.ladder_buckets, margin=cfg.pipe.ladder_margin)
@@ -561,7 +584,7 @@ def train_stage2(
                 log(it=p_it, event="ladder fit" if old is None else "ladder refit", ladder=ladder_pol.ladder,
                     refits=ladder_pol.refits)
 
-    for it in range(n_iters):
+    for it in range(start_it, n_iters):
         uid = sampler.sample(it, o.progressive_train, o.progressive_stage_ratio, o.progressive_stage_steps)
         frame = frames[uid]
         warm = it < o.skeleton_warm_up
@@ -593,10 +616,20 @@ def train_stage2(
                     log(it=it, event="ladder anticipate", ladder=ladder_pol.ladder, refits=ladder_pol.refits)
         if log_every and it % log_every == 0:
             history.append((it, {k: float(v) for k, v in metrics.items() if v.dim() == 0}))
+            if logger is not None:
+                logger.scalars(it, "train_skeleton", history[-1][1])
         if test_every and it > 0 and it % test_every == 0 and scene.test_frames:
             means = evaluate_stage2(state, scene.test_frames, bg,
                                     tile_ladder=ladder_pol.ladder if ladder_pol is not None else None)
             log(it=it, event="test", **means)
+            if logger is not None:
+                logger.scalars(it, "test", means)
+            if means.get("psnr", 0.0) > best_psnr and model_path is not None:
+                from riggs_tpu_torch.io.checkpoint import save_checkpoint
+
+                best_psnr = means["psnr"]
+                save_checkpoint(model_path, it, state, gs=state.gs)
+                log(it=it, event="checkpoint", psnr=best_psnr)
         if step_callback is not None:
             step_callback(state, it)
     if prev is not None:  # the last step's late read

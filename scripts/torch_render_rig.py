@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""Stage-2 rendering and synthesis on the PyTorch port (the twin of
+scripts/render_rig.py, with the same flags; ``--device`` in place of
+``--platform``).
+
+    python scripts/torch_render_rig.py --model_path out/ --synthetic                # test set, on the card
+    python scripts/torch_render_rig.py --model_path out/ --mode time --device cpu
+
+Modes: render (the test set's metrics, skinning-weight renders and a video),
+time (a time sweep at a fixed view), motion (random novel poses). Loads what
+scripts/torch_run_pipeline.py (or scripts/run_pipeline.py) writes: cfg.json,
+skeleton_tree.npz, rig/point_cloud/ and rig/checkpoints/.
+"""
+import argparse
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def save_video(path: Path, frames, fps: int = 30):
+    """An mp4 where imageio has an ffmpeg backend, else a GIF and PNG frames."""
+    import imageio
+    import numpy as np
+
+    arr = [np.clip(np.asarray(f) * 255, 0, 255).astype("uint8") for f in frames]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        imageio.mimwrite(path, arr, fps=fps, quality=8)
+    except (ValueError, ImportError):
+        imageio.mimwrite(path.with_suffix(".gif"), arr, duration=1000.0 / fps)
+        frame_dir = path.parent / (path.stem + "_frames")
+        frame_dir.mkdir(exist_ok=True)
+        for i, a in enumerate(arr):
+            imageio.imwrite(frame_dir / f"{i:05d}.png", a)
+
+
+def load_rig(model_path: Path, cfg, scene, device):
+    """The stage-2 state of a pipeline's output: a template from the latest
+    PLY, the skeleton tree and fresh nets, then the whole state from the
+    latest rig checkpoint. Returns (state, its iteration), or (the template,
+    None) with the reason printed when no checkpoint fits."""
+    import torch
+
+    from riggs_tpu_torch.io.checkpoint import load_checkpoint, load_skeleton_tree
+    from riggs_tpu_torch.io.ply import load_gaussians_ply
+    from riggs_tpu_torch.models import gaussians as G
+    from riggs_tpu_torch.models import skeleton_warp as SW
+    from riggs_tpu_torch.train import optim as O
+    from riggs_tpu_torch.train.stage2 import Stage2State
+
+    joints, parents, _, _ = load_skeleton_tree(model_path)
+    gs = load_gaussians_ply(
+        sorted((model_path / "rig" / "point_cloud").glob("iteration_*/point_cloud.ply"))[-1],
+        capacity=cfg.model.capacity, max_sh_degree=cfg.model.sh_degree, isotropic=cfg.model.use_isotropic_gs,
+        with_motion_mask=cfg.model.gs_with_motion_mask, device=device,
+    )
+    skel = SW.init_skeleton_warp(
+        joints, parents, K=cfg.opt.skeleton_weight_knn, use_skinning_mlp=cfg.model.use_skinning_weight_mlp,
+        use_template_offsets=cfg.model.use_template_offsets, n_control_nodes=cfg.model.skeleton_gs_sample_num,
+        generator=torch.Generator(device=gs.device).manual_seed(0), device=gs.device,
+    )
+    template = Stage2State(
+        gs=gs, skel=skel, opt_gs=O.adam_init(gs.params_dict()), opt_skel=O.adam_init(skel.params_dict()),
+        stats_gs=G.init_densify_stats(gs.capacity, device=gs.device),
+        proj_loss=torch.ones(len(scene.train_frames), device=gs.device),
+        it=torch.zeros((), dtype=torch.int32, device=gs.device),
+    )
+    try:
+        state, it = load_checkpoint(model_path / "rig", template)
+        print(f"loaded full checkpoint at iteration {it}")
+        return state, it
+    except (FileNotFoundError, ValueError, KeyError) as e:
+        print(f"full-state checkpoint unavailable ({e}); using PLY + fresh nets")
+        return template, None
+
+
+def main(argv=None):
+    import numpy as np
+
+    from riggs_tpu_torch.data.blender import load_blender_scene
+    from riggs_tpu_torch.data.synthetic import make_scene_data
+    from riggs_tpu_torch.eval.metrics import LpipsModel
+    from riggs_tpu_torch.eval.synthesis import (format_numerical_res, generate_random_motion, interpolate_time,
+                                                render_test_set)
+    from riggs_tpu_torch.train.config import Config
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model_path", required=True)
+    ap.add_argument("--mode", choices=["render", "time", "motion"], default="render")
+    ap.add_argument("--view_id", type=int, default=0)
+    ap.add_argument("--n_frames", type=int, default=200)
+    ap.add_argument("--device", type=str, default="cuda")
+    ap.add_argument("--synthetic", action="store_true", help="rebuild the synthetic scene for cameras/gt")
+    ap.add_argument("--lpips_backbone", default=None, help="torch backbone ckpt (see scripts/make_lpips_ckpt.py)")
+    ap.add_argument("--lpips_heads", default=None, help="torch lpips linear-head ckpt")
+    ap.add_argument("--lpips_net", choices=["alex", "vgg"], default="alex")
+    args = ap.parse_args(argv)
+
+    model_path = Path(args.model_path)
+    cfg = Config.load(model_path / "cfg.json")
+    if args.synthetic:
+        _, scene = make_scene_data(n_train=16, n_test=4, width=128, height=128, device=args.device)
+    else:
+        scene = load_blender_scene(cfg.model.source_path, white_background=cfg.model.white_background,
+                                   resolution=max(cfg.model.resolution, 1), device=args.device)
+    state, _ = load_rig(model_path, cfg, scene, args.device)
+
+    out_dir = model_path / "synthesis" / args.mode
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lpips_model = None
+    if args.lpips_backbone and args.lpips_heads:
+        lpips_model = LpipsModel.from_torch_file(args.lpips_backbone, args.lpips_heads, net=args.lpips_net,
+                                                 device=args.device)
+
+    if args.mode == "render":
+        rows, means, images = render_test_set(state.gs, state.skel, scene.test_frames,
+                                              max_per_tile=cfg.pipe.max_per_tile, lpips_model=lpips_model)
+        (out_dir / "numerical_res.txt").write_text(format_numerical_res(rows, means))
+        save_video(out_dir / "video.mp4", images)
+        print("means:", means)
+    elif args.mode == "time":
+        cam = scene.test_frames[args.view_id % len(scene.test_frames)].cam
+        frames = interpolate_time(state.gs, state.skel, cam, n_frames=args.n_frames)
+        save_video(out_dir / "video.mp4", frames)
+        print(f"wrote {len(frames)} interpolated frames")
+    else:
+        cam = scene.test_frames[args.view_id % len(scene.test_frames)].cam
+        frames, poses = generate_random_motion(state.gs, state.skel, cam)
+        save_video(out_dir / "video.mp4", frames)
+        np.savez(out_dir / "poses.npz", rotations=np.stack([p["local_rotation"] for p in poses]))
+        print(f"wrote {len(frames)} random-motion frames")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,99 @@
+"""The CLI twins of riggs_tpu_torch (scripts/torch_*.py) on the CPU, at a
+small size: torch_run_pipeline.py --synthetic on a cut schedule (1024
+slots, 24 nodes, 6 + 8 stage-1 steps, 8 stage-2 steps, a test evaluation at
+6) writes what scripts/run_pipeline.py writes; torch_render_rig.py loads its
+whole rig checkpoint and reproduces its numerical_res.txt; torch_render_stage1.py
+loads its stage-1 checkpoint; torch_metrics.py scores a renders/gt folder as
+riggs_tpu's evaluate_image does (psnr 1e-4 dB, ssim 1e-5); the flags of later
+items raise. The render twins rebuild the 16-frame 128 x 128 synthetic scene
+that the pipeline trained on; it is built once here and handed to each.
+"""
+import inspect
+import json
+from unittest import mock
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+from PIL import Image
+
+from riggs_tpu.eval import metrics as JMet
+from riggs_tpu_torch.data import synthetic as TSyn
+from scripts import torch_metrics, torch_render_rig, torch_render_stage1, torch_run_pipeline
+
+from tests.test_torch_stage1_loop import one_torch_thread  # noqa: F401 (autouse)
+
+SMALL = ["--device", "cpu", "--capacity", "1024", "--node_num", "24", "--hyper_dim", "2", "--sh_degree", "1",
+         "--iterations_node_rendering", "6", "--node_warm_up", "2", "--iterations_node_sampling", "20",
+         "--iterations", "8", "--densify_from_iter", "3", "--densification_interval", "3",
+         "--skeleton_warm_up", "3", "--optimize_template_offsets_iters", "5", "--gs_densification_iterations", "4",
+         "--skeleton_max_candidates", "16"]
+
+
+def test_cli_twins_run_on_the_cpu(tmp_path, capsys):
+    out = tmp_path / "run"
+    real, sig, built, calls = TSyn.make_scene_data, inspect.signature(TSyn.make_scene_data), {}, []
+
+    def cached(**kw):
+        bound = sig.bind(**kw)
+        bound.apply_defaults()
+        key = tuple(sorted((k, str(v)) for k, v in bound.arguments.items()))
+        calls.append(key)
+        if key not in built:
+            built[key] = real(**kw)
+        return built[key]
+
+    with mock.patch.object(TSyn, "make_scene_data", cached):
+        _pipeline_and_render(out, capsys)
+    assert len(calls) == 5 and len(built) == 1
+    _metrics(tmp_path)
+
+
+def _pipeline_and_render(out, capsys):
+    torch_run_pipeline.main(["--synthetic", "--synthetic_frames", "16", "--synthetic_size", "128",
+                             "--model_path", str(out), "--test_every", "6"] + SMALL)
+    for f in ("cfg.json", "skeleton_tree.npz", "skeleton.obj", "numerical_res.txt", "checkpoints/iteration_8/state.npz",
+              "point_cloud/iteration_8/point_cloud.ply", "rig/checkpoints/iteration_6/state.npz",
+              "rig/checkpoints/iteration_8/state.npz", "rig/point_cloud/iteration_8/point_cloud.ply", "rig/cfg.json"):
+        assert (out / f).exists(), f
+    res = (out / "numerical_res.txt").read_text().splitlines()
+    assert len(res) == 1 + 4 + 1 and all(np.isfinite(float(x)) for line in res[1:] for x in line.split("\t")[1:])
+    torch_render_rig.main(["--model_path", str(out), "--synthetic", "--device", "cpu"])
+    assert "loaded full checkpoint at iteration 8" in capsys.readouterr().out
+    assert (out / "synthesis" / "render" / "numerical_res.txt").read_text() == (out / "numerical_res.txt").read_text()
+    torch_render_rig.main(["--model_path", str(out), "--synthetic", "--device", "cpu", "--mode", "time",
+                           "--n_frames", "2"])
+    torch_render_stage1.main(["--model_path", str(out), "--synthetic", "--device", "cpu"])
+    assert "loaded stage-1 checkpoint at iteration 8" in capsys.readouterr().out
+    assert (out / "synthesis_stage1" / "render" / "nodes.obj").exists()
+    torch_render_stage1.main(["--model_path", str(out), "--synthetic", "--device", "cpu", "--mode", "all",
+                              "--n_frames", "2"])
+    for d in ("synthesis/render", "synthesis/time", "synthesis_stage1/render", "synthesis_stage1/all"):
+        assert list((out / d).glob("video.*")), d
+
+
+def _metrics(tmp_path):
+    rng = np.random.default_rng(0)
+    folder = tmp_path / "m" / "test" / "ours_8"
+    for sub in ("renders", "gt"):
+        (folder / sub).mkdir(parents=True)
+    imgs = {}
+    for i in range(2):
+        for sub in ("renders", "gt"):
+            a = (rng.uniform(size=(24, 24, 3)) * 255).astype(np.uint8)
+            Image.fromarray(a).save(folder / sub / f"{i:05d}.png")
+            imgs[sub, i] = a.astype(np.float32) / 255.0
+    torch_metrics.main(["-m", str(tmp_path / "m"), "--device", "cpu"])
+    per_view = json.loads((tmp_path / "m" / "per_view.json").read_text())["ours_8"]
+    for i in range(2):
+        ref = JMet.evaluate_image(jnp.asarray(imgs["renders", i]), jnp.asarray(imgs["gt", i]))
+        got = per_view[f"{i:05d}.png"]
+        assert abs(got["psnr"] - ref["psnr"]) <= 1e-4 and abs(got["ssim"] - ref["ssim"]) <= 1e-5
+    assert set(json.loads((tmp_path / "m" / "results.json").read_text())) == {"ours_8"}
+
+
+@pytest.mark.parametrize("flag", [["--dp", "2"], ["--viewer_port", "8000"], ["--gui_port", "6009"],
+                                  ["--detect_anomaly"]])
+def test_cli_flags_of_later_items_raise(flag):
+    with pytest.raises(NotImplementedError, match="A1[01]"):
+        torch_run_pipeline.parse_args(["--synthetic"] + flag)

@@ -63,8 +63,12 @@ def test_evaluate_image_matches():
     assert set(port) == set(ref) == {"psnr", "ssim", "ms_ssim"}
     for k in ref:
         assert abs(port[k] - ref[k]) <= ATOL * max(1.0, abs(ref[k])), (k, port[k], ref[k])
-    with pytest.raises(NotImplementedError):
-        TMet.evaluate_image(torch.as_tensor(a), torch.as_tensor(b), lpips_model=object())
+    # with an LPIPS model the bundle gains lpips_<net> (tests/test_torch_lpips.py holds it to riggs_tpu)
+    lp = TMet.LpipsModel.random_init(torch.Generator().manual_seed(0), net="alex", device="cpu")
+    with_lp = TMet.evaluate_image(torch.as_tensor(a), torch.as_tensor(b), lpips_model=lp)
+    assert list(with_lp) == ["psnr", "ssim", "ms_ssim", "lpips_alex"]
+    assert {k: with_lp[k] for k in port} == port
+    assert with_lp["lpips_alex"] == float(lp(torch.as_tensor(a), torch.as_tensor(b)))
 
 
 def _quats(rng, n):

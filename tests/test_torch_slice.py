@@ -215,13 +215,20 @@ def test_random_motion_quats_match():
 
 
 def test_deferred_render_arguments_raise(avatar):
-    """with_skinning_vis is still deferred. detach_xyz and mean2d_bias are
-    ported: detach_xyz stops the image's gradient to gs.xyz (at SH degree 0
-    the colours do not see the view direction), and a zero mean2d_bias
-    leaves the image as it is and receives the screen-space gradient."""
+    """The compact and sort2 binners (ROADMAP A9) and tile sharding (A11)
+    still raise. with_skinning_vis is ported: a second render in the
+    skinning colours beside an unchanged main render. detach_xyz and
+    mean2d_bias are ported: detach_xyz stops the image's gradient to gs.xyz
+    (at SH degree 0 the colours do not see the view direction), and a zero
+    mean2d_bias leaves the image as it is and receives the screen-space
+    gradient."""
     _, _, tgs, tsk, _, tc = avatar
-    with pytest.raises(NotImplementedError):
-        TS.render_rigged(tgs, tsk, tc, t=0.0, with_skinning_vis=True)
+    for kw, item in ((dict(binning="compact"), "A9"), (dict(tile_shard_mesh=object()), "A11")):
+        with pytest.raises(NotImplementedError, match=item):
+            t_render(tc, tgs, torch.zeros(3), **kw)
+    vis = TS.render_rigged(tgs, tsk, tc, t=0.0, with_skinning_vis=True)
+    assert torch.equal(vis["render"], TS.render_rigged(tgs, tsk, tc, t=0.0)["render"])
+    assert vis["skinning_render"].shape == vis["render"].shape and not torch.equal(vis["skinning_render"], vis["render"])
     xyz = tgs.xyz.detach().requires_grad_(True)
     gs = dataclasses.replace(tgs, xyz=xyz, opacity=tgs.opacity.detach().requires_grad_(True))
     img = t_render(tc, gs, torch.zeros(3), detach_xyz=True)["render"]
@@ -252,13 +259,22 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert make_camera(np.eye(3), np.zeros(3), 32, 32, fovx=1.0, fovy=1.0, device="cpu").w2c.device.type == "cpu"
 
 
+CLI_TWINS = ("torch_run_pipeline", "torch_render_rig", "torch_metrics", "torch_render_stage1")
+
+
 def test_port_imports_no_jax():
-    """In a fresh interpreter, importing the whole port leaves jax and
-    riggs_tpu out of sys.modules; no source file of the port imports them."""
+    """In a fresh interpreter, importing the whole port and its four CLI
+    twins leaves jax and riggs_tpu out of sys.modules; no source file of
+    the port or of the twins imports them."""
     code = (
         "import importlib, pkgutil, sys, riggs_tpu_torch\n"
         "for m in pkgutil.walk_packages(riggs_tpu_torch.__path__, 'riggs_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import contextlib, io\n"
+        f"for name in {CLI_TWINS!r}:\n"  # main's imports run before its flags are read
+        "    with contextlib.redirect_stdout(io.StringIO()), contextlib.suppress(SystemExit):\n"
+        "        importlib.import_module('scripts.' + name).main(['--help'])\n"
+        "assert 'riggs_tpu_torch.io.checkpoint' in sys.modules and 'PIL.Image' in sys.modules\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'riggs_tpu' or m.startswith('riggs_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'riggs_tpu_torch.render.tiles' in sys.modules\n"
@@ -266,7 +282,8 @@ def test_port_imports_no_jax():
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
-    for f in (REPO / "riggs_tpu_torch").rglob("*.py"):
+    twins = [REPO / "scripts" / f"{name}.py" for name in CLI_TWINS]
+    for f in list((REPO / "riggs_tpu_torch").rglob("*.py")) + twins:
         src = f.read_text()
         for bad in ("import jax", "from jax", "from riggs_tpu.", "import riggs_tpu\n", "from riggs_tpu import"):
             assert bad not in src, (f, bad)

@@ -363,6 +363,15 @@ def test_train_stage2_comparison_rejects_a_planted_fault(loops, fault):
 
 
 def test_train_stage2_raises_for_what_is_not_ported():
-    for kw in (dict(model_path="x"), dict(logger=object()), dict(resume=True)):
-        with pytest.raises(NotImplementedError, match="A7"):
-            TS2.train_stage2(None, None, loop_cfg(TConfig), device="cpu", **kw)
+    """train_stage2's model_path, logger and resume are ported
+    (tests/test_torch_eval_io.py). What the stage-2 loop still lacks raises,
+    naming its item: the sharded (orbax) checkpoints and the pipeline's
+    frame-parallel --dp (ROADMAP A11)."""
+    from riggs_tpu_torch.io import checkpoint as TC
+    from scripts import torch_run_pipeline
+
+    for fn in (TC.save_checkpoint_sharded, TC.load_checkpoint_sharded):
+        with pytest.raises(NotImplementedError, match="A11"):
+            fn("x", 0, None)
+    with pytest.raises(NotImplementedError, match="A11"):
+        torch_run_pipeline.parse_args(["--synthetic", "--dp", "2"])
