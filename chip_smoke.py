@@ -123,11 +123,33 @@ Phases, each printed as it runs:
      counters zeroed just before the resume and read after the test set;
      then the forward blend calls of one test frame and its skinning render
      held to their plain versions, as in 3;
-  14. cli: scripts/torch_run_pipeline.py --synthetic as a process of its
+  14. flow: train_stage1 on the [loop] scene with flow files of the
+     avatar's own motion to each frame's neighbours (raft_neighbouring/,
+     raft_masks/), the flow term from phase B's step 10 (FLOW_WARM_UP), the
+     counters zeroed just before and read just after: the partners drawn,
+     the flow term, ms per flow step beside [loop]'s phase B, busy time and
+     idle share, the flow render's overflow; blend_cm and blend_cm_bwd held
+     to their plain versions on a flow step's own flow render (signed
+     colours), with the ladder's kernels and the rotation fit of that step
+     (FLOW_HELD); a flow step under the sync audit;
+  15. zju: a one-subject ZJU-MoCap root written from the avatar (12 frames
+     at 1024 x 1024, off-centre principal points, distortion, a seeded SMPL
+     global transform, 6890 SMPL-prior points a frame, points3d.ply,
+     thinned skeletons, two test views), read by load_scene on the card;
+     train_stage1 at scripts/run_zju.py's widths and capacity 65536 (ROADMAP
+     C5), the counters zeroed just before and read just after: ms per
+     reference-point and phase-B step, busy time and idle share, the
+     reference loss, densification past 6890 alive; the four kernels and
+     the rotation fit held on ZJU_HELD; a reference-point step under the
+     sync audit; scripts/torch_run_zju.py as a process of its own: exit 0,
+     every file of scripts/run_zju.py's chain, J, the test metrics;
+  16. cli: scripts/torch_run_pipeline.py --synthetic as a process of its
      own on the card (CLI_SCHEDULE cuts only the schedule), exit 0, every
      file scripts/run_pipeline.py writes, a finite numerical_res.txt, and
      its rig/ reloaded as scripts/torch_render_rig.py loads it, reproducing
-     that table.
+     that table; then scripts/torch_resume_stage2.py on its stage-1
+     checkpoint (its node set densified and pruned) as a process of its
+     own, stage 2 resumed to RESUME_ITERATIONS, its rig reloaded.
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without CUDA
 it exits 2 and prints no result. Imports nothing of JAX or riggs_tpu.
@@ -259,6 +281,28 @@ CLI_SCHEDULE = dict(iterations_node_rendering=40, node_warm_up=10, iterations_no
                     opacity_reset_interval=30, ladder_check_every=10, skeleton_warm_up=10,
                     optimize_template_offsets_iters=20, gs_densification_iterations=15, densify_until_iter=35)
 CLI_TEST_EVERY = 30
+# the resume twin on [cli]'s output: stage 2 resumed from its checkpoint at
+# CLI_SCHEDULE's 40 to RESUME_ITERATIONS
+RESUME_ITERATIONS = 50
+# [flow]: [loop]'s scene and schedule with warm_up 3000 -> 10, so that
+# phase B's steps 10-39 carry the flow term (after the opacity reset at 30
+# few pixels stay solid, alpha > 0.9, and the term may fall to 0); the held
+# step is on the ladder before the reset, so its blend_cm calls are the flow
+# render's alone, with a live gradient
+FLOW_WARM_UP = 10
+FLOW_HELD = {("B", 25): "flow step it=25"}
+# [zju]: a one-subject data root written from the avatar at ZJU-MoCap's
+# 1024 x 1024, ZJU_FRAMES train frames (a cut from a subject's hundreds),
+# two test views of one frame each ((camera id, frame)), SMPL's 6890 points
+ZJU_FRAMES, ZJU_SIZE, ZJU_M = 12, 1024, 6890
+ZJU_TEST_VIEWS = ((2, 2), (3, 7))
+# its train_stage1: only the schedule cut, as [loop]'s (40 reference-point
+# steps, 40 phase-B steps); held: the probe step (plain windows) and the
+# last (the ladder)
+ZJU_SCHEDULE = LOOP_SCHEDULE
+ZJU_HELD = {("B", 0): "zju probe it=0", ("B", 39): "zju ladder it=39"}
+# scripts/torch_run_zju.py's --extra cuts: [cli]'s schedule
+ZJU_CLI_SCHEDULE = CLI_SCHEDULE
 
 
 # the rotation fit (csrc/rotfit.cu) against its plain version: max |d R|
@@ -1613,7 +1657,7 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
     return launches, fres, bres, rres
 
 
-def profile_stage1(one, label, step_ms, n=3):
+def profile_stage1(one, label, step_ms, n=3, tag="[stage1]", it=STAGE1_ITS[-1]):
     """Device busy time per stage-1 step (torch.profiler), its idle share
     beside the unprofiled step time, and the six costliest kernels."""
     import torch
@@ -1627,12 +1671,12 @@ def profile_stage1(one, label, step_ms, n=3):
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     if busy <= 0:
         raise RuntimeError("the profiler saw no device time")
-    print(f"[stage1] {label}: step {step_ms:.2f} ms (host clock, synchronized, it={STAGE1_ITS[-1]}, {SIZE}x{SIZE}); "
+    print(f"{tag} {label}: step {step_ms:.2f} ms (host clock, synchronized, it={it}, {SIZE}x{SIZE}); "
           f"device busy {busy:.2f} ms (idle share {1 - busy / step_ms:.3f}), "
           f"{sum(e.count for e in kernels) // n} kernel launches per step; device ms per step by kind "
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(_by_kind(prof, n).items(), key=lambda kv: -kv[1])))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"[stage1]   {e.self_device_time_total / 1e3 / n:8.3f} ms  {e.count // n:4d} launches  {e.key[:90]}")
+        print(f"{tag}   {e.self_device_time_total / 1e3 / n:8.3f} ms  {e.count // n:4d} launches  {e.key[:90]}")
 
 
 def _site(func, text):
@@ -2208,12 +2252,12 @@ class _LoopProbe:
                                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 5
             del self.prof
 
-    def ms(self, phase):
-        """(median, mean) host ms between consecutive step ends of a phase,
-        the profiled window's steps and the one after (the profile's read)
-        left out."""
+    def ms(self, phase, since=0):
+        """(median, mean) host ms between consecutive step ends of a phase
+        from step ``since`` on, the profiled window's steps and the one after
+        (the profile's read) left out."""
         st, start = self.stamps[phase], self.profile_from[phase]
-        d = [(b - a) * 1e3 for (_, a), (it, b) in zip(st, st[1:]) if not start <= it <= start + 5]
+        d = [(b - a) * 1e3 for (_, a), (it, b) in zip(st, st[1:]) if not start <= it <= start + 5 and it >= since]
         return float(np.median(d)), float(np.mean(d))
 
 
@@ -2249,8 +2293,8 @@ def loop_phase(blend, scene, cap):
     of each phase by host clock and the device's busy time and idle share
     over 5 steps of each; then holds the four kernels and the rotation fit
     to their plain versions on the LOOP_HELD steps' inputs. Returns the
-    launch counts, the blend and rotation-fit results and the trained
-    state."""
+    launch counts, the blend and rotation-fit results, the trained state and
+    phase B's median ms per step."""
     import torch
 
     from riggs_tpu_torch.ops import geometry as GEO
@@ -2313,10 +2357,10 @@ def loop_phase(blend, scene, cap):
           f"every parameter finite; refits {final['refits']}, ladder {final['ladder']}")
     if sorted(probe.held) != sorted(LOOP_HELD):
         raise RuntimeError(f"[loop] held the blend calls of steps {sorted(probe.held)}, not {sorted(LOOP_HELD)}")
-    held, held_rot = probe.held, probe.held_rot
+    held, held_rot, b_ms = probe.held, probe.held_rot, probe.ms("B")[0]
     del probe
     rot = {label: check_rotfit(held_rot[key], f"[loop] {label}") for key, label in LOOP_HELD.items()}
-    return launches, check_loop_kernels(blend, held), rot, state
+    return launches, check_loop_kernels(blend, held), rot, state, b_ms
 
 
 class _PipelineProbe(_LoopProbe):
@@ -2701,7 +2745,7 @@ def io_phase(blend, scene, stage1_state, state, info, cfg):
 
 
 def cli_phase():
-    """Phase 14: scripts/torch_run_pipeline.py --synthetic as a process of
+    """Phase 16: scripts/torch_run_pipeline.py --synthetic as a process of
     its own on the card (CLI_SCHEDULE), then its rig/ loaded as
     scripts/torch_render_rig.py loads it and its test set rendered again:
     exit 0, every file scripts/run_pipeline.py writes, a finite
@@ -2751,7 +2795,469 @@ def cli_phase():
               f"J = {state.skel.net.n_joints}); test means {means}; numerical_res.txt reproduced: {again == text}")
         if it != n or again != text:
             raise RuntimeError(f"[cli] the reloaded rig (iteration {it}) gives\n{again}\nnot\n{text}")
+        del state
+        resume_cli(rr, out, cfg, scene)
         torch.cuda.synchronize()
+
+
+def resume_cli(rr, out, cfg, scene):
+    """scripts/torch_resume_stage2.py on [cli]'s output as a process of its
+    own: its stage-1 checkpoint (its node set densified and pruned) read,
+    stage 2 resumed from rig/'s checkpoint at CLI_SCHEDULE's length to
+    RESUME_ITERATIONS; exit 0, the files it writes, and its rig reloaded."""
+    root = Path(__file__).resolve().parent
+    n = CLI_SCHEDULE["iterations"]
+    for f in ("skeleton_tree.npz", "skeleton.obj", "numerical_res.txt"):
+        (out / f).unlink()
+    cmd = [sys.executable, str(root / "scripts" / "torch_resume_stage2.py"), "--model_path", str(out), "--iterations",
+           str(RESUME_ITERATIONS), "--test_every", str(RESUME_ITERATIONS + 1), "--synthetic_size", "128",
+           "--synthetic_frames", "16", "--synthetic_figure", "chain", "--synthetic_points", "120",
+           "--synthetic_init_points", "300"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    tail = [line for line in res.stdout.splitlines() if line.strip()][-3:]
+    print(f"[resume] torch_resume_stage2.py exit {res.returncode} in {wall:.1f} s: {tail}")
+    if res.returncode != 0 or f"restored stage-1 state from iteration {n}" not in res.stdout:
+        raise RuntimeError(f"[resume] torch_resume_stage2.py failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    want = ["skeleton_tree.npz", "skeleton.obj", "numerical_res.txt",
+            f"rig/checkpoints/iteration_{RESUME_ITERATIONS}/state.npz",
+            f"rig/point_cloud/iteration_{RESUME_ITERATIONS}/point_cloud.ply"]
+    missing = [w for w in want if not (out / w).exists()]
+    with np.load(out / "checkpoints" / f"iteration_{n}" / "state.npz") as ck:
+        nodes = ck[".warp.nodes"].shape[0]
+    state, it = rr.load_rig(out, cfg, scene, DEVICE)
+    print(f"[resume] the stage-1 checkpoint's {nodes} nodes (init_stage1 makes {cfg.model.node_num}) read; the "
+          f"resumed rig reloaded at iteration {it}, {int(state.gs.num_alive)} Gaussians, J = {state.skel.net.n_joints}")
+    if missing or it != RESUME_ITERATIONS:
+        raise RuntimeError(f"[resume] missing {missing}, or the rig reloaded at {it}")
+
+
+def _flow_files(root, scene, gs, skel, names):
+    """raft_neighbouring/<name>.flow_<partner>.npy of each train frame to its
+    +-1 neighbours: the avatar's own motion between the two frames' times
+    under the frame's camera, in pixels (render_flow's NDC displacement times
+    half the size); raft_masks/ the render's solid pixels as the
+    cycle-consistency channel, no occlusion channel. Returns the files'
+    bytes."""
+    import torch
+    from PIL import Image
+
+    from riggs_tpu_torch.models import skeleton_warp as SW
+    from riggs_tpu_torch.render.api import render_flow
+
+    (root / "raft_neighbouring").mkdir(parents=True)
+    (root / "raft_masks").mkdir()
+    fr = scene.train_frames
+    n_bytes = 0
+    with torch.no_grad():
+        d = [SW.skeleton_forward(skel, gs.xyz, float(f.fid), gs.motion_mask) for f in fr]
+        for i, f in enumerate(fr):
+            for j in (i - 1, i + 1):
+                if not 0 <= j < len(fr):
+                    continue
+                out = render_flow(f.cam, f.cam, gs, d[i]["d_xyz"], d[j]["d_xyz"], d[i]["d_rotation"],
+                                  max_per_tile=16384)
+                if int(out["overflow_tiles"]) or int(out["overflow_rect"]):
+                    raise RuntimeError(f"[flow] the flow of frame {i} to {j} was truncated")
+                size = torch.tensor([f.cam.width / 2.0, f.cam.height / 2.0], device=DEVICE)
+                name = f"{names[i]}.flow_{names[j]}"
+                np.save(root / "raft_neighbouring" / f"{name}.npy", (out["render"][..., :2] * size).cpu().numpy())
+                m = np.zeros((f.cam.height, f.cam.width, 3), np.uint8)
+                m[..., 0] = (out["alpha"] > 0.5).cpu().numpy() * 255
+                Image.fromarray(m).save(root / "raft_masks" / f"{name}.png")
+                n_bytes += sum(p.stat().st_size for p in (root / "raft_neighbouring" / f"{name}.npy",
+                                                         root / "raft_masks" / f"{name}.png"))
+    return n_bytes
+
+
+def flow_phase(blend, scene, cap, gs, skel, loop_b_ms):
+    """Phase 14: train_stage1 on the [loop] scene with RAFT-layout flow files
+    of the avatar's own motion to each frame's neighbours (FLOW_WARM_UP: the
+    flow term on phase B's steps 10-39), the counters zeroed just before and
+    read just after: the steps that drew a partner, the flow term at the
+    first and last flow step, ms per flow step against [loop]'s phase B,
+    busy time and idle share over 5 flow steps, the flow render's overflow;
+    then blend_cm and blend_cm_bwd held to their plain versions on a flow
+    step's own flow render (signed colours), the ladder's kernels and the
+    rotation fit on the same step; and a flow step under the sync audit.
+    Returns (launch counts, held kernel results, rotation-fit results)."""
+    import tempfile
+
+    import torch
+
+    from riggs_tpu_torch.data.flow import FlowStore
+    from riggs_tpu_torch.ops import geometry as GEO
+    from riggs_tpu_torch.train import stage1 as S1
+
+    names = [f"f_{i:03d}" for i in range(len(scene.train_frames))]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        n_bytes = _flow_files(root, scene, gs, skel, names)
+        flow_scene = dataclasses.replace(scene, train_image_names=names)
+        print(f"[flow] scene: [loop]'s {len(names)} frames, {2 * len(names) - 2} flow files of the avatar's motion "
+              f"to each frame's neighbours at {SIZE}x{SIZE} ({n_bytes} bytes with the masks); "
+              f"{time.perf_counter() - t0:.1f} s")
+        cfg = _stage1_config(CAPACITY)
+        for k, v in LOOP_SCHEDULE.items():
+            setattr(cfg.pipe if k == "ladder_check_every" else cfg.opt, k, v)
+        cfg.opt.warm_up = FLOW_WARM_UP
+        cfg.pipe.max_per_tile = cap
+        terms, events = [], []
+        real_step = S1.phase_b_step
+
+        def recording(*a, **k):
+            st, m = real_step(*a, **k)
+            terms.append((m["flow"], m["flow_overflow_tiles"], m["flow_overflow_rect"]))
+            return st, m
+
+        torch.cuda.synchronize()
+        blend.reset_launches()
+        GEO.reset_launches()
+        S1.phase_b_step = recording
+        t0 = time.perf_counter()
+        try:
+            with _LoopProbe(blend, held=FLOW_HELD) as probe:
+                state, _ = S1.train_stage1(flow_scene, cfg, seed=0, events=events, step_callback=probe,
+                                           source_path=tmp, device=DEVICE)
+            torch.cuda.synchronize()
+        finally:
+            S1.phase_b_step = real_step
+        wall = time.perf_counter() - t0
+        launches = dict(blend.launches, **GEO.launches)
+        drew = [e for e in events if e["event"] == "flow"]
+        flow_l1 = [float(t[0]) for t in terms]
+        of = [(int(t[1]), int(t[2])) for t in terms]
+        med, mean = probe.ms("B", since=FLOW_WARM_UP + 1)
+        busy = probe.busy["B"]
+        reset = cfg.opt.opacity_reset_interval
+        print(f"[flow] train_stage1 {wall:.1f} s: {drew[0]['partners'] if drew else 0} of "
+              f"{cfg.opt.iterations - FLOW_WARM_UP} flow steps drew a partner; flow_l1 {flow_l1[FLOW_WARM_UP]:.6f} at "
+              f"it={FLOW_WARM_UP}, {flow_l1[reset]:.6f} at it={reset} (the opacity reset's step), "
+              f"{flow_l1[-1]:.6f} at it={len(flow_l1) - 1}, steps {reset + 1}-{len(flow_l1) - 1} "
+              f"{[round(v, 7) for v in flow_l1[reset + 1:]]}; 0 before it={FLOW_WARM_UP}; flow render overflow "
+              f"(tiles, rect) summed {tuple(map(sum, zip(*of)))}")
+        print(f"[flow] phase B with the flow term: {med:.2f} ms per step (host clock, median of steps "
+              f"{FLOW_WARM_UP + 1}-39; mean {mean:.2f}), [loop]'s phase B {loop_b_ms:.2f} in this call; device busy "
+              f"{busy:.2f} ms per step over steps {PROFILE_FROM}-{PROFILE_FROM + 4} (idle share {1 - busy / med:.3f}); "
+              f"launch counters: {launches}")
+        late = [e for e in events if "overflow" in e["event"]]
+        refit_at = {e["it"] for e in events if e["event"] in ("ladder refit", "ladder fit")}
+        bad = [e for e in late if e["event"] != "overflow" or e["phase"] == "A" or e["rect"] or e["it"] not in refit_at]
+        if not drew or drew[0]["partners"] != cfg.opt.iterations - FLOW_WARM_UP:
+            raise RuntimeError(f"[flow] {drew}: every flow step must draw a partner (each frame has two)")
+        if not (max(flow_l1[:FLOW_WARM_UP]) == 0.0 and min(flow_l1[FLOW_WARM_UP:reset + 1]) > 0
+                and all(map(np.isfinite, flow_l1))):
+            raise RuntimeError(f"[flow] the flow term {flow_l1}: 0 before the warm-up's end, positive from it to "
+                               "the opacity reset, finite")
+        if any(a or b for a, b in of) or bad:
+            raise RuntimeError(f"[flow] overflow: flow render {of}, events {bad}")
+        for name in ("blend_cm", "blend_cm_bwd", "blend_permuted_gm", "blend_permuted_gm_bwd", "fit_rotations"):
+            if launches[name] <= 0:
+                raise RuntimeError(f"[flow] the flow loop never launched {name}")
+        held, held_rot = probe.held, probe.held_rot
+        del probe
+        (key, label), = FLOW_HELD.items()
+        g = held[key]["blend_cm_fwd"][0][0]
+        rgb = g[:, 6:9]
+        print(f"[flow] {label}: {len(held[key]['blend_cm_fwd'])} blend_cm call(s), the flow render's: colour rows in "
+              f"[{float(rgb.min()):.4f}, {float(rgb.max()):.4f}] (signed NDC flow, the motion mask)")
+        if not (float(g[:, 6:8].min()) < 0 < float(g[:, 6:8].max())):
+            raise RuntimeError("[flow] the held flow render's colours are not signed")
+        kernels = check_loop_kernels(blend, held, labels=FLOW_HELD, want={"blend_cm": (label,),
+                                                                          "blend_permuted_gm": (label,)}, tag="[flow]")
+        rot = check_rotfit(held_rot[key], f"[flow] {label}")
+
+        # a flow step under the sync audit: the partner's prepared flow, the step on the fitted ladder
+        store = FlowStore(tmp, names, [float(f.fid) for f in scene.train_frames],
+                          [(f.cam.height, f.cam.width) for f in scene.train_frames], device=DEVICE)
+        ladder = [e for e in events if e["event"] == "ladder"][-1]["ladder"]
+        step = S1.make_phase_b_auto(cfg)
+        draws = S1.Stage1Draws(7, DEVICE)
+        rng = np.random.default_rng(0)
+        bg = torch.ones(3, device=DEVICE)
+        fr = scene.train_frames[3]
+
+        def step_fn(flow):
+            def one():
+                nonlocal state
+                fl, fm, pfid = store.sample(3, rng)
+                f = dataclasses.replace(fr, flow=fl, flow_mask=fm, flow_partner_fid=pfid)
+                state, _ = step(state, f, bg, draws.phase_b(), it=20, use_chamfer=True, use_flow_loss=flow,
+                                max_per_tile=cap, tile_ladder=ladder)
+            return one
+
+        # the flow term's cost: the same step with and without it, in turns
+        for label, flow in (("step with the flow term", True), ("the same step without it", False)):
+            one = step_fn(flow)
+            one()
+            profile_stage1(one, label, _host_ms(one, 5), tag="[flow]", it=20)
+        one = step_fn(True)
+        sync_audit("make_phase_b_auto with the flow loss (it=20, the fitted ladder, the flow drawn from FlowStore)",
+                   one)
+    return launches, kernels, rot
+
+
+def _zju_camera(rng, angle):
+    """A 1024 x 1024 ZJU-style camera about the avatar: K with the principal
+    point tens of pixels off the centre, the world-to-camera of an arc view
+    (as [loop]'s, at 2.6 m), a seeded SMPL global transform (Rh, Th) and the
+    extrinsics that give that view once it is folded in, small seeded
+    distortion."""
+    from riggs_tpu_torch.data.zju import _rodrigues
+
+    f = ZJU_SIZE / 2 / np.tan(0.4)
+    K = np.array([[f, 0.0, ZJU_SIZE / 2 + rng.uniform(15, 35)], [0.0, f * 1.002, ZJU_SIZE / 2 - rng.uniform(15, 35)],
+                  [0.0, 0.0, 1.0]])
+    R = np.array([[np.cos(angle), 0.0, -np.sin(angle)], [0.0, -1.0, 0.0], [-np.sin(angle), 0.0, -np.cos(angle)]])
+    center = np.array([2.6 * np.sin(angle), 0.15, 2.6 * np.cos(angle)])
+    C = np.eye(4)
+    C[:3, :3], C[:3, 3] = R, -R @ center
+    Rh, Th = rng.normal(scale=0.2, size=3), rng.normal(scale=0.1, size=3)
+    G = np.eye(4)
+    G[:3, :3] = _rodrigues(Rh).T
+    G[:3, 3] = -G[:3, :3] @ Th
+    D = np.array([[rng.uniform(-0.03, -0.01), rng.uniform(0.0, 0.01), rng.uniform(-1e-3, 1e-3),
+                   rng.uniform(-1e-3, 1e-3), 0.0]])
+    return K, C, dict(intrinsics=K, extrinsics=C @ G, distortions=D), dict(Rh=Rh, Th=Th)
+
+
+def write_zju_subject(root, gs, skel):
+    """The one-subject data root <root>/377/ in the HumanNeRF layout that
+    data/zju.py reads, from the avatar: ZJU_FRAMES train frames at
+    ZJU_SIZE^2 (its render at time i / (ZJU_FRAMES - 1) from an arc camera of
+    _zju_camera, black background), masks from the render's alpha, their
+    thinned skeletons, SMPL_prior/ with ZJU_M of the avatar's Gaussians
+    (a seeded subset) posed by its skeleton at each frame's time,
+    points3d.ply the same points at rest with their colours, and two test
+    views of one frame each. Returns the subject directory."""
+    import pickle
+
+    import torch
+    from PIL import Image
+
+    from riggs_tpu_torch.camera import make_camera
+    from riggs_tpu_torch.data.dataset import thin_mask_skeleton
+    from riggs_tpu_torch.io.ply import write_ply
+    from riggs_tpu_torch.models import skeleton_warp as SW
+    from riggs_tpu_torch.ops.sh import C0
+
+    sub = root / "377"
+    rng = np.random.default_rng(11)
+    n = int(gs.num_alive)
+    idx = torch.as_tensor(np.sort(rng.choice(n, ZJU_M, replace=False)), device=DEVICE)
+    xyz = gs.xyz[idx]
+    cols = np.clip(gs.features_dc[idx, 0].cpu().numpy() * C0 + 0.5, 0.0, 1.0) * 255.0
+    p = xyz.cpu().numpy()
+    write_ply(sub / "points3d.ply", dict(x=p[:, 0], y=p[:, 1], z=p[:, 2], red=cols[:, 0], green=cols[:, 1],
+                                         blue=cols[:, 2]))
+    (sub / "SMPL_prior").mkdir()
+    black = torch.zeros(3, device=DEVICE)
+    names = [f"frame_{i:06d}" for i in range(ZJU_FRAMES)]
+    thin_s = 0.0
+
+    def view(d, items, thinned):
+        nonlocal thin_s
+        for s in ("images", "masks") + (("train_thinned",) if thinned else ()):
+            (d / s).mkdir(parents=True)
+        cameras, infos = {}, {}
+        for name, angle in items:
+            t = int(name.split("_")[-1]) / (ZJU_FRAMES - 1)
+            K, C, cameras[name], infos[name] = _zju_camera(rng, angle)
+            cam = make_camera(C[:3, :3].T, C[:3, 3], ZJU_SIZE, ZJU_SIZE, K=K, device=DEVICE)
+            out = frame(gs, skel, cam, black, t=t, max_per_tile=16384)
+            _check_frame(out, ZJU_SIZE, f"[zju] {d.name} {name}")
+            Image.fromarray((out["render"].clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy()).save(
+                d / "images" / f"{name}.png")
+            mask = (out["alpha"] > 0.5).cpu().numpy()
+            Image.fromarray(mask.astype(np.uint8) * 255).save(d / "masks" / f"{name}.png")
+            if thinned:
+                t1 = time.perf_counter()
+                pix = thin_mask_skeleton(mask).astype(np.int64)
+                thin_s += time.perf_counter() - t1
+                tm = np.zeros(mask.shape, np.uint8)
+                tm[pix[:, 0], pix[:, 1]] = 255
+                Image.fromarray(tm).save(d / "train_thinned" / f"{name}_thinned.png")
+            if not (sub / "SMPL_prior" / f"{name}.npy").exists():
+                with torch.no_grad():
+                    posed = xyz + SW.skeleton_forward(skel, gs.xyz, t, gs.motion_mask)["d_xyz"][idx]
+                np.save(sub / "SMPL_prior" / f"{name}.npy", posed.cpu().numpy())
+        for fname, obj in (("cameras.pkl", cameras), ("mesh_infos.pkl", infos)):
+            with open(d / fname, "wb") as f:
+                pickle.dump(obj, f)
+
+    angles = np.radians(np.linspace(-LOOP_ARC_DEG, LOOP_ARC_DEG, ZJU_FRAMES))
+    view(sub / "train", list(zip(names, angles)), True)
+    for cid, i in ZJU_TEST_VIEWS:
+        view(sub / "test" / f"view_{cid:02d}", [(names[i], (angles[i] + angles[i + 1]) / 2)], False)
+    print(f"[zju] wrote {sub}: {ZJU_FRAMES} train frames and {len(ZJU_TEST_VIEWS)} test views at "
+          f"{ZJU_SIZE}x{ZJU_SIZE}, {ZJU_M} SMPL-prior points a frame ({thin_s:.1f} s of thinning)")
+    return sub
+
+
+def _zju_config(cap):
+    """scripts/run_zju.py's widths (the defaults: 65536 slots, SH 3, hyper_dim
+    8; 512 nodes, the skinning MLP and template offsets on, the alpha mask
+    as the scene mask), only the schedule cut (ZJU_SCHEDULE)."""
+    from riggs_tpu_torch.train.config import Config
+
+    cfg = Config()
+    cfg.model.node_num = 512
+    cfg.model.use_skinning_weight_mlp = cfg.model.use_template_offsets = True
+    cfg.model.gt_alpha_mask_as_scene_mask = True
+    for k, v in ZJU_SCHEDULE.items():
+        setattr(cfg.pipe if k == "ladder_check_every" else cfg.opt, k, v)
+    cfg.pipe.max_per_tile = cap
+    return cfg
+
+
+def zju_phase(blend, gs, skel):
+    """Phase 15: the [zju] subject written from the avatar, load_scene on the
+    card, then train_stage1 at scripts/run_zju.py's widths (capacity 65536,
+    which riggs_tpu cannot run: ROADMAP C5), the counters zeroed just before
+    and read just after: ms per reference-point and phase-B step, busy time
+    and idle share of each, the reference loss at both ends, densification
+    past ZJU_M alive; the four kernels and the rotation fit held on two
+    phase-B steps (ZJU_HELD); a reference-point step under the sync audit;
+    then scripts/torch_run_zju.py as a process of its own on the subject.
+    Returns (launch counts, held kernel results, rotation-fit results)."""
+    import tempfile
+
+    import torch
+
+    from riggs_tpu_torch.data.scene import load_scene
+    from riggs_tpu_torch.ops import geometry as GEO
+    from riggs_tpu_torch.render.api import render
+    from riggs_tpu_torch.train import stage1 as S1
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sub = write_zju_subject(Path(tmp), gs, skel)
+        print(f"[zju] subject written in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        scene = load_scene(sub, device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        f0 = scene.train_frames[0]
+        intr = f0.cam.intrinsics.tolist()
+        print(f"[zju] load_scene {load_s:.2f} s: {len(scene.train_frames)} train and {len(scene.test_frames)} test "
+              f"frames, {len(scene.init_points)} init points, reference points {tuple(f0.reference_points.shape)}, "
+              f"thinned {int(f0.thinned_mask.sum())} pixels, principal point ({intr[2]:.1f}, {intr[3]:.1f}) in "
+              f"{f0.cam.width}x{f0.cam.height}, cameras_extent {scene.cameras_extent:.4f}")
+        got = (len(scene.train_frames), len(scene.test_frames), len(scene.init_points))
+        if got != (ZJU_FRAMES, len(ZJU_TEST_VIEWS), ZJU_M):
+            raise RuntimeError("[zju] the reader's frame or point counts differ from the subject's")
+        # the probe steps' plain window: four times the initial cloud's largest
+        # tile count (densification grows it before the ladder's fit), at least 1024
+        cfg = _zju_config(1024)
+        state0 = S1.init_stage1(scene, cfg, generator=torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+        with torch.no_grad():
+            counts = [int(render(f.cam, state0.gs, torch.zeros(3, device=DEVICE), max_per_tile=16384)["max_count"])
+                      for f in scene.train_frames[::4]]
+        cap = cfg.pipe.max_per_tile = int(-(-max(1024, 4 * max(counts)) // 128) * 128)
+        events = []
+        torch.cuda.synchronize()
+        blend.reset_launches()
+        GEO.reset_launches()
+        t0 = time.perf_counter()
+        with _LoopProbe(blend, held=ZJU_HELD) as probe:
+            state, hist = S1.train_stage1(scene, cfg, seed=0, log_every=ZJU_SCHEDULE["iterations"] - 1, state=state0,
+                                          events=events, step_callback=probe, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(blend.launches, **GEO.launches)
+        for e in events:
+            print(f"[zju] event {e}")
+        for p, it, m in hist:
+            print(f"[zju] {p} it={it}: " + " ".join(f"{k} {v:.5f}" for k, v in m.items() if k in
+                                                    ("loss", "ref_loss", "chamfer", "psnr")))
+        for p, what in (("A", "reference-point"), ("B", "phase-B")):
+            med, mean = probe.ms(p)
+            busy = probe.busy[p]
+            print(f"[zju] {what} step: {med:.2f} ms (host clock, median; mean {mean:.2f} with the events), device busy "
+                  f"{busy:.2f} ms per step over steps {PROFILE_FROM}-{PROFILE_FROM + 4} (idle share "
+                  f"{1 - busy / med:.3f})")
+        dens = [e for e in events if e["event"] == "gs densify"]
+        print(f"[zju] train_stage1 {wall:.1f} s (window {cap}, from max tile counts {counts}); launch counters: "
+              f"{launches}; alive "
+              f"{[(e['it'], e['before'], e['after']) for e in dens]}, {int(state.gs.num_alive)} of {state.gs.capacity}")
+        refs = [m["ref_loss"] for p, _, m in hist if p == "A"]
+        if not (len(refs) == 2 and refs[-1] < refs[0]):
+            raise RuntimeError(f"[zju] the reference loss did not fall: {refs}")
+        if not dens or dens[-1]["after"] <= ZJU_M or [e for e in events if e["phase"] == "A"]:
+            raise RuntimeError(f"[zju] densification never grew past {ZJU_M} alive, or phase A fired an event")
+        # the rect tiers' overflow is the cell's own (the sparse SMPL cloud's
+        # first splats span more cells than the default tiers hold at 1024^2):
+        # reported, where the reference's steps truncate silently; a window
+        # overflow must be answered by a ladder refit one step late
+        rect = [(e["it"], e["rect"]) for e in events if e["event"] == "overflow" and e["rect"]]
+        if rect:
+            print(f"[zju] overflow_rect on {len(rect)} phase-B steps (Gaussians past the rect tiers): max "
+                  f"{max(r for _, r in rect)}, at it={rect[0][0]} {rect[0][1]}, the last at it={rect[-1][0]} "
+                  f"{rect[-1][1]}")
+        refit_at = {e["it"] for e in events if e["event"] in ("ladder refit", "ladder fit")}
+        bad = [e for e in events if "overflow" in e["event"] and e["tiles"] and e["it"] not in refit_at]
+        if bad:
+            raise RuntimeError(f"[zju] steps overflowed their windows without the ladder reacting: {bad}")
+        for name in ("blend_cm", "blend_cm_bwd", "blend_permuted_gm", "blend_permuted_gm_bwd", "fit_rotations"):
+            if launches[name] <= 0:
+                raise RuntimeError(f"[zju] the loop never launched {name}")
+        held, held_rot = probe.held, probe.held_rot
+        del probe
+        labels = list(ZJU_HELD.values())
+        kernels = check_loop_kernels(blend, held, labels=ZJU_HELD, tag="[zju]",
+                                     want={"blend_cm": (labels[0],), "blend_permuted_gm": (labels[1],)})
+        rot = {label: check_rotfit(held_rot[key], f"[zju] {label}") for key, label in ZJU_HELD.items()}
+
+        step_ref = S1.make_phase_ref_auto(cfg)
+        fr = scene.train_frames[5]
+
+        def one():
+            nonlocal state
+            state, _ = step_ref(state, fr, it=1, use_chamfer=True)
+
+        one()
+        sync_audit("make_phase_ref_auto (ZJU, it=1)", one)
+        del state, scene
+        zju_cli(Path(tmp))
+    return launches, kernels, rot
+
+
+def zju_cli(root):
+    """scripts/torch_run_zju.py --data_root <root> --subjects 377 as a
+    process of its own (ZJU_CLI_SCHEDULE as --extra): exit 0, every file
+    that scripts/run_zju.py's chain writes, J, the test metrics."""
+    root_dir = Path(__file__).resolve().parent
+    out = root / "out"
+    cmd = [sys.executable, str(root_dir / "scripts" / "torch_run_zju.py"), "--data_root", str(root), "--out_root",
+           str(out), "--subjects", "377", "--extra", "--test_every", str(CLI_TEST_EVERY)]
+    for k, v in ZJU_CLI_SCHEDULE.items():
+        cmd += [f"--{k}", str(v)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=root_dir, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    tail = [line for line in res.stdout.splitlines() if line.strip()][-3:]
+    print(f"[zju] torch_run_zju.py exit {res.returncode} in {wall:.1f} s: {tail}")
+    if res.returncode != 0:
+        raise RuntimeError(f"[zju] torch_run_zju.py failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    n, sub = ZJU_CLI_SCHEDULE["iterations"], out / "377"
+    want = ["cfg.json", "skeleton_tree.npz", "skeleton.obj", "numerical_res.txt",
+            f"checkpoints/iteration_{n}/state.npz", f"point_cloud/iteration_{n}/point_cloud.ply",
+            f"rig/checkpoints/iteration_{CLI_TEST_EVERY}/state.npz", f"rig/checkpoints/iteration_{n}/state.npz",
+            f"rig/point_cloud/iteration_{n}/point_cloud.ply", "synthesis/render/numerical_res.txt"]
+    missing = [w for w in want if not (sub / w).exists()]
+    if missing or not list((sub / "synthesis" / "render").glob("video.*")):
+        raise RuntimeError(f"[zju] torch_run_zju.py did not write {missing} or the video")
+    texts = [(sub / w).read_text() for w in ("numerical_res.txt", "synthesis/render/numerical_res.txt")]
+    vals = [float(x) for text in texts for line in text.splitlines()[1:] for x in line.split("\t")[1:]]
+    with np.load(sub / "skeleton_tree.npz") as tree:
+        J = len(tree["parents"])
+    means = texts[1].splitlines()[-1]
+    print(f"[zju] run_zju chain: every file written; J = {J}; test metrics (mean row) {means!r}; the render twin's "
+          f"table equal to the pipeline's: {texts[0] == texts[1]}")
+    if not vals or not all(np.isfinite(vals)) or texts[0] != texts[1] or J < 2:
+        raise RuntimeError(f"[zju] the tables {texts} or J = {J}")
 
 
 def main() -> int:
@@ -2906,7 +3412,7 @@ def main() -> int:
     pa_launches, pa_fwd, pa_bwd, pa_rot = stage1_phase_a(blend, scene)
 
     # 11. a short train_stage1 (its own counted run)
-    loop_launches, loop_held, loop_rot, stage1_state = loop_phase(blend, scene, loop_cap)
+    loop_launches, loop_held, loop_rot, stage1_state, loop_b_ms = loop_phase(blend, scene, loop_cap)
 
     # 12. init_stage2 and a short train_stage2 from the loop's state (its own counted run)
     pipe_launches, pipe_held, pipe_state, pipe_info, pipe_cfg = pipeline_phase(blend, scene, loop_cap, stage1_state)
@@ -2915,7 +3421,13 @@ def main() -> int:
     io_launches, io_held = io_phase(blend, scene, stage1_state, pipe_state, pipe_info, pipe_cfg)
     del stage1_state, pipe_state
 
-    # 14. the CLI twin of the pipeline as a process of its own
+    # 14. train_stage1 with the optical-flow loss (its own counted run)
+    flow_launches, flow_held, flow_rot = flow_phase(blend, scene, loop_cap, gs, skel, loop_b_ms)
+
+    # 15. a ZJU-MoCap subject: the reader, the reference-point branch, the ZJU twin (its own counted run)
+    zju_launches, zju_held, zju_rot = zju_phase(blend, gs, skel)
+
+    # 16. the CLI twins of the pipeline and of the stage-2 resume as processes of their own
     cli_phase()
 
     def held(name, results=loop_held):
@@ -2944,7 +3456,8 @@ def main() -> int:
             "ms_train": train_fwd[name]["ms"], "ms_stage1": stage1_fwd[name]["ms"],
             "bound_ms_stage1": stage1_fwd[name]["bound_ms"], "launches_loop": loop_launches[name],
             "held_loop": held(name), "launches_pipeline": pipe_launches[name], "held_pipeline": held(name, pipe_held),
-            "launches_io": io_launches[name],
+            "launches_io": io_launches[name], "launches_flow": flow_launches[name], "held_flow": held(name, flow_held),
+            "launches_zju": zju_launches[name], "held_zju": held(name, zju_held),
             **({"launches_phase_a": pa_launches[name], "ms_phase_a": pa_fwd[name]["ms"],
                 "bound_ms_phase_a": pa_fwd[name]["bound_ms"], "plain_ms_phase_a": pa_fwd[name]["plain_ms"],
                 "held_io": {"max_abs_err": max(io_held["err"].values()), "ms": io_held["ms"],
@@ -2964,7 +3477,8 @@ def main() -> int:
             "bound_term": r["bound_term"], "ms_stage1": stage1_bwd[name]["ms"],
             "bound_ms_stage1": stage1_bwd[name]["bound_ms"], "launches_loop": loop_launches[name],
             "held_loop": held(name), "launches_pipeline": pipe_launches[name], "held_pipeline": held(name, pipe_held),
-            "launches_io": io_launches[name],
+            "launches_io": io_launches[name], "launches_flow": flow_launches[name], "held_flow": held(name, flow_held),
+            "launches_zju": zju_launches[name], "held_zju": held(name, zju_held),
             **({"launches_phase_a": pa_launches[name], "ms_phase_a": pa_bwd[name]["ms"],
                 "bound_ms_phase_a": pa_bwd[name]["bound_ms"], "plain_ms_phase_a": pa_bwd[name]["plain_ms"]}
                if name == "blend_cm_bwd" else {}),
@@ -2993,7 +3507,8 @@ def main() -> int:
     # the rotation fit: no Pallas kernel (a stock SVD in riggs_tpu, C2a);
     # times on the loop's last held phase-B step, launches of the loop
     r = loop_rot["phase B ladder it=39"]
-    rot_runs = {"stage1": stage1_rot, "phase_a": pa_rot, **{f"loop {k}": v for k, v in loop_rot.items()}}
+    rot_runs = {"stage1": stage1_rot, "phase_a": pa_rot, **{f"loop {k}": v for k, v in loop_rot.items()},
+                "flow": flow_rot, **{f"zju {k}": v for k, v in zju_rot.items()}}
     rows.append({
         "name": "fit_rotations", "route": "cuda", "source": "riggs_tpu_torch/csrc/rotfit.cu",
         "replaces": "riggs_tpu/ops/geometry.py:41", "replaces_kind": "stock op in riggs_tpu (jnp.linalg.svd), C2a",
@@ -3001,6 +3516,7 @@ def main() -> int:
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"], "batch": r["batch"], "launches_stage1": stage1_launches["fit_rotations"],
         "launches_phase_a": pa_launches["fit_rotations"], "launches_io": io_launches["fit_rotations"],
+        "launches_flow": flow_launches["fit_rotations"], "launches_zju": zju_launches["fit_rotations"],
         "planted": stage1_rot["planted"],
         "max_det_err": max(v["det_err"] for v in rot_runs.values()),
         "held": {k: {key: v[key] for key in ("fits", "ill_posed", "err", "scaled_err", "ms", "plain_ms", "library_ms",

@@ -5,8 +5,9 @@ Port of ``riggs_tpu/data/dataset.py``: the ``Frame`` container (:24-38),
 (:70+). A frame carries its camera, the target image and the optional
 supervision the training steps read: the alpha mask and the thinned
 2D-skeleton pixels, padded to a fixed count with a validity mask, and the
-semantic part labels that skeleton extraction reads. The
-readers of real datasets come with a later slice.
+semantic part labels that skeleton extraction reads, the SMPL reference
+points of a ZJU-MoCap frame, and the optical flow to a partner frame that
+``train_stage1`` attaches on the frame's device each step of a flow scene.
 
 ``SceneData`` keeps the reference's fields, with the point cloud first
 (``SceneData(points, colors)`` is a scene with no frames).
@@ -30,8 +31,12 @@ class Frame:
     thinned: torch.Tensor | None = None  # (P, 2) (row, col) float32, padded
     thinned_mask: torch.Tensor | None = None  # (P,) bool
     semantic_seg: torch.Tensor | None = None  # (H, W) int32 part labels
-    # SMPL reference points (ZJU scenes; their training branch is not ported)
-    reference_points: torch.Tensor | None = None  # (M, 3)
+    reference_points: torch.Tensor | None = None  # (M, 3) SMPL vertex priors (ZJU-MoCap)
+    # optical-flow supervision: the flow to a partner frame in pixels, its
+    # validity (cycle-consistent or occlusion-flagged) and the partner's time
+    flow: torch.Tensor | None = None  # (H, W, 2)
+    flow_mask: torch.Tensor | None = None  # (H, W) float 0/1
+    flow_partner_fid: torch.Tensor | None = None  # ()
 
     @property
     def fid(self) -> torch.Tensor:

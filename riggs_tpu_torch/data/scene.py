@@ -1,27 +1,16 @@
 """Scene loading dispatch: pick the reader from the source directory's files.
 
-Port of ``riggs_tpu/data/scene.py``. ``transforms_train.json`` means a
-Blender / D-NeRF scene (``data/blender.py``). The other layouts the
-reference reads (ZJU, nerfies, COLMAP and the three of ``more_readers``)
-are recognised by the same files and raise: their readers are not ported
-yet (ROADMAP A8). No layout falls back to the synthetic scene.
+Port of ``riggs_tpu/data/scene.py``, the same files in the same order:
+``transforms_train.json`` a Blender / D-NeRF scene, ``train/cameras.pkl``
+ZJU-MoCap, ``dataset.json`` nerfies, ``sparse/`` or ``colmap_sparse/``
+COLMAP, ``cameras_sphere.npz`` DTU, ``poses_bounds.npy`` Plenoptic video,
+``train_meta.json`` CMU Panoptic. No layout falls back to another.
 """
 from __future__ import annotations
 
 from pathlib import Path
 
 from riggs_tpu_torch.data.dataset import SceneData
-
-# file or directory -> the reference's reader, for each layout not ported yet
-_NOT_PORTED = (
-    ("train/cameras.pkl", "ZJU-MoCap (data/zju.py)"),
-    ("dataset.json", "nerfies (data/nerfies.py)"),
-    ("sparse", "COLMAP (data/colmap.py)"),
-    ("colmap_sparse", "COLMAP (data/colmap.py)"),
-    ("cameras_sphere.npz", "DTU (data/more_readers.py)"),
-    ("poses_bounds.npy", "Plenoptic video (data/more_readers.py)"),
-    ("train_meta.json", "CMU Panoptic (data/more_readers.py)"),
-)
 
 
 def load_scene(source_path: str | Path, white_background: bool = False, resolution: int = 1, **kwargs) -> SceneData:
@@ -32,7 +21,28 @@ def load_scene(source_path: str | Path, white_background: bool = False, resoluti
         from riggs_tpu_torch.data.blender import load_blender_scene
 
         return load_blender_scene(p, white_background=white_background, resolution=max(resolution, 1), **kwargs)
-    for marker, reader in _NOT_PORTED:
-        if (p / marker).exists():
-            raise NotImplementedError(f"{source_path}: the {reader} reader is not ported yet (ROADMAP A8)")
+    if (p / "train" / "cameras.pkl").exists():
+        from riggs_tpu_torch.data.zju import load_zju_scene
+
+        return load_zju_scene(p, white_background=white_background, **kwargs)
+    if (p / "dataset.json").exists():
+        from riggs_tpu_torch.data.nerfies import load_nerfies_scene
+
+        return load_nerfies_scene(p, white_background=white_background, **kwargs)
+    if (p / "sparse").exists() or (p / "colmap_sparse").exists():
+        from riggs_tpu_torch.data.colmap import load_colmap_scene
+
+        return load_colmap_scene(p, resolution=max(resolution, 1), **kwargs)
+    if (p / "cameras_sphere.npz").exists():
+        from riggs_tpu_torch.data.more_readers import load_dtu_scene
+
+        return load_dtu_scene(p, white_background=white_background, **kwargs)
+    if (p / "poses_bounds.npy").exists():
+        from riggs_tpu_torch.data.more_readers import load_plenoptic_scene
+
+        return load_plenoptic_scene(p, white_background=white_background, **kwargs)
+    if (p / "train_meta.json").exists():
+        from riggs_tpu_torch.data.more_readers import load_cmu_scene
+
+        return load_cmu_scene(p, white_background=white_background, **kwargs)
     raise FileNotFoundError(f"could not infer scene type for {source_path}")

@@ -7,7 +7,8 @@ scaling_modifier, the per-attribute stop-gradients (``detach_*``) and
 statistics; ``tier_kwargs``; and ``render_auto``'s capacity escalation of
 the window (``max_per_tile``), the rect cap (``max_tiles_per_gaussian``)
 and the instance budget (``max_instances``, which the runs binner counts
-in ``overflow_budget``).
+in ``overflow_budget``); ``render_flow``, the screen-space scene flow as
+colours for the optical-flow loss.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from riggs_tpu_torch.camera.camera import Camera, camera_center
+from riggs_tpu_torch.camera.camera import Camera, camera_center, project_points
 from riggs_tpu_torch.device import constant
 from riggs_tpu_torch.models.gaussians import Gaussians
 from riggs_tpu_torch.ops.quaternion import quat_multiply, quat_normalize
@@ -193,3 +194,44 @@ def render_auto(
                 f"overflow_rect={rect_of}); returning truncated render"
             )
             return out
+
+
+def _ndc_xy(cam: Camera, points: torch.Tensor) -> torch.Tensor:
+    """World points (N, 3) -> NDC xy under ``cam`` (the inverse of the pixel
+    viewport map)."""
+    pix, _ = project_points(cam, points)
+    return (2.0 * pix + 1.0) / constant((float(cam.width), float(cam.height)), pix) - 1.0
+
+
+def render_flow(
+    cam1: Camera,
+    cam2: Camera,
+    gs: Gaussians,
+    d_xyz1: torch.Tensor,
+    d_xyz2: torch.Tensor,
+    d_rotation1: torch.Tensor | float = 0.0,
+    max_per_tile: int = 1024,
+) -> dict[str, Any]:
+    """The screen-space scene flow rendered as colours: channels 0-1 the NDC
+    displacement of each Gaussian from (cam1, d_xyz1) to (cam2, d_xyz2),
+    channel 2 its motion mask; composited with the Gaussians placed by
+    d_xyz1 under cam1 on a zero background, plain windows of
+    ``max_per_tile``. The colours are signed. The displacement's positions
+    are detached from ``gs.xyz``. Unlike the reference's, the result carries
+    the tiled renderer's ``overflow_tiles`` and ``overflow_rect``, so a
+    truncated flow render is seen. (The reference's scaling, scale_const
+    and oracle options have no caller and are not ported.)"""
+    xyz = gs.xyz.detach()
+    flow = torch.cat([_ndc_xy(cam2, xyz + d_xyz2) - _ndc_xy(cam1, xyz + d_xyz1), gs.motion_mask], dim=-1)
+    rotations = quat_normalize(gs.rotation + d_rotation1)
+    out = _tiles.rasterize_tiled(cam1, gs.xyz + d_xyz1, flow, gs.get_opacity[:, 0], gs.get_scaling, rotations,
+                                 constant((0.0, 0.0, 0.0), xyz), alive=gs.alive, max_per_tile=max_per_tile)
+    return {
+        "render": out["image"],
+        "depth": out["depth"],
+        "alpha": out["alpha"],
+        "radii": out["radii"],
+        "visibility_filter": out["radii"] > 0,
+        "overflow_tiles": out["overflow_tiles"],
+        "overflow_rect": out["overflow_rect"],
+    }

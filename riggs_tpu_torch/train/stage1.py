@@ -1,7 +1,6 @@
 """Stage-1 trainer: canonical Gaussians and the node deformation field.
 
-Port of ``riggs_tpu/train/stage1.py`` but for the ZJU reference-point phase
-(``phase_ref_step``, ROADMAP A9):
+Port of ``riggs_tpu/train/stage1.py``:
 
   * ``Stage1State``, ``init_stage1`` and ``stage1_lr_fns_f32`` (the float32
     twin of ``stage1_lr_fns_jit``);
@@ -9,8 +8,12 @@ Port of ``riggs_tpu/train/stage1.py`` but for the ZJU reference-point phase
     ``phase_a_step`` (photometric loss, the 2D-skeleton chamfer of the
     projected nodes, the elastic, acceleration and ARAP regularizers) and
     ``make_phase_a_auto``;
-  * phase B, the Gaussians deformed by the node warp: ``stage1_frame_loss``,
-    ``phase_b_step``, ``phase_b_flags`` and ``make_phase_b_auto``;
+  * phase B, the Gaussians deformed by the node warp: ``stage1_frame_loss``
+    (with the optical-flow term of a flow scene), ``phase_b_step``,
+    ``phase_b_flags`` and ``make_phase_b_auto``;
+  * phase A of a ZJU-MoCap scene, where the SMPL reference points supervise
+    the warp alone: ``phase_ref_loss``, ``phase_ref_step`` and
+    ``make_phase_ref_auto``;
   * the node-set events: ``downsample_nodes`` (FPS over the trajectories),
     ``node_densify_prune`` and ``finalize_nodes``, host rebuilds that run
     once per event; ``Stage1TrainView`` for the Gaussian densification;
@@ -23,9 +26,17 @@ A's detach, chamfer and regularizer toggles are 0/1 weights as the
 reference writes them, phase B's ``warm`` detaches d_xyz and d_rotation
 (the same values and gradients). Every random draw is an argument: the
 regularizers' sample times and the split noise, drawn by the caller (the
-loop's ``Stage1Draws``, or a test replaying the reference's keys).
-``use_flow_loss`` raises: the flow render is not ported yet (A9). Unlike
-the reference, both steps report ``overflow_tiles`` and ``overflow_rect``.
+loop's ``Stage1Draws``, or a test replaying the reference's keys). Unlike
+the reference, the rendering steps report ``overflow_tiles`` and
+``overflow_rect``, the flow render's too (``flow_overflow_tiles``,
+``flow_overflow_rect``).
+
+The reference-point loss is the reference's where the reference runs it,
+at ``capacity`` equal to the number M of reference points (ROADMAP C5:
+the reference subtracts the (capacity, 3) positions from the (M, 3) points,
+so its own ZJU script, at the default capacity, fails at the first step).
+The port puts the points in the first M slots, where ``create_from_pcd``
+puts the M points of the scene's cloud, and averages over the alive slots.
 
 The warp's parameters are its ``nn.Module``'s own and are updated in place
 (``NodeWarp.replace_params``): a step consumes the state it is given.
@@ -33,20 +44,21 @@ The warp's parameters are its ``nn.Module``'s own and are updated in place
 from __future__ import annotations
 
 import dataclasses
-import pathlib
+import math
 
 import numpy as np
 import torch
 
 from riggs_tpu_torch.camera.camera import project_nodes_2d
 from riggs_tpu_torch.data.dataset import Frame, SceneData
-from riggs_tpu_torch.device import resolve_device
+from riggs_tpu_torch.data.flow import FlowStore
+from riggs_tpu_torch.device import constant, resolve_device
 from riggs_tpu_torch.models import gaussians as G
 from riggs_tpu_torch.models import node_warp as NW
 from riggs_tpu_torch.models.deform_mlp import DeformNetworkDef
 from riggs_tpu_torch.ops.fps import farthest_point_sample
 from riggs_tpu_torch.ops.knn import chamfer_distance
-from riggs_tpu_torch.render.api import render, tier_kwargs
+from riggs_tpu_torch.render.api import render, render_flow, tier_kwargs
 from riggs_tpu_torch.render.ladder import LadderPolicy
 from riggs_tpu_torch.train import losses as L
 from riggs_tpu_torch.train import optim as O
@@ -157,9 +169,12 @@ def stage1_frame_loss(
     """The phase-B per-frame loss. ``params`` is ``{"gs": ..., "warp": ...}``
     in the ``params_dict`` trees (``params["warp"]`` is written into
     ``state.warp`` unless it holds the module's own parameters); ``arap_t``
-    the ARAP sample times. Returns (loss, (render output, aux losses))."""
-    if use_flow_loss:
-        raise NotImplementedError("the optical-flow loss needs render_flow, not ported yet (ROADMAP A9)")
+    the ARAP sample times. With ``use_flow_loss`` and a frame that carries
+    flow, the scene flow to the partner frame's time is rendered on plain
+    windows and L1-matched to the frame's flow in NDC where the render is
+    solid (alpha > 0.9) and the flow valid, weighted by the pair's time gap
+    and by how well the photometric render explains the pixel. Returns
+    (loss, (render output, aux losses))."""
     gs = state.gs.replace_params(params["gs"])
     warp = state.warp.replace_params(params["warp"])
     d = NW.warp_forward(warp, gs.xyz.detach(), frame.fid, gs.feature, gs.motion_mask,
@@ -179,6 +194,20 @@ def stage1_frame_loss(
     aux = {"img_loss": loss}
     aux["arap"] = NW.arap_loss(warp, arap_t)
     loss = loss + lambda_arap * aux["arap"]
+    if use_flow_loss and frame.flow is not None:
+        d2 = NW.warp_forward(warp, gs.xyz.detach(), frame.flow_partner_fid, gs.feature, gs.motion_mask,
+                             local_frame=warp.net.local_frame)
+        fout = render_flow(frame.cam, frame.cam, gs, d_xyz, d2["d_xyz"], d_rot, max_per_tile=max_per_tile)
+        gt_flow_ndc = frame.flow / constant((float(frame.cam.width), float(frame.cam.height)), frame.flow) * 2.0
+        pair_w = torch.clamp(torch.cos(torch.abs(frame.fid - frame.flow_partner_fid) * math.pi / 2.0), 0.2, 1.0)
+        solid = fout["alpha"] > 0.9
+        # down-weight the pixels the photometric render explains poorly
+        l1w = torch.cos(torch.mean(torch.abs(out["render"].detach() - frame.image), dim=-1) * math.pi / 2.0)
+        m = (solid & (frame.flow_mask > 0)).to(torch.float32) * pair_w * l1w
+        flow_l1 = L.l1_loss(m[..., None] * gt_flow_ndc, m[..., None] * fout["render"][..., :2])
+        loss = loss + lambda_flow * flow_l1
+        aux["flow"] = flow_l1
+        out = dict(out, flow_overflow_tiles=fout["overflow_tiles"], flow_overflow_rect=fout["overflow_rect"])
     if use_motion_loss and frame.alpha_mask is not None:
         # the motion mask as colour; every other attribute detached, plain
         # windows (the reference renders this pass without the ladder)
@@ -251,19 +280,25 @@ def phase_b_step(
     metrics["overflow_tiles"] = out["overflow_tiles"]
     metrics["overflow_rect"] = out["overflow_rect"]
     metrics["tile_counts"] = out["tile_counts"]
+    for k in ("flow_overflow_tiles", "flow_overflow_rect"):
+        if k in out:
+            metrics[k] = out[k]
     return new_state, metrics
 
 
 def phase_b_flags(cfg: Config, it: int) -> dict:
     """The schedules of iteration ``it`` as ``make_phase_b_auto`` derives
     them (keyword arguments of ``stage1_frame_loss`` and ``phase_b_step``):
-    the ARAP and motion-mask lambdas (float32 landmark interpolation), the
-    chamfer lambda, the warm-up detach, the SH degree and the render tiers."""
+    the ARAP, motion-mask and optical-flow lambdas (float32 landmark
+    interpolation; the flow's weighs only a step with ``use_flow_loss``),
+    the chamfer lambda, the warm-up detach, the SH degree and the render
+    tiers."""
     o, pipe = cfg.opt, cfg.pipe
     return dict(
         lambda_arap=S.landmark_interpolate_f32(NW.LAMBDA_ARAP_LANDMARKS, NW.LAMBDA_ARAP_STEPS, it),
         lambda_motion=S.landmark_interpolate_f32(o.lambda_motion_mask_landmarks, o.lambda_motion_mask_steps,
                                                  it, "log"),
+        lambda_flow=S.landmark_interpolate_f32(o.lambda_optical_landmarks, o.lambda_optical_steps, it),
         lambda_chamfer=o.lambda_deformed_node_prjection,
         warm=it < o.warm_up,
         active_sh=min(it // o.oneupSHdegree_step, cfg.model.sh_degree),
@@ -410,6 +445,69 @@ def make_phase_a_auto(cfg: Config, time_interval: float):
             state, frame, bg, gauss_lrs(it), warp_lrs(it), reg_t, time_interval,
             lambda_dssim=lambda_dssim, max_per_tile=max_per_tile, **phase_a_flags(cfg, it),
         )
+        return dataclasses.replace(new_state, it=state.it + 1), metrics
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Phase A of a ZJU-MoCap scene: the reference points supervise the warp
+# ---------------------------------------------------------------------------
+
+
+def phase_ref_loss(warp_params: dict, state: Stage1State, frame: Frame, lambda_chamfer: float = 1e-3,
+                   use_chamfer: bool = True):
+    """The reference-point loss: the warp's d_xyz of the (detached,
+    frozen) Gaussians against the frame's M reference points minus their
+    positions, squared and averaged over the alive slots' coordinates, the
+    points standing in the first M slots; plus the chamfer of the projected
+    deformed nodes against the thinned skeleton. ``warp_params`` is written
+    into ``state.warp`` unless it holds the module's own parameters.
+    Returns (loss, aux losses)."""
+    warp = state.warp.replace_params(warp_params)
+    gs = state.gs
+    d = NW.warp_forward(warp, gs.xyz.detach(), frame.fid, gs.feature, gs.motion_mask,
+                        local_frame=warp.net.local_frame)
+    ref = frame.reference_points
+    if ref.shape[0] > gs.capacity:
+        raise ValueError(f"{ref.shape[0]} reference points do not fit {gs.capacity} Gaussian slots (ROADMAP C5)")
+    gt_d_xyz = torch.nn.functional.pad(ref, (0, 0, 0, gs.capacity - ref.shape[0])) - gs.xyz.detach()
+    sq = torch.where(gs.alive[:, None], (gt_d_xyz - d["d_xyz"]) ** 2, constant(0.0, gt_d_xyz))
+    loss = sq.sum() / (gs.alive.sum() * 3)
+    aux = {"ref_loss": loss}
+    if use_chamfer and frame.thinned is not None:
+        proj = project_nodes_2d(frame.cam, d["d_nodes"])
+        cd = chamfer_distance(proj, frame.thinned, y_mask=frame.thinned_mask, norm=1)
+        loss = loss + lambda_chamfer * cd
+        aux["chamfer"] = cd
+    return loss, aux
+
+
+def phase_ref_step(state: Stage1State, frame: Frame, lrs_warp: dict, lambda_chamfer: float = 1e-3,
+                   use_chamfer: bool = True):
+    """One reference-point step: value and gradient of ``phase_ref_loss``
+    in the warp alone, Adam on the warp; the Gaussians stay as they are. It
+    renders nothing (the reference's ``bg`` and ``max_per_tile`` go unused,
+    so the port takes neither). Returns (new state, metrics)."""
+    params = state.warp.params_dict()
+    loss, aux = phase_ref_loss(params, state, frame, lambda_chamfer, use_chamfer)
+    gp = O.grad_tree(loss, params)
+    with torch.no_grad():
+        new_p, opt_warp = O.adam_update(gp, state.opt_warp, params, lrs_warp)
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+    return dataclasses.replace(state, warp=state.warp.replace_params(new_p), opt_warp=opt_warp), metrics
+
+
+def make_phase_ref_auto(cfg: Config):
+    """The reference-point step with the warp's learning rates of the host
+    iteration ``it`` (``stage1_lr_fns_f32``) and the config's chamfer
+    lambda; it increments the device ``state.it``."""
+    _, warp_lrs = stage1_lr_fns_f32(cfg)
+
+    def step(state, frame, *, it: int, use_chamfer=True):
+        new_state, metrics = phase_ref_step(state, frame, warp_lrs(it),
+                                            lambda_chamfer=cfg.opt.lambda_deformed_node_prjection,
+                                            use_chamfer=use_chamfer)
         return dataclasses.replace(new_state, it=state.it + 1), metrics
 
     return step
@@ -563,6 +661,11 @@ class Stage1Draws:
             "arap": NW.arap_sample_times(self.gen, device=self.device),
         }
 
+    def phase_ref(self) -> None:
+        """A reference-point step draws nothing (the reference splits its
+        key before the branch all the same: a replay of its chain splits
+        here)."""
+
     def phase_b(self) -> torch.Tensor:
         """A phase-B step's ARAP sample times."""
         return NW.arap_sample_times(self.gen, device=self.device)
@@ -572,10 +675,12 @@ class Stage1Draws:
         return G.split_noise(capacity, generator=self.gen, device=self.device)
 
 
-def _overflow(metrics: dict) -> tuple[int, int]:
-    """A step's (overflow_tiles, overflow_rect), read in one copy."""
-    a, b = torch.stack([metrics["overflow_tiles"], metrics["overflow_rect"]]).tolist()
-    return int(a), int(b)
+def _overflow(metrics: dict) -> tuple[int, ...]:
+    """A step's (overflow_tiles, overflow_rect), and its flow render's two
+    counters (0 where it rendered none), read in one copy."""
+    keys = ("overflow_tiles", "overflow_rect", "flow_overflow_tiles", "flow_overflow_rect")
+    vals = torch.stack([metrics[k] for k in keys if k in metrics]).tolist()
+    return tuple(int(v) for v in vals) + (0,) * (len(keys) - len(vals))
 
 
 def _gs_densify(state: Stage1State, draws, o, extent: float, node: bool) -> Stage1State:
@@ -586,14 +691,6 @@ def _gs_densify(state: Stage1State, draws, o, extent: float, node: bool) -> Stag
     if node:
         return dataclasses.replace(state, node_gs=st.gs, opt_node=st.opt, stats_node=st.stats)
     return dataclasses.replace(state, gs=st.gs, opt_gs=st.opt, stats_gs=st.stats)
-
-
-def _has_flow_files(source_path, image_names) -> bool:
-    """Whether ``raft_neighbouring/`` holds a flow file of a train image, the
-    condition under which the reference's loop trains with optical flow."""
-    flow_dir = pathlib.Path(source_path) / "raft_neighbouring"
-    names = [e.name for e in flow_dir.iterdir()] if flow_dir.exists() else []
-    return any(n.startswith(name + ".") for name in image_names for n in names)
 
 
 def train_stage1(
@@ -617,34 +714,41 @@ def train_stage1(
     when ``progressive_train_node``), the node Gaussians densified every
     ``densification_interval`` before ``iterations_node_sampling``, then
     ``downsample_nodes`` at that step and ``finalize_nodes`` at the end.
-    Phase B (``iterations`` steps, ``it`` from 0): ``make_phase_b_auto``
-    steps with ``LadderPolicy`` riding the first steps; each step's
-    overflow is read one step late (the host never waits for the step it
-    just launched) and refits the ladder as the reference's triggers say;
+    A scene whose frames carry reference points (ZJU-MoCap) trains phase A
+    with ``make_phase_ref_auto`` instead: no render, no node event, no
+    ``finalize_nodes``; its point count must equal the scene's cloud's, or
+    the loop raises a ValueError (ROADMAP C5). Phase B (``iterations``
+    steps, ``it`` from 0): ``make_phase_b_auto`` steps with ``LadderPolicy``
+    riding the first steps; each step's overflow is read one step late
+    (the host never waits for the step it just launched) and refits the
+    ladder as the reference's triggers say;
     node densify/prune, Gaussian densification (with ``anticipate``) and
     opacity resets with fresh opacity moments. ``history`` holds
-    (phase, it, scalar metrics) every ``log_every`` steps. A
-    ``source_path`` whose ``raft_neighbouring/`` holds a train image's flow
-    file (the reference then trains with optical flow) and a scene with
-    reference points raise: their branches are not ported (A9).
+    (phase, it, scalar metrics) every ``log_every`` steps. When
+    ``raft_neighbouring/`` under ``source_path`` holds a flow file of a
+    train image, phase B trains with the optical-flow loss: from the
+    warm-up's end, while its lambda is positive, each step draws one of
+    its frame's flows (``FlowStore``, from the frame sampler's numpy
+    generator, after the frame); a step without one carries zero flow, and
+    every step keeps one signature.
 
     ``state`` replaces ``init_stage1``'s (seeded from ``seed``), ``draws``
     the ``Stage1Draws(seed)`` of the random draws. ``events``, when given,
     receives one dict per event: densifications with the alive counts
     before and after, node sampling and densify/prune with the node counts,
-    ladder fits, and every step that overflowed. ``step_callback(state,
-    it, phase)``, when given, is called after every step of both phases
+    ladder fits, every step that overflowed (the flow render's as "flow
+    overflow"), and at the end of a flow run the number of steps that drew
+    a partner. ``step_callback(state, it, phase)``, when given, is called after every step of both phases
     (``phase`` "A" or "B") and that step's events; the reference calls its
     ``step_callback(state, it)`` in phase B only. Runs on ``cuda`` unless
     ``device`` says otherwise."""
     o = cfg.opt
     dev = resolve_device(device)
     frames = scene.train_frames
-    if frames and frames[0].reference_points is not None:
-        raise NotImplementedError("the ZJU reference-point phase (phase_ref_step) is not ported yet (ROADMAP A9)")
-    if source_path is not None and scene.train_image_names is not None and _has_flow_files(
-            source_path, scene.train_image_names):
-        raise NotImplementedError("the optical-flow store (FlowStore) is not ported yet (ROADMAP A9)")
+    use_ref_points = bool(frames) and frames[0].reference_points is not None
+    if use_ref_points and frames[0].reference_points.shape[0] != len(scene.init_points):
+        raise ValueError(f"{frames[0].reference_points.shape[0]} reference points against a cloud of "
+                         f"{len(scene.init_points)}: the points must be the cloud's, slot by slot (ROADMAP C5)")
     if state is None:
         state = init_stage1(scene, cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
     draws = Stage1Draws(seed, dev) if draws is None else draws
@@ -658,15 +762,24 @@ def train_stage1(
     # ---- phase A ----------------------------------------------------------
     sampler = FrameSampler(frames, rng)
     step_a = make_phase_a_auto(cfg, ti)
+    step_ref = make_phase_ref_auto(cfg)
     prev = None  # (it, metrics) of the previous step: its overflow is read a step late
     for it in range(o.iterations_node_rendering):
         frame = frames[sampler.sample(it, o.progressive_train_node, o.progressive_stage_ratio,
                                       o.progressive_stage_steps,
                                       warmup_until=o.node_warm_up if o.progressive_train_node else 0)]
+        if use_ref_points:
+            draws.phase_ref()
+            state, metrics = step_ref(state, frame, it=it, use_chamfer=frame.thinned is not None)
+            if log_every and it % log_every == 0:
+                history.append(("A", it, {k: float(v) for k, v in metrics.items()}))
+            if step_callback is not None:
+                step_callback(state, it, "A")
+            continue
         state, metrics = step_a(state, frame, bg, draws.phase_a(frame.fid, ti), it=it, lambda_dssim=o.lambda_dssim,
                                 max_per_tile=cfg.pipe.max_per_tile)
         if prev is not None:
-            of_t, of_r = _overflow(prev[1])
+            of_t, of_r = _overflow(prev[1])[:2]
             if of_t or of_r:
                 log(phase="A", it=prev[0], event="overflow", tiles=of_t, rect=of_r)
         prev = (it, metrics)
@@ -684,13 +797,20 @@ def train_stage1(
         if step_callback is not None:
             step_callback(state, it, "A")
     if prev is not None:
-        of_t, of_r = _overflow(prev[1])
+        of_t, of_r = _overflow(prev[1])[:2]
         if of_t or of_r:
             log(phase="A", it=prev[0], event="overflow", tiles=of_t, rect=of_r)
-    if o.iterations_node_rendering > o.iterations_node_sampling:
+    if not use_ref_points and o.iterations_node_rendering > o.iterations_node_sampling:
         state = finalize_nodes(state)
 
     # ---- phase B ----------------------------------------------------------
+    flow_store = None
+    if source_path is not None and scene.train_image_names is not None:
+        fs = FlowStore(source_path, scene.train_image_names, [float(f.fid) for f in frames],
+                       [(f.cam.height, f.cam.width) for f in frames], device=dev)
+        if any(fs.has_flow(i) for i in range(len(frames))):
+            flow_store = fs
+    n_partners = 0
     sampler = FrameSampler(frames, rng)
     ladder_pol = None
     if cfg.pipe.use_tile_ladder and cfg.pipe.rasterizer == "tiled":
@@ -702,6 +822,15 @@ def train_stage1(
     use_motion = o.gt_alpha_mask_as_dynamic_mask and bool(frames) and frames[0].alpha_mask is not None
     prev = None
 
+    def late_overflow(p_it, p_metrics) -> int:
+        """Log a step's overflow, read a step late; its render's overflow_tiles."""
+        of_t, of_r, ff_t, ff_r = _overflow(p_metrics)
+        if of_t or of_r:
+            log(phase="B", it=p_it, event="overflow", tiles=of_t, rect=of_r)
+        if ff_t or ff_r:
+            log(phase="B", it=p_it, event="flow overflow", tiles=ff_t, rect=ff_r)
+        return of_t
+
     def observe(p_it, p_metrics, of_t):
         old = ladder_pol.ladder
         ladder_pol.observe(p_metrics["tile_counts"].cpu().numpy(), of_t)
@@ -710,17 +839,23 @@ def train_stage1(
                 refits=ladder_pol.refits)
 
     for it in range(o.iterations):
-        frame = frames[sampler.sample(it, o.progressive_train, o.progressive_stage_ratio, o.progressive_stage_steps)]
+        fidx = sampler.sample(it, o.progressive_train, o.progressive_stage_ratio, o.progressive_stage_steps)
+        frame = frames[fidx]
+        if flow_store is not None:
+            sampled = None
+            if it >= o.warm_up and S.landmark_interpolate(o.lambda_optical_landmarks, o.lambda_optical_steps, it) > 0:
+                sampled = flow_store.sample(fidx, rng)
+            n_partners += sampled is not None
+            fl, fm, pfid = sampled if sampled is not None else flow_store.no_partner(frame)
+            frame = dataclasses.replace(frame, flow=fl, flow_mask=fm, flow_partner_fid=pfid)
         state, metrics = step_b(
             state, frame, bg, draws.phase_b(), it=it, use_chamfer=use_chamfer, use_motion_loss=use_motion,
-            lambda_dssim=o.lambda_dssim, max_per_tile=cfg.pipe.max_per_tile, isotropic=cfg.model.use_isotropic_gs,
-            tile_ladder=ladder_pol.ladder if ladder_pol is not None else None,
+            use_flow_loss=flow_store is not None, lambda_dssim=o.lambda_dssim, max_per_tile=cfg.pipe.max_per_tile,
+            isotropic=cfg.model.use_isotropic_gs, tile_ladder=ladder_pol.ladder if ladder_pol is not None else None,
         )
         if prev is not None:
             p_it, p_metrics = prev
-            of_t, of_r = _overflow(p_metrics)
-            if of_t or of_r:
-                log(phase="B", it=p_it, event="overflow", tiles=of_t, rect=of_r)
+            of_t = late_overflow(p_it, p_metrics)
             if ladder_pol is not None and (ladder_pol.ladder is None or of_t > 0
                                            or p_it % cfg.pipe.ladder_check_every == 0 or p_it == densified_at + 1):
                 observe(p_it, p_metrics, of_t)
@@ -757,11 +892,11 @@ def train_stage1(
         if step_callback is not None:
             step_callback(state, it, "B")
     if prev is not None:  # the last step's late read
-        of_t, of_r = _overflow(prev[1])
-        if of_t or of_r:
-            log(phase="B", it=prev[0], event="overflow", tiles=of_t, rect=of_r)
+        of_t = late_overflow(*prev)
         if ladder_pol is not None:
             observe(prev[0], prev[1], of_t)
     if ladder_pol is not None:
         log(phase="B", it=o.iterations, event="ladder", ladder=ladder_pol.ladder, refits=ladder_pol.refits)
+    if flow_store is not None:
+        log(phase="B", it=o.iterations, event="flow", partners=n_partners)
     return state, history

@@ -573,7 +573,7 @@ def train_stage2(
     prev = None  # (it, metrics) of the previous step: its overflow is read a step late
 
     def late_read(p_it, p_metrics, last=False):
-        of_t, of_r = _overflow(p_metrics)
+        of_t, of_r = _overflow(p_metrics)[:2]
         if of_t or of_r:
             log(it=p_it, event="overflow", tiles=of_t, rect=of_r)
         if ladder_pol is not None and (last or ladder_pol.ladder is None or of_t > 0

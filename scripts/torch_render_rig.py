@@ -6,10 +6,14 @@ scripts/render_rig.py, with the same flags; ``--device`` in place of
     python scripts/torch_render_rig.py --model_path out/ --synthetic                # test set, on the card
     python scripts/torch_render_rig.py --model_path out/ --mode time --device cpu
 
-Modes: render (the test set's metrics, skinning-weight renders and a video),
+Modes: render (the test set's metrics, skinning-weight renders and a video:
+an animated GIF and its PNG frames),
 time (a time sweep at a fixed view), motion (random novel poses). Loads what
 scripts/torch_run_pipeline.py (or scripts/run_pipeline.py) writes: cfg.json,
-skeleton_tree.npz, rig/point_cloud/ and rig/checkpoints/.
+skeleton_tree.npz, rig/point_cloud/ and rig/checkpoints/. The scene is
+read by the scene dispatch (``data/scene.py``), so every layout the pipeline
+trains on renders; the reference reads a Blender / D-NeRF scene only, so
+its scripts/run_zju.py fails at this step.
 """
 import argparse
 import sys
@@ -19,20 +23,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
 def save_video(path: Path, frames, fps: int = 30):
-    """An mp4 where imageio has an ffmpeg backend, else a GIF and PNG frames."""
-    import imageio
+    """The frames as an animated GIF at ``path`` with the suffix .gif, and
+    as PNGs in ``<stem>_frames/`` (PIL; the reference writes an mp4 through
+    imageio where it has ffmpeg, which the card's installation lacks)."""
     import numpy as np
+    from PIL import Image
 
-    arr = [np.clip(np.asarray(f) * 255, 0, 255).astype("uint8") for f in frames]
-    path.parent.mkdir(parents=True, exist_ok=True)
-    try:
-        imageio.mimwrite(path, arr, fps=fps, quality=8)
-    except (ValueError, ImportError):
-        imageio.mimwrite(path.with_suffix(".gif"), arr, duration=1000.0 / fps)
-        frame_dir = path.parent / (path.stem + "_frames")
-        frame_dir.mkdir(exist_ok=True)
-        for i, a in enumerate(arr):
-            imageio.imwrite(frame_dir / f"{i:05d}.png", a)
+    images = [Image.fromarray(np.clip(np.asarray(f) * 255, 0, 255).astype("uint8")) for f in frames]
+    frame_dir = path.parent / (path.stem + "_frames")
+    frame_dir.mkdir(parents=True, exist_ok=True)
+    images[0].save(path.with_suffix(".gif"), save_all=True, append_images=images[1:], duration=1000.0 / fps, loop=0)
+    for i, im in enumerate(images):
+        im.save(frame_dir / f"{i:05d}.png")
 
 
 def load_rig(model_path: Path, cfg, scene, device):
@@ -78,7 +80,7 @@ def load_rig(model_path: Path, cfg, scene, device):
 def main(argv=None):
     import numpy as np
 
-    from riggs_tpu_torch.data.blender import load_blender_scene
+    from riggs_tpu_torch.data.scene import load_scene
     from riggs_tpu_torch.data.synthetic import make_scene_data
     from riggs_tpu_torch.eval.metrics import LpipsModel
     from riggs_tpu_torch.eval.synthesis import (format_numerical_res, generate_random_motion, interpolate_time,
@@ -102,8 +104,8 @@ def main(argv=None):
     if args.synthetic:
         _, scene = make_scene_data(n_train=16, n_test=4, width=128, height=128, device=args.device)
     else:
-        scene = load_blender_scene(cfg.model.source_path, white_background=cfg.model.white_background,
-                                   resolution=max(cfg.model.resolution, 1), device=args.device)
+        scene = load_scene(cfg.model.source_path, white_background=cfg.model.white_background,
+                           resolution=max(cfg.model.resolution, 1), device=args.device)
     state, _ = load_rig(model_path, cfg, scene, args.device)
 
     out_dir = model_path / "synthesis" / args.mode

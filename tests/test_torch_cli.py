@@ -4,12 +4,20 @@ slots, 24 nodes, 6 + 8 stage-1 steps, 8 stage-2 steps, a test evaluation at
 6) writes what scripts/run_pipeline.py writes; torch_render_rig.py loads its
 whole rig checkpoint and reproduces its numerical_res.txt; torch_render_stage1.py
 loads its stage-1 checkpoint; torch_metrics.py scores a renders/gt folder as
-riggs_tpu's evaluate_image does (psnr 1e-4 dB, ssim 1e-5); the flags of later
-items raise. The render twins rebuild the 16-frame 128 x 128 synthetic scene
-that the pipeline trained on; it is built once here and handed to each.
+riggs_tpu's evaluate_image does (psnr 1e-4 dB, ssim 1e-5);
+torch_resume_stage2.py resumes the pipeline's stage-1 checkpoint into 2 more
+stage-2 steps and writes the rig, tree, OBJ and table; torch_run_zju.py runs
+the pipeline (6 reference-point steps at 1024 slots, so past C5's M = 200)
+and the render twin on a ZJU-MoCap subject of tests/test_torch_zju.py, its
+two scripts called in this process with the flags it builds; the flags of
+later items raise. The render and resume twins rebuild the 16-frame
+128 x 128 synthetic scene that the pipeline trained on; it is built once
+here and handed to each.
 """
 import inspect
 import json
+import sys
+from pathlib import Path
 from unittest import mock
 
 import jax.numpy as jnp
@@ -19,9 +27,11 @@ from PIL import Image
 
 from riggs_tpu.eval import metrics as JMet
 from riggs_tpu_torch.data import synthetic as TSyn
-from scripts import torch_metrics, torch_render_rig, torch_render_stage1, torch_run_pipeline
+from scripts import (torch_metrics, torch_render_rig, torch_render_stage1, torch_resume_stage2, torch_run_pipeline,
+                     torch_run_zju)
 
 from tests.test_torch_stage1_loop import one_torch_thread  # noqa: F401 (autouse)
+from tests.test_torch_zju import write_zju_subject
 
 SMALL = ["--device", "cpu", "--capacity", "1024", "--node_num", "24", "--hyper_dim", "2", "--sh_degree", "1",
          "--iterations_node_rendering", "6", "--node_warm_up", "2", "--iterations_node_sampling", "20",
@@ -45,7 +55,8 @@ def test_cli_twins_run_on_the_cpu(tmp_path, capsys):
 
     with mock.patch.object(TSyn, "make_scene_data", cached):
         _pipeline_and_render(out, capsys)
-    assert len(calls) == 5 and len(built) == 1
+        _resume(out, capsys)
+    assert len(calls) == 7 and len(built) == 1
     _metrics(tmp_path)
 
 
@@ -70,6 +81,49 @@ def _pipeline_and_render(out, capsys):
                               "--n_frames", "2"])
     for d in ("synthesis/render", "synthesis/time", "synthesis_stage1/render", "synthesis_stage1/all"):
         assert list((out / d).glob("video.*")), d
+
+
+def _resume(out, capsys):
+    for f in ("skeleton_tree.npz", "skeleton.obj", "numerical_res.txt"):
+        (out / f).unlink()
+    torch_resume_stage2.main(["--model_path", str(out), "--iterations", "10", "--test_every", "6", "--synthetic_size",
+                              "128", "--synthetic_frames", "16", "--synthetic_figure", "chain", "--synthetic_points",
+                              "120", "--synthetic_init_points", "300", "--device", "cpu"])
+    text = capsys.readouterr().out
+    assert "restored stage-1 state from iteration 8" in text and "FINAL test:" in text
+    for f in ("skeleton_tree.npz", "skeleton.obj", "numerical_res.txt", "rig/checkpoints/iteration_10/state.npz",
+              "rig/point_cloud/iteration_10/point_cloud.ply"):
+        assert (out / f).exists(), f
+    from riggs_tpu_torch.train.config import Config
+
+    cfg = Config.load(out / "cfg.json")
+    _, it = torch_render_rig.load_rig(out, cfg, TSyn.make_scene_data(n_train=16, n_test=4, width=128, height=128,
+                                                                     device="cpu")[1], "cpu")
+    assert it == 10
+
+
+def test_zju_twin_runs_on_the_cpu(tmp_path):
+    write_zju_subject(tmp_path / "data" / "377")
+    scripts = {"torch_run_pipeline.py": torch_run_pipeline.main, "torch_render_rig.py": torch_render_rig.main}
+    ran = []
+
+    def run(cmd, check):
+        assert check and cmd[0] == sys.executable
+        ran.append(Path(cmd[1]).name)
+        scripts[Path(cmd[1]).name](cmd[2:])
+
+    with mock.patch.object(torch_run_zju.subprocess, "run", run):
+        torch_run_zju.main(["--data_root", str(tmp_path / "data"), "--out_root", str(tmp_path / "out"),
+                            "--subjects", "377", "386", "--device", "cpu", "--extra"] + SMALL[2:])
+    assert ran == ["torch_run_pipeline.py", "torch_render_rig.py"]
+    out = tmp_path / "out" / "377"
+    cfg = json.loads((out / "cfg.json").read_text())
+    assert cfg["model"]["use_skinning_weight_mlp"] and cfg["model"]["node_num"] == 24
+    for f in ("skeleton_tree.npz", "skeleton.obj", "numerical_res.txt", "checkpoints/iteration_8/state.npz",
+              "rig/checkpoints/iteration_8/state.npz", "synthesis/render/numerical_res.txt"):
+        assert (out / f).exists(), f
+    res = (out / "numerical_res.txt").read_text().splitlines()
+    assert len(res) == 1 + 2 + 1 and all(np.isfinite(float(x)) for line in res[1:] for x in line.split("\t")[1:])
 
 
 def _metrics(tmp_path):

@@ -5,8 +5,9 @@ Stage2State in both directions (a file the reference writes loads into the
 port, one the port writes loads into the reference's load_state_npz with the
 reference's own template), bit for bit on every leaf with the same key set,
 dtypes and shapes; the errors for a missing or mis-shaped leaf; the search
-for the latest iteration; and the D-NeRF reader on a scene written into
-tmp_path.
+for the latest iteration; the D-NeRF reader on a scene written into
+tmp_path; and the scene dispatch, the same reader for each of the seven
+layouts.
 
 The states: the reference's init_stage1 and init_stage2 on
 tests/test_torch_stage2_loop.py's scene and config, every leaf then replaced
@@ -291,9 +292,32 @@ def test_blender_reader_matches(tmp_path, resolution, white):
     np.testing.assert_array_equal(T, jT)
 
 
+LAYOUTS = (("train/cameras.pkl", "zju", "load_zju_scene"), ("dataset.json", "nerfies", "load_nerfies_scene"),
+           ("sparse", "colmap", "load_colmap_scene"), ("colmap_sparse", "colmap", "load_colmap_scene"),
+           ("cameras_sphere.npz", "more_readers", "load_dtu_scene"),
+           ("poses_bounds.npy", "more_readers", "load_plenoptic_scene"),
+           ("train_meta.json", "more_readers", "load_cmu_scene"))
+
+
 def test_scene_dispatch_raises_for_readers_not_ported(tmp_path):
-    (tmp_path / "sparse").mkdir()
-    with pytest.raises(NotImplementedError, match="A8"):
-        TScene.load_scene(tmp_path, device="cpu")
+    """Every layout that riggs_tpu's load_scene recognises reaches the
+    port's reader of the same name, with the same arguments (the readers
+    stubbed here; tests/test_torch_readers.py and test_torch_zju.py hold
+    them to the reference's); a directory of no layout still raises."""
+    import importlib
+    from unittest import mock
+
+    for i, (marker, module, reader) in enumerate(LAYOUTS):
+        root = tmp_path / str(i)
+        (root / marker).parent.mkdir(parents=True, exist_ok=True)
+        (root / marker).mkdir() if "." not in marker else (root / marker).write_text("")
+        calls = {}
+        for pkg in ("riggs_tpu", "riggs_tpu_torch"):
+            mod = importlib.import_module(f"{pkg}.data.{module}")
+            load = importlib.import_module(f"{pkg}.data.scene").load_scene
+            with mock.patch.object(mod, reader, lambda *a, **k: (a, k)):
+                a, k = load(root, white_background=True, resolution=2, marker=marker)
+            calls[pkg] = (a, k)
+        assert calls["riggs_tpu"] == calls["riggs_tpu_torch"], marker
     with pytest.raises(FileNotFoundError):
         TScene.load_scene(tmp_path / "nothing", device="cpu")

@@ -259,13 +259,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert make_camera(np.eye(3), np.zeros(3), 32, 32, fovx=1.0, fovy=1.0, device="cpu").w2c.device.type == "cpu"
 
 
-CLI_TWINS = ("torch_run_pipeline", "torch_render_rig", "torch_metrics", "torch_render_stage1")
+CLI_TWINS = ("torch_run_pipeline", "torch_render_rig", "torch_metrics", "torch_render_stage1", "torch_run_zju",
+             "torch_resume_stage2")
 
 
 def test_port_imports_no_jax():
-    """In a fresh interpreter, importing the whole port and its four CLI
-    twins leaves jax and riggs_tpu out of sys.modules; no source file of
-    the port or of the twins imports them."""
+    """In a fresh interpreter, importing the whole port and its CLI twins
+    leaves jax, riggs_tpu and cv2 out of sys.modules; no source file of
+    the port, of the twins or of chip_smoke.py imports them."""
     code = (
         "import importlib, pkgutil, sys, riggs_tpu_torch\n"
         "for m in pkgutil.walk_packages(riggs_tpu_torch.__path__, 'riggs_tpu_torch.'):\n"
@@ -275,7 +276,7 @@ def test_port_imports_no_jax():
         "    with contextlib.redirect_stdout(io.StringIO()), contextlib.suppress(SystemExit):\n"
         "        importlib.import_module('scripts.' + name).main(['--help'])\n"
         "assert 'riggs_tpu_torch.io.checkpoint' in sys.modules and 'PIL.Image' in sys.modules\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'riggs_tpu' or m.startswith('riggs_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'riggs_tpu', 'cv2')]\n"
         "assert not bad, bad\n"
         "assert 'riggs_tpu_torch.render.tiles' in sys.modules\n"
         "print('ok')\n"
@@ -283,7 +284,8 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
     twins = [REPO / "scripts" / f"{name}.py" for name in CLI_TWINS]
-    for f in list((REPO / "riggs_tpu_torch").rglob("*.py")) + twins:
+    for f in list((REPO / "riggs_tpu_torch").rglob("*.py")) + twins + [REPO / "chip_smoke.py"]:
         src = f.read_text()
-        for bad in ("import jax", "from jax", "from riggs_tpu.", "import riggs_tpu\n", "from riggs_tpu import"):
+        for bad in ("import jax", "from jax", "from riggs_tpu.", "import riggs_tpu\n", "from riggs_tpu import",
+                    "import cv2", "from cv2"):
             assert bad not in src, (f, bad)

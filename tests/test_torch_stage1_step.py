@@ -14,6 +14,12 @@ that is more (a leaf the loss cannot move, such as the d_xyz head's bias
 under ARAP alone, holds only cancellation noise); parameters and Adam moments after a step 1e-5;
 integer outputs exact. The moments start at count 5, so a step is no
 first-step sign(g) update that would magnify the gradients' rounding.
+
+The flow step's frame carries a smooth flow field to a partner at t = 0.55
+and a seeded validity mask. Its loss masks the pixels whose flow render's
+alpha exceeds 0.9, a hard threshold on a rendered value on which the
+packages agree to ~1e-7: the case checks that no alpha of its flow render
+lies within 1e-5 of 0.9, so that both packages mask the same pixels.
 """
 import dataclasses
 
@@ -33,8 +39,9 @@ from riggs_tpu.train import optim as JO
 from riggs_tpu.train import stage1 as JS1
 from riggs_tpu.train.config import Config as JConfig
 from riggs_tpu_torch import convert
+from riggs_tpu_torch.models import node_warp as TNW
 from riggs_tpu_torch.models.deform_mlp import DeformNetworkDef as TNetDef
-from riggs_tpu_torch.render.api import render as t_render
+from riggs_tpu_torch.render.api import render as t_render, render_flow as t_render_flow
 from riggs_tpu_torch.render.ladder import make_tile_ladder
 from riggs_tpu_torch.train import stage1 as TS1
 from riggs_tpu_torch.train.config import Config as TConfig
@@ -225,7 +232,10 @@ def test_phase_b_step_matches(setup):
 def test_phase_b_auto_step_matches(setup, it):
     """make_phase_b_auto's step at it = 0 (warm-up: d_xyz detached, SH 0)
     and at it = 5000 (past warm-up, SH 3, the ARAP and motion lambdas
-    between their landmarks), chamfer and the motion loss on."""
+    between their landmarks), chamfer and the motion loss on; then its
+    step with the optical-flow loss on a flow frame, at it = 0 on plain
+    windows, at it = 5000 with the main render on a ladder (the flow
+    render on plain windows)."""
     js, jf = setup["jstate"], setup["jframe"]
     js = dataclasses.replace(js, it=jnp.int32(it))
     jcfg, tcfg = _cfgs()
@@ -238,5 +248,46 @@ def test_phase_b_auto_step_matches(setup, it):
     assert int(tnew.it) == int(jnew.it) == it + 1
     flags = TS1.phase_b_flags(tcfg, it)
     assert flags["warm"] == (it < jcfg.opt.warm_up) and flags["lambda_motion"] > 0 and flags["lambda_arap"] > 0
-    with pytest.raises(NotImplementedError):
-        TS1.make_phase_b_auto(tcfg)(ts, _port_frame(jf), torch.zeros(3), torch.zeros(2), it=it, use_flow_loss=True)
+    assert_flow_step(setup, it, ladder=it == 5000)
+
+
+def flow_frames(jf, partner_fid=0.55, seed=11):
+    """The reference frame and the port's with a flow to a partner at
+    ``partner_fid``: a smooth field of a few pixels and a seeded validity
+    mask (about 70% valid)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:SIZE, :SIZE].astype(np.float32) / SIZE
+    flow = np.stack([3.0 * np.sin(3.0 * xx + 1.0) * np.cos(2.0 * yy), -2.0 * np.cos(4.0 * yy) + xx], -1)
+    valid = (rng.uniform(size=(SIZE, SIZE)) < 0.7).astype(np.float32)
+    jff = dataclasses.replace(jf, flow=jnp.asarray(flow, jnp.float32), flow_mask=jnp.asarray(valid),
+                              flow_partner_fid=jnp.float32(partner_fid))
+    tff = dataclasses.replace(_port_frame(jf), flow=torch.tensor(flow, dtype=torch.float32),
+                              flow_mask=torch.tensor(valid), flow_partner_fid=torch.tensor(partner_fid))
+    return jff, tff
+
+
+def assert_flow_step(setup, it, ladder=False):
+    """make_phase_b_auto with the optical-flow loss at ``it`` on the flow
+    frame, chamfer and the motion loss on, plain windows or (``ladder``)
+    the main render on a fitted ladder; the flow term nonzero, its render
+    not truncated, no flow-render alpha within 1e-5 of the 0.9 threshold."""
+    js, jf = setup["jstate"], setup["jframe"]
+    js = dataclasses.replace(js, it=jnp.int32(it))
+    jcfg, tcfg = _cfgs()
+    jff, tff = flow_frames(jf)
+    ts = _port_state(js, it=it)
+    kw = dict(use_chamfer=True, use_motion_loss=True, max_per_tile=512)
+    if ladder:
+        kw["tile_ladder"] = _ladder(ts, tff)
+    with torch.no_grad():
+        d = TNW.warp_forward(ts.warp, ts.gs.xyz, tff.fid, ts.gs.feature, ts.gs.motion_mask,
+                             local_frame=ts.warp.net.local_frame)
+        alpha = t_render_flow(tff.cam, tff.cam, ts.gs, d["d_xyz"], d["d_xyz"], d["d_rotation"],
+                              max_per_tile=512)["alpha"]
+    assert float((alpha - 0.9).abs().min()) > 1e-5 and bool((alpha > 0.9).any())
+    jnew, jm = JS1.make_phase_b_auto(jcfg)(js, jff, jnp.zeros(3), KEY, use_flow_loss=True, **kw)
+    tnew, tm = TS1.make_phase_b_auto(tcfg)(ts, tff, torch.zeros(3), torch.as_tensor(_reference_arap_t(KEY)), it=it,
+                                           use_flow_loss=True, **kw)
+    _assert_step(jnew, jm, tnew, tm)
+    assert float(jm["flow"]) > 0 and "flow" in tm
+    assert int(tm["flow_overflow_tiles"]) == int(tm["flow_overflow_rect"]) == 0
