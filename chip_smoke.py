@@ -149,7 +149,33 @@ Phases, each printed as it runs:
      its rig/ reloaded as scripts/torch_render_rig.py loads it, reproducing
      that table; then scripts/torch_resume_stage2.py on its stage-1
      checkpoint (its node set densified and pruned) as a process of its
-     own, stage 2 resumed to RESUME_ITERATIONS, its rig reloaded.
+     own, stage 2 resumed to RESUME_ITERATIONS, its rig reloaded;
+  17. refpoint: scripts/torch_run_refpoint.py as a process of its own at
+     its full width (800x800, 131072 slots, 512 nodes, the biped scene),
+     only the schedule cut (REFPOINT_ARGS), then with --resume: exit 0,
+     the reference's report keys, finite ms per step, J >= 2, the stage-1
+     state and the stage-2 checkpoint read back, its kernel launches;
+  18. binners: the serving avatar through render(binning="compact") and
+     "sort2", forward and a loss's gradient, the counters zeroed just
+     before and read just after: frames against the sort binner's
+     (PATH_TOL), gradients per column (BWD_TOL), blend_cm and its backward
+     held on each binner's windows, each structural gather backward held to
+     autograd's index backward on the render's own dg; render_auto's
+     compact escalation from a quarter of the instances; frame ms and busy
+     time of each binner against sort's;
+  19. static: train_static on the [loop] scene (131072 slots, SH 3, 40
+     steps, one densification and one opacity reset), the counters zeroed
+     just before and read just after: loss, ms per step, busy time, the two
+     kernels held on one step, a train_step under the sync audit;
+  20. mlpdeform: train_mlp_deform on the same scene (the 8x256
+     DeformNetwork at every slot, warm-up 10, one densification): the
+     MLP's weights and Adam state bitwise unchanged through the warm-up and
+     changed after, ms per step, busy time, the kernels held on one step,
+     a step under the sync audit;
+  21. hash: apply_hash_deform at the default grid over 131072 points,
+     forward and backward, card against CPU (HASH_TOL); arap_loss_with_rot
+     on the [loop]'s 512-node warp with and without the rotation term, card
+     against CPU (ARAP_ROT_TOL), the rotation-fit kernel launched.
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without CUDA
 it exits 2 and prints no result. Imports nothing of JAX or riggs_tpu.
@@ -3260,6 +3286,473 @@ def zju_cli(root):
         raise RuntimeError(f"[zju] the tables {texts} or J = {J}")
 
 
+# [refpoint]: scripts/torch_run_refpoint.py at its full width (800², 131072
+# slots, 512 nodes, max_per_tile 768, the biped scene), only the schedule
+# cut; then again with --resume. The report's keys are the reference's
+# (scripts/run_refpoint.py:140, 183-189, 204-209, 230, 258)
+REFPOINT_ARGS = ("--frames", "8", "--s1a", "40", "--s1b", "40", "--s2", "60", "--test_every", "30")
+REFPOINT_KEYS = {"size", "capacity", "frames", "s1_prefix_iters", "s1_wall_s", "s1_ms_per_iter",
+                 "mem_live_gb_after_s1", "s1_alive_gaussians", "s2_prefix_iters", "s2_wall_s", "s2_ms_per_iter",
+                 "mem_live_gb_after_s2", "joints", "test", "extrapolated_full_budget_hours"}
+# [binners]: the serving frame's time, the quarter budget of render_auto's
+# compact escalation
+BINNERS_T = 0.3
+# [static] and [mlpdeform]: 40 steps on the [loop] scene; one densification
+# (20) and, for static, one opacity reset (30); the MLP frozen for 10 steps
+SIDE_SCHEDULE = dict(iterations=40, densify_from_iter=5, densification_interval=20, opacity_reset_interval=30,
+                     warm_up=10)
+SIDE_HELD = {("S", 25): "step it=25"}
+SIDE_PROFILE_FROM = {"S": 12}
+# [hash]: the card against the CPU on the same weights and points, per
+# column of each output and gradient leaf: max |d| <= tol * max |CPU| (f32
+# products in another order; the tables' gradient is an index-add whose
+# atomic order on the card is not fixed)
+HASH_TOL = {"value": 1e-4, "grad": 1e-3}
+# arap_loss_with_rot, card vs CPU: the loss relative; its gradient per
+# leaf, scaled by the leaf's largest |CPU| value or a hundredth of the
+# tree's largest, whichever is more (the d_xyz head's bias is 0 exactly:
+# ARAP does not see a translation of all nodes, so the leaf holds only
+# cancellation noise), within BWD_TOL
+ARAP_ROT_TOL = {"loss": 1e-3, "grad": BWD_TOL}
+
+
+def refpoint_phase():
+    """Phase 17: scripts/torch_run_refpoint.py as a process of its own at
+    its full width with REFPOINT_ARGS, then again with --resume (the
+    stage-1 .npz and the stage-2 checkpoint read back): exit 0, every key
+    of the reference's report on the last line, finite ms per step, J >= 2.
+    Returns the first run's report and its kernel launches."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "rp"
+        for extra in ((), ("--resume",)):
+            cmd = [sys.executable, str(root / "scripts" / "torch_run_refpoint.py"), *REFPOINT_ARGS, "--out", str(out),
+                   *extra]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=900)
+            wall = time.perf_counter() - t0
+            lines = [line for line in res.stdout.splitlines() if line.strip()]
+            for line in lines[:-1]:
+                print(f"[refpoint] {line}")
+            print(f"[refpoint] torch_run_refpoint.py {' '.join(extra)} exit {res.returncode} in {wall:.1f} s")
+            if res.returncode != 0:
+                raise RuntimeError(f"[refpoint] failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+            report = json.loads(lines[-1])
+            print(f"[refpoint] report {json.dumps(report)}")
+            if set(report) != REFPOINT_KEYS:
+                raise RuntimeError(f"[refpoint] report keys {sorted(report)}, not the reference's")
+            for k in ("s1_ms_per_iter", "s2_ms_per_iter", "extrapolated_full_budget_hours"):
+                if not (np.isfinite(report[k]) and report[k] > 0):
+                    raise RuntimeError(f"[refpoint] {k} = {report[k]}")
+            if report["joints"] < 2 or not all(np.isfinite(v) for v in report["test"].values()):
+                raise RuntimeError(f"[refpoint] J = {report['joints']}, test {report['test']}")
+            launches = json.loads(next(l for l in lines if l.startswith("kernel launches: "))[17:])
+            runs.append((report, launches, lines))
+    _, _, resumed = runs[1]
+    if not any(l.startswith("stage-1 state resumed") for l in resumed) or not any(
+            l.startswith("stage-2 resume") or l.startswith("stage-2 no resume") for l in resumed):
+        raise RuntimeError("[refpoint] --resume did not read the stage-1 state and the stage-2 checkpoint")
+    if runs[1][0]["s1_alive_gaussians"] != runs[0][0]["s1_alive_gaussians"]:
+        raise RuntimeError("[refpoint] the resumed stage-1 state is not the saved one")
+    for name in ("blend_cm", "blend_cm_bwd", "blend_permuted_gm", "blend_permuted_gm_bwd", "fit_rotations"):
+        if runs[0][1][name] <= 0:
+            raise RuntimeError(f"[refpoint] the twin never launched {name}")
+    return runs[0][0], runs[0][1]
+
+
+class _GatherHold:
+    """Capture each structural window gather of a render (the packed rows,
+    the binner's by-products) and the gradient its output receives."""
+
+    def __init__(self):
+        from riggs_tpu_torch.render import tiles
+
+        self.tiles, self.calls = tiles, []
+
+    def __enter__(self):
+        self.orig = (self.tiles.gather_instances, self.tiles.gather_grid)
+        for i, name in enumerate(("gather_instances", "gather_grid")):
+            def rec(packed, a, b, _fn=self.orig[i], _name=name):
+                out = _fn(packed, a, b)  # (idx, CompactInfo) or (GridInfo, K)
+                entry = {"name": _name, "packed": packed.detach(), "args": (a, b)}
+                out.register_hook(lambda g, e=entry: e.__setitem__("dg", g.detach()))
+                self.calls.append(entry)
+                return out
+            setattr(self.tiles, name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        self.tiles.gather_instances, self.tiles.gather_grid = self.orig
+
+
+def _hold_gather(entry):
+    """A structural gather backward against autograd's own index backward of
+    packed[idx] on the dg the render gave it: per column max |d| <=
+    BWD_TOL * max |index backward|."""
+    import torch
+
+    from riggs_tpu_torch.render import tiles
+
+    a, b = entry["args"]
+    p = entry["packed"].clone().requires_grad_(True)
+    if entry["name"] == "gather_instances":
+        out, idx = tiles.gather_instances(p, a, b), a
+    else:
+        out, idx = tiles.gather_grid(p, a, b), a.order[a.drank_win]
+    (structural,) = torch.autograd.grad(out, p, entry["dg"], retain_graph=True)
+    p2 = entry["packed"].clone().requires_grad_(True)
+    (plain,) = torch.autograd.grad(p2[idx.to(torch.int64)], p2, entry["dg"])
+    e, sc = _column_err(structural, plain, 1)
+    rel = float(torch.where(sc > 0, e / sc.clamp(min=1e-30), e).max())
+    torch.cuda.synchronize()
+    ms_s = _event_ms(lambda: torch.autograd.grad(out, p, entry["dg"], retain_graph=True), 5)
+    return rel, float(e.max()), ms_s
+
+
+def binners_phase(blend, gs, skel, cam, bg, cap, target):
+    """Phase 18: the serving avatar at full width through
+    render(binning="compact") and render(binning="sort2"), forward and the
+    gradient of a photometric loss, with the counters zeroed just before and
+    read just after: each frame against the sort binner's (PATH_TOL, where
+    no binner overflows), each gradient per column against the sort
+    binner's (BWD_TOL), blend_cm and blend_cm_bwd held to their plain
+    versions on each binner's windows, each structural gather backward held
+    to autograd's index backward on the render's own dg; then
+    render_auto(binning="compact") from a quarter of the frame's instances,
+    its escalation and its frame against the default budget's; frame ms and
+    busy time of each binner against sort's. Returns the launches and the
+    held results."""
+    import torch
+
+    from riggs_tpu_torch.models import skeleton_warp as SW
+    from riggs_tpu_torch.render import api as API
+
+    with torch.no_grad():
+        d = SW.skeleton_forward(skel, gs.xyz, BINNERS_T, gs.motion_mask)
+
+    def run(binning, grad=True, window=None):
+        params = {k: v.detach().requires_grad_(grad) for k, v in gs.params_dict().items()}
+        out = API.render(cam, gs.replace_params(params), bg, d_xyz=d["d_xyz"], d_rotation=d["d_rotation"],
+                         d_scaling=torch.zeros_like(d["d_scaling"]), active_sh_degree=gs.max_sh_degree,
+                         max_per_tile=window or cap, binning=binning)
+        if not grad:
+            return out, None
+        loss = torch.mean((out["render"] - target) ** 2)
+        names = [k for k, v in params.items() if k != "feature"]
+        return out, dict(zip(names, torch.autograd.grad(loss, [params[k] for k in names])))
+
+    # the binners' window: compact and sort2 have no cell cull, so their
+    # tiles hold more instances than the sort binner's; one window for all three
+    probe, _ = run("compact", grad=False, window=16384)
+    cap = max(cap, int(-(-int(probe["max_count"]) // 128) * 128))
+    print(f"[binners] window {cap} (the compact binner's largest tile count {int(probe['max_count'])})")
+    sort_out, sort_g = run("sort")
+    torch.cuda.synchronize()
+    blend.reset_launches()
+    captured = {}
+    for binning in ("compact", "sort2"):
+        with _Capture(blend, ("blend_cm_fwd", "blend_cm_bwd")) as cap_calls, _GatherHold() as gh:
+            out, g = run(binning)
+        captured[binning] = (out, g, cap_calls.calls, gh.calls)
+    torch.cuda.synchronize()
+    launches = dict(blend.launches)
+    print(f"[binners] launch counters over the compact and sort2 renders and gradients: {launches}")
+    for name in ("blend_cm", "blend_cm_bwd"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"[binners] never launched {name}")
+    res = {}
+    for binning, (out, g, calls, gathers) in captured.items():
+        over = {k: int(out[k]) for k in ("overflow_tiles", "overflow_rect")}
+        if not any(over.values()):
+            _check_frame(out, SIZE, f"[binners] {binning}")
+            _compare(out, sort_out, f"{binning} vs sort frame", tag="[binners]")
+        else:
+            print(f"[binners] {binning} overflowed {over}: the frame is not compared")
+        worst = 0.0
+        for k, a in g.items():
+            e, sc = _column_err(a, sort_g[k], -1)
+            rel = float(torch.where(sc > 0, e / sc.clamp(min=1e-30), e).max())
+            worst = max(worst, rel)
+            if not rel <= BWD_TOL:
+                raise RuntimeError(f"[binners] {binning} gradient {k} vs sort: column error {rel:.3e} > {BWD_TOL}")
+        print(f"[binners] {binning} vs sort gradient: max column error / max |sort| {worst:.3e} over "
+              f"{sorted(g)}; overflow {over}")
+        fwd = check_kernels(blend, {"blend_cm": calls["blend_cm_fwd"]}, tag=f"[binners] {binning}",
+                            per="frame")["blend_cm"]
+        bwd = check_bwd_kernels(blend, {"blend_cm_bwd": calls["blend_cm_bwd"]},
+                                tag=f"[binners] {binning}")["blend_cm_bwd"]
+        if len(gathers) != 1 or "dg" not in gathers[0]:
+            raise RuntimeError(f"[binners] {binning}: {len(gathers)} structural gathers captured")
+        rel, err, ms_bwd = _hold_gather(gathers[0])
+        print(f"[binners] {binning} {gathers[0]['name']} backward vs the index backward on the render's dg: "
+              f"column error {rel:.3e} (max |d| {err:.3e}); {ms_bwd:.3f} ms")
+        if not rel <= BWD_TOL:
+            raise RuntimeError(f"[binners] {binning} structural backward: column error {rel:.3e} > {BWD_TOL}")
+        res[binning] = {"fwd": fwd, "bwd": bwd, "gather_rel": rel}
+    del captured
+
+    # render_auto's compact escalation from a quarter of the real instances
+    default, _ = run("compact", grad=False)
+    instances = int(default["tile_counts"].sum())
+    budgets = []
+    real_render = API.render
+
+    def rec(*a, **k):
+        budgets.append(k.get("max_instances"))
+        return real_render(*a, **k)
+
+    API.render = rec
+    try:
+        with torch.no_grad():
+            auto = API.render_auto(cam, gs, bg, max_per_tile=cap, binning="compact", max_instances=instances // 4,
+                                   d_xyz=d["d_xyz"], d_rotation=d["d_rotation"],
+                                   d_scaling=torch.zeros_like(d["d_scaling"]), active_sh_degree=gs.max_sh_degree)
+    finally:
+        API.render = real_render
+    same = torch.equal(auto["render"], default["render"])
+    print(f"[binners] render_auto(binning='compact') from {instances // 4} of {instances} instances: budgets "
+          f"{budgets}; settled with overflow {int(auto['overflow'])}; frame bitwise equal to the default budget's: "
+          f"{same}")
+    if len(budgets) < 3 or int(auto["overflow"]):
+        raise RuntimeError(f"[binners] the compact escalation did not settle: budgets {budgets}")
+    _compare(auto, default, "render_auto compact vs the default budget", tag="[binners]")
+
+    # frame time and device busy: each binner against sort
+    for binning in ("sort", "compact", "sort2"):
+        fn = lambda b=binning: run(b, grad=False)
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 10 * 1e3
+        busy = _profile_busy(fn, 5)
+        res.setdefault(binning, {}).update(frame_ms=ms, busy_ms=busy)
+        print(f"[binners] {binning}: {ms:.2f} ms per frame (render alone, host clock), device busy {busy:.2f} ms "
+              f"(idle share {1 - busy / ms:.3f})")
+    return launches, res
+
+
+def _side_config(cap):
+    cfg = _stage1_config(CAPACITY)
+    for k, v in SIDE_SCHEDULE.items():
+        setattr(cfg.opt, k, v)
+    cfg.pipe.max_per_tile = cap
+    return cfg
+
+
+def _side_probe(blend):
+    probe = _LoopProbe(blend, held=SIDE_HELD, profile_from=SIDE_PROFILE_FROM)
+    return probe, (lambda st, it: probe(st, it, "S"))
+
+
+def _side_report(tag, probe, launches, wall):
+    med, mean = probe.ms("S")
+    busy = probe.busy["S"]
+    print(f"{tag} {len(probe.stamps['S'])} steps in {wall:.1f} s, {med:.2f} ms per step (host clock, median; mean "
+          f"{mean:.2f} with the events), device busy {busy:.2f} ms over steps {SIDE_PROFILE_FROM['S']}-"
+          f"{SIDE_PROFILE_FROM['S'] + 4} (idle share {1 - busy / med:.3f}); launch counters {launches}")
+    for name in ("blend_cm", "blend_cm_bwd"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"{tag} never launched {name}")
+    return {"ms": med, "busy_ms": busy}
+
+
+def static_phase(blend, scene, cap):
+    """Phase 19: train_static on the [loop] scene at full width (131072
+    slots, SH 3, the scene's 100000 points; SIDE_SCHEDULE: one
+    densification, one opacity reset), the counters zeroed just before and
+    read just after: loss, alive counts, ms per step and busy time; blend_cm
+    and its backward held on SIDE_HELD's step; a train_step with no host
+    read."""
+    import torch
+
+    from riggs_tpu_torch.train import static as TST
+
+    cfg = _side_config(cap)
+    data = [(f.cam, f.image) for f in scene.train_frames]
+    white = torch.ones(3, device=DEVICE)
+    torch.cuda.synchronize()
+    blend.reset_launches()
+    probe, cb = _side_probe(blend)
+    t0 = time.perf_counter()
+    with probe:
+        state, hist = TST.train_static(data, cfg, SIDE_SCHEDULE["iterations"], scene.init_points, scene.init_colors,
+                                       bg=white, log_every=SIDE_SCHEDULE["iterations"] - 1, step_callback=cb,
+                                       device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(blend.launches)
+    for it, m in hist:
+        print(f"[static] it={it}: loss {m['loss']:.5f} psnr {m['psnr']:.2f} alive {int(m['num_alive'])}")
+    if not all(np.isfinite(m["loss"]) for _, m in hist) or len(hist) != 2:
+        raise RuntimeError(f"[static] history {hist}")
+    times = _side_report("[static]", probe, launches, wall)
+    held = check_loop_kernels(blend, probe.held, labels=SIDE_HELD, want={"blend_cm": ("step it=25",)}, tag="[static]")
+    del probe
+    lrs = TST.f32_lrs(TST.make_lr_schedules(cfg), 39)
+    f = scene.train_frames[0]
+    sync_audit("static train_step", lambda: TST.train_step(state, f.cam, f.image, white, lrs, active_sh=0,
+                                                           max_per_tile=cap))
+    return launches, held, times
+
+
+def mlpdeform_phase(blend, scene, cap):
+    """Phase 20: train_mlp_deform on the [loop] scene at full width (the
+    default 8x256 blender DeformNetwork at every one of 131072 slots;
+    SIDE_SCHEDULE: warm-up 10, one densification), the counters zeroed just
+    before and read just after: the MLP's weights and Adam state bitwise
+    unchanged through the warm-up and changed after it; loss, ms per step
+    and busy time; blend_cm and its backward held on SIDE_HELD's step; an
+    mlp_deform_step with no host read."""
+    import torch
+
+    from riggs_tpu_torch.train import mlp_deform as TMD
+    from riggs_tpu_torch.train.optim import tree_leaves
+
+    cfg = _side_config(cap)
+    warm = SIDE_SCHEDULE["warm_up"]
+
+    def leaves(st):
+        return [t.detach().clone() for t in tree_leaves((st.deform.params_dict(), st.opt_deform.mu,
+                                                         st.opt_deform.nu, st.opt_deform.count))]
+
+    init = TMD.init_mlp_deform_state(scene, cfg, generator=torch.Generator(device=DEVICE).manual_seed(0),
+                                     device=DEVICE)
+    before, frozen = leaves(init), {}
+    torch.cuda.synchronize()
+    blend.reset_launches()
+    probe, cb = _side_probe(blend)
+
+    def watch(st, it):
+        if it == warm - 1:
+            frozen["warm"] = all(torch.equal(a, b) for a, b in zip(before, leaves(st)))
+        cb(st, it)
+
+    t0 = time.perf_counter()
+    with probe:
+        state, hist = TMD.train_mlp_deform(scene, cfg, log_every=SIDE_SCHEDULE["iterations"] - 1, state=init,
+                                           step_callback=watch, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(blend.launches)
+    changed = sum(not torch.equal(a, b) for a, b in zip(before, leaves(state)))
+    for it, m in hist:
+        print(f"[mlpdeform] it={it}: loss {m['loss']:.5f} psnr {m['psnr']:.2f} alive {int(m['n_gs'])}")
+    print(f"[mlpdeform] the MLP's {len(before)} weight and Adam leaves bitwise unchanged through the warm-up: "
+          f"{frozen.get('warm')}; {changed} changed after it (Adam count {int(state.opt_deform.count)})")
+    if not frozen.get("warm") or changed < len(before) - 1 or int(state.opt_deform.count) != (
+            SIDE_SCHEDULE["iterations"] - warm):
+        raise RuntimeError("[mlpdeform] the warm-up freeze or the updates after it are wrong")
+    if not all(np.isfinite(m["loss"]) for _, m in hist):
+        raise RuntimeError(f"[mlpdeform] history {hist}")
+    times = _side_report("[mlpdeform]", probe, launches, wall)
+    held = check_loop_kernels(blend, probe.held, labels=SIDE_HELD, want={"blend_cm": ("step it=25",)},
+                              tag="[mlpdeform]")
+    del probe
+    gauss_lrs, deform_lr = TMD.stage1_lr_fns(cfg)
+    f = scene.train_frames[1]
+    white = torch.ones(3, device=DEVICE)
+    sync_audit("mlp_deform_step", lambda: TMD.mlp_deform_step(state, f, white, gauss_lrs(39), deform_lr(39),
+                                                              max_per_tile=cap))
+    return launches, held, times
+
+
+def _leafwise(a, b, tol, what):
+    """Per column of each leaf (the last axis): max |a - b| <= tol * max |b|."""
+    import torch
+
+    worst = 0.0
+    for k in a:
+        x, y = a[k].detach().cpu(), b[k].detach()
+        e, sc = _column_err(x.reshape(-1, x.shape[-1]), y.reshape(-1, y.shape[-1]), -1)
+        rel = float(torch.where(sc > 0, e / sc.clamp(min=1e-30), e).max())
+        worst = max(worst, rel)
+        if not rel <= tol:
+            raise RuntimeError(f"{what} {k}: card vs CPU column error {rel:.3e} > {tol}")
+    return worst
+
+
+def hash_phase(gs, warp):
+    """Phase 21: apply_hash_deform at the default grid (16 levels x 2^17 x
+    2, width 64, depth 2) over the avatar's 131072 slots, forward and the
+    gradient of a seeded projection of its heads, on the card against the
+    CPU on the same weights (HASH_TOL); then arap_loss_with_rot on the
+    [loop]'s trained 512-node warp, with and without the rotation term, on
+    the card against the CPU on the same draws (ARAP_ROT_TOL), the
+    rotation-fit counter zeroed just before and read just after, and the
+    kernel's fits of those losses held to their plain version
+    (check_rotfit). Returns the launches and that check's result."""
+    import torch
+
+    from riggs_tpu_torch.models import hash_encoding as H
+    from riggs_tpu_torch.models import node_warp as NW
+    from riggs_tpu_torch.ops import geometry as GEO
+    from riggs_tpu_torch.train.optim import tree_leaves
+
+    net_cpu = H.HashDeformNetwork(generator=torch.Generator().manual_seed(7), device="cpu")
+    net_dev = copy.deepcopy(net_cpu).to(DEVICE)
+    x_dev = gs.xyz.detach()
+    x_cpu = x_dev.cpu()
+    rng = np.random.default_rng(7)
+    heads = ("d_xyz", "d_rotation", "d_scaling")
+    cot = {k: rng.normal(size=(x_cpu.shape[0], w)).astype(np.float32) for k, w in zip(heads, (3, 4, 3))}
+
+    def run(net, x):
+        out = H.apply_hash_deform(net, x, 0.3)
+        loss = sum(torch.sum(out[k] * torch.as_tensor(cot[k], device=x.device)) for k in heads)
+        leaves = tree_leaves(net.params_dict())
+        return {k: out[k] for k in heads}, dict(enumerate(torch.autograd.grad(loss, leaves)))
+
+    vd, gd = run(net_dev, x_dev)
+    vc, gc = run(net_cpu, x_cpu)
+    v_err = _leafwise(vd, vc, HASH_TOL["value"], "[hash] output")
+    g_err = _leafwise(gd, gc, HASH_TOL["grad"], "[hash] gradient")
+    torch.cuda.synchronize()
+    ms = _event_ms(lambda: run(net_dev, x_dev), 5)
+    print(f"[hash] apply_hash_deform over {x_cpu.shape[0]} points ({net_cpu.grid.n_levels} levels x "
+          f"{net_cpu.grid.table_size} x {net_cpu.grid.features}): card vs CPU column error outputs {v_err:.2e}, "
+          f"gradients {g_err:.2e} (tables' index-add included); forward and backward {ms:.3f} ms on the card")
+
+    gen = torch.Generator().manual_seed(11)
+    t_samp, fid = NW.arap_rot_draws(gen, device="cpu")
+    warp_cpu = copy.deepcopy(warp).to("cpu")
+    GEO.reset_launches()
+    results = []
+    with _RotCapture() as rot:
+        for rot_term in (False, True):
+            wd, wc = copy.deepcopy(warp), copy.deepcopy(warp_cpu)
+            wd.d_rot_as_res = wc.d_rot_as_res = not rot_term
+            ld = NW.arap_loss_with_rot(wd, t_samp.to(DEVICE), fid.to(DEVICE))
+            lc = NW.arap_loss_with_rot(wc, t_samp, fid)
+            pd, pc = tree_leaves(wd.mlp.params_dict()), tree_leaves(wc.mlp.params_dict())
+            gd = torch.autograd.grad(ld, pd, allow_unused=True)
+            gc = torch.autograd.grad(lc, pc, allow_unused=True)
+            results.append((rot_term, ld.detach(), lc.detach(), gd, gc))
+    torch.cuda.synchronize()
+    launches = dict(GEO.launches)
+    print(f"[hash] rotation-fit launches over the two card losses: {launches}")
+    if launches["fit_rotations"] <= 0:
+        raise RuntimeError("[hash] arap_loss_with_rot never launched the rotation fit")
+    for rot_term, ld, lc, gd, gc in results:
+        pairs = [(a, b.to(a.device)) for a, b in zip(gd, gc) if a is not None and b is not None]
+        tree_max = max(float(b.abs().max()) for _, b in pairs)
+        g_err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-2 * tree_max, 1e-30) for a, b in pairs)
+        rel = abs(float(ld) - float(lc)) / max(abs(float(lc)), 1e-30)
+        print(f"[hash] arap_loss_with_rot on {warp.node_num} nodes ({'with' if rot_term else 'without'} the rotation "
+              f"term): card {float(ld):.6e}, CPU {float(lc):.6e}, relative {rel:.2e}; gradient leaf error {g_err:.2e} "
+              f"over {len(pairs)} leaves")
+        if not (rel <= ARAP_ROT_TOL["loss"] and g_err <= ARAP_ROT_TOL["grad"]):
+            raise RuntimeError(f"[hash] arap_loss_with_rot card vs CPU: loss {rel:.3e}, gradient {g_err:.3e}; "
+                               f"limits {ARAP_ROT_TOL}")
+    covs = [c for c in rot.covs if c.device.type == "cuda"]
+    return launches, check_rotfit(covs, "[hash] arap_loss_with_rot")
+
+
 def main() -> int:
     import torch
 
@@ -3419,6 +3912,7 @@ def main() -> int:
 
     # 13. save, reload and resume the rig; the test-set report (its own counted run)
     io_launches, io_held = io_phase(blend, scene, stage1_state, pipe_state, pipe_info, pipe_cfg)
+    loop_warp = stage1_state.warp  # [hash]'s 512-node warp
     del stage1_state, pipe_state
 
     # 14. train_stage1 with the optical-flow loss (its own counted run)
@@ -3430,11 +3924,35 @@ def main() -> int:
     # 16. the CLI twins of the pipeline and of the stage-2 resume as processes of their own
     cli_phase()
 
+    # 17. the reference operating point's twin as a process of its own, then resumed
+    refpoint_report, refpoint_launches = refpoint_phase()
+
+    # 18. the compact and sort2 binners on the serving avatar (their own counted run)
+    binners_launches, binners_res = binners_phase(blend, gs, skel, cam, bg, cap, frame_train.image)
+
+    # 19-20. the static and MLP-deform trainers on the [loop] scene (their own counted runs)
+    static_launches, static_held, static_times = static_phase(blend, scene, loop_cap)
+    mlp_launches, mlp_held, mlp_times = mlpdeform_phase(blend, scene, loop_cap)
+
+    # 21. the hash deform and the ARAP loss with rotations, card against CPU (its own counted run)
+    hash_launches, hash_rot = hash_phase(gs, loop_warp)
+
     def held(name, results=loop_held):
         """A loop's held steps of a kernel: error, times and bound."""
         return {label: {"max_abs_err": max(r["err"].values()) if isinstance(r["err"], dict) else r["err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"]}
                 for label, r in results[name].items()}
+
+    def side_rows(name, way):
+        """blend_cm's (way "fwd") or its backward's ("bwd") launches and held
+        steps on this slice's paths: the binners, static, MLP-deform."""
+        pick = lambda r: {"max_abs_err": max(r["err"].values()) if isinstance(r["err"], dict) else r["err"],
+                          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"]}
+        return {"launches_binners": binners_launches[name], "launches_static": static_launches[name],
+                "launches_mlpdeform": mlp_launches[name],
+                "held_binners": {b: pick(binners_res[b][way]) for b in ("compact", "sort2")},
+                "held_static": {k: pick(v) for k, v in static_held[name].items()},
+                "held_mlpdeform": {k: pick(v) for k, v in mlp_held[name].items()}}
 
     # forward kernels: times per frame, launches of the serving run (and per
     # step of each training path); backward kernels: times per training
@@ -3458,10 +3976,12 @@ def main() -> int:
             "held_loop": held(name), "launches_pipeline": pipe_launches[name], "held_pipeline": held(name, pipe_held),
             "launches_io": io_launches[name], "launches_flow": flow_launches[name], "held_flow": held(name, flow_held),
             "launches_zju": zju_launches[name], "held_zju": held(name, zju_held),
+            "launches_refpoint": refpoint_launches[name],
             **({"launches_phase_a": pa_launches[name], "ms_phase_a": pa_fwd[name]["ms"],
                 "bound_ms_phase_a": pa_fwd[name]["bound_ms"], "plain_ms_phase_a": pa_fwd[name]["plain_ms"],
                 "held_io": {"max_abs_err": max(io_held["err"].values()), "ms": io_held["ms"],
-                            "plain_ms": io_held["plain_ms"], "bound_ms": io_held["bound_ms"]}}
+                            "plain_ms": io_held["plain_ms"], "bound_ms": io_held["bound_ms"]},
+                **side_rows(name, "fwd")}
                if name == "blend_cm" else {}),
         })
     for name, replaces in (("blend_cm_bwd", "riggs_tpu/render/pallas_blend.py:221"),
@@ -3479,8 +3999,10 @@ def main() -> int:
             "held_loop": held(name), "launches_pipeline": pipe_launches[name], "held_pipeline": held(name, pipe_held),
             "launches_io": io_launches[name], "launches_flow": flow_launches[name], "held_flow": held(name, flow_held),
             "launches_zju": zju_launches[name], "held_zju": held(name, zju_held),
+            "launches_refpoint": refpoint_launches[name],
             **({"launches_phase_a": pa_launches[name], "ms_phase_a": pa_bwd[name]["ms"],
-                "bound_ms_phase_a": pa_bwd[name]["bound_ms"], "plain_ms_phase_a": pa_bwd[name]["plain_ms"]}
+                "bound_ms_phase_a": pa_bwd[name]["bound_ms"], "plain_ms_phase_a": pa_bwd[name]["plain_ms"],
+                **side_rows(name, "bwd")}
                if name == "blend_cm_bwd" else {}),
         })
     # the runs pair: the forward per frame, the backward per gradient, the
@@ -3508,7 +4030,7 @@ def main() -> int:
     # times on the loop's last held phase-B step, launches of the loop
     r = loop_rot["phase B ladder it=39"]
     rot_runs = {"stage1": stage1_rot, "phase_a": pa_rot, **{f"loop {k}": v for k, v in loop_rot.items()},
-                "flow": flow_rot, **{f"zju {k}": v for k, v in zju_rot.items()}}
+                "flow": flow_rot, **{f"zju {k}": v for k, v in zju_rot.items()}, "hash arap_loss_with_rot": hash_rot}
     rows.append({
         "name": "fit_rotations", "route": "cuda", "source": "riggs_tpu_torch/csrc/rotfit.cu",
         "replaces": "riggs_tpu/ops/geometry.py:41", "replaces_kind": "stock op in riggs_tpu (jnp.linalg.svd), C2a",
@@ -3517,6 +4039,7 @@ def main() -> int:
         "library_ms": r["library_ms"], "batch": r["batch"], "launches_stage1": stage1_launches["fit_rotations"],
         "launches_phase_a": pa_launches["fit_rotations"], "launches_io": io_launches["fit_rotations"],
         "launches_flow": flow_launches["fit_rotations"], "launches_zju": zju_launches["fit_rotations"],
+        "launches_hash": hash_launches["fit_rotations"], "launches_refpoint": refpoint_launches["fit_rotations"],
         "planted": stage1_rot["planted"],
         "max_det_err": max(v["det_err"] for v in rot_runs.values()),
         "held": {k: {key: v[key] for key in ("fits", "ill_posed", "err", "scaled_err", "ms", "plain_ms", "library_ms",

@@ -14,11 +14,15 @@ from riggs_tpu_torch.data.dataset import Frame
 from riggs_tpu_torch.device import resolve_device
 from riggs_tpu_torch.models.deform_mlp import DeformNetworkDef
 from riggs_tpu_torch.models.gaussians import DensifyStats, Gaussians
+from riggs_tpu_torch.models.hash_encoding import HashDeformNetwork, HashGridDef
 from riggs_tpu_torch.models.node_warp import NodeWarp
+from riggs_tpu_torch.models.simple_deform import MlpDeform
 from riggs_tpu_torch.models.skeleton_warp import init_skeleton_warp
+from riggs_tpu_torch.train.mlp_deform import MlpDeformState
 from riggs_tpu_torch.train.optim import AdamState
 from riggs_tpu_torch.train.stage1 import Stage1State
 from riggs_tpu_torch.train.stage2 import Stage2State
+from riggs_tpu_torch.train.static import TrainState
 
 
 def _t(a, dev, dtype=torch.float32) -> torch.Tensor:
@@ -90,18 +94,54 @@ def node_warp_from_numpy(
     warp = NodeWarp(_t(params["nodes"], dev), _t(params["radius"], dev), _t(params["weight"], dev), net,
                     K=K, hyper_dim=hyper_dim, d_rot_as_res=d_rot_as_res, with_node_weight=with_node_weight,
                     generator=torch.Generator(device=dev).manual_seed(0))  # weights overwritten below
-    mp = params["mlp"]
-    mods = warp.mlp.params_dict()
+    _load_deform_network(warp.mlp, params["mlp"])
+    return warp
+
+
+def _load_deform_network(module, mp: dict):
+    """A reference DeformNetwork tree (trunk, heads, blender timenet) into
+    the port's ``DeformNetwork``."""
+    mods = module.params_dict()
     if set(mp) != set(mods):
         raise ValueError(f"DeformNetwork parameters {sorted(mp)} given, the module has {sorted(mods)}")
-    _load_mlp(warp.mlp.trunk, mp["trunk"])
+    _load_mlp(module.trunk, mp["trunk"])
     for name, p in mp.items():
         if name == "timenet":
-            for lin, lp in zip(warp.mlp.timenet, p):
+            for lin, lp in zip(module.timenet, p):
                 _load_linear(lin, lp)
         elif name != "trunk":
-            _load_linear(getattr(warp.mlp, name), p)
-    return warp
+            _load_linear(getattr(module, name), p)
+
+
+@torch.no_grad()
+def mlp_deform_from_numpy(params: dict, net: DeformNetworkDef, device: str | torch.device | None = None) -> MlpDeform:
+    """``params`` is the reference's ``MlpDeform.params_dict()``: the
+    DeformNetwork tree under ``mlp``."""
+    dev = resolve_device(device)
+    deform = MlpDeform(net, generator=torch.Generator(device=dev).manual_seed(0), device=dev)  # overwritten below
+    _load_deform_network(deform.mlp, params["mlp"])
+    return deform
+
+
+@torch.no_grad()
+def hash_deform_from_numpy(params: dict, bbox_min, bbox_max, grid: HashGridDef | None = None, t_multires: int = 6,
+                           width: int = 64, depth: int = 2,
+                           device: str | torch.device | None = None) -> HashDeformNetwork:
+    """``params`` is the reference's ``HashDeformNetwork.params_dict()``:
+    the (L, T, F) tables, the trunk under ``mlp`` and the three heads under
+    ``heads``; ``bbox_min`` / ``bbox_max`` its scalar box."""
+    dev = resolve_device(device)
+    net = HashDeformNetwork(float(np.asarray(bbox_min)), float(np.asarray(bbox_max)), grid=grid,
+                            t_multires=t_multires, width=width, depth=depth,
+                            generator=torch.Generator(device=dev).manual_seed(0), device=dev)  # overwritten below
+    tables = np.asarray(params["tables"], np.float32)
+    if tuple(net.tables.shape) != tables.shape:
+        raise ValueError(f"tables {tables.shape} given, the grid has {tuple(net.tables.shape)}")
+    net.tables.copy_(torch.from_numpy(tables.copy()))
+    _load_mlp(net.mlp, params["mlp"])
+    for name, p in params["heads"].items():
+        _load_linear(getattr(net, name), p)
+    return net
 
 
 @torch.no_grad()
@@ -259,4 +299,31 @@ def stage1_state_from_numpy(
         stats_gs=DensifyStats(*(_t(a, dev) for a in stats_gs)),
         stats_node=DensifyStats(*(_t(a, dev) for a in stats_node)),
         it=torch.tensor(int(it), dtype=torch.int32, device=dev),
+    )
+
+
+def static_state_from_numpy(gs: dict, opt: tuple, stats: tuple,
+                            device: str | torch.device | None = None) -> TrainState:
+    """The static trainer's ``TrainState`` from the reference's: ``gs`` a
+    dict of ``gaussians_from_numpy``'s arguments, the Adam state (mu, nu,
+    count) in the params' tree, the statistics (xyz_gradient_accum, denom,
+    max_radii2d)."""
+    dev = resolve_device(device)
+    return TrainState(gs=gaussians_from_numpy(**gs, device=dev), opt=_adam(opt, _module_tree, dev),
+                      stats=DensifyStats(*(_t(a, dev) for a in stats)))
+
+
+def mlp_deform_state_from_numpy(gs: dict, deform_params: dict, net: DeformNetworkDef, opt_gs: tuple,
+                                opt_deform: tuple, stats: tuple,
+                                device: str | torch.device | None = None) -> MlpDeformState:
+    """An ``MlpDeformState`` from the reference's: ``gs`` as for
+    ``static_state_from_numpy``, the deform's ``params_dict`` tree and
+    both Adam states (mu, nu, count)."""
+    dev = resolve_device(device)
+    return MlpDeformState(
+        gs=gaussians_from_numpy(**gs, device=dev),
+        deform=mlp_deform_from_numpy(deform_params, net, device=dev),
+        opt_gs=_adam(opt_gs, _module_tree, dev),
+        opt_deform=_adam(opt_deform, _module_tree, dev),
+        stats=DensifyStats(*(_t(a, dev) for a in stats)),
     )

@@ -27,8 +27,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from riggs_tpu_torch.device import resolve_device
 from riggs_tpu_torch.io.ply import save_gaussians_ply
-from riggs_tpu_torch.train.stage1 import Stage1State
+from riggs_tpu_torch.train import optim as O
+from riggs_tpu_torch.train.stage1 import Stage1State, init_stage1
 from riggs_tpu_torch.train.stage2 import Stage2State
 
 _GS_FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity", "feature", "alive")
@@ -125,6 +127,22 @@ def load_state_npz(path: str | Path, template: Stage1State | Stage2State):
             with torch.no_grad():  # fresh storage: no two leaves of the copy share one
                 t.set_(torch.from_numpy(arr).to(device=t.device, dtype=t.dtype))
     return state
+
+
+def stage1_template(scene, cfg, path: str | Path, device: str | torch.device | None = None) -> Stage1State:
+    """``init_stage1``'s state with as many warp nodes as the stage-1 state
+    file ``path`` holds (the node set of a trained state was sampled,
+    densified and pruned): a template ``load_state_npz`` fills."""
+    dev = resolve_device(device)
+    template = init_stage1(scene, cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    with np.load(path) as data:
+        n = data[".warp.nodes"].shape[0]
+    w = template.warp
+    if n != w.node_num:
+        w = w.with_nodes(torch.zeros((n, w.nodes.shape[1]), device=dev), torch.zeros(n, device=dev),
+                         torch.zeros((n, 1), device=dev))
+        template.warp, template.opt_warp = w, O.adam_init(w.params_dict())
+    return template
 
 
 def save_skeleton_tree(model_path: str | Path, joints, parents, indices, template_idx: int):

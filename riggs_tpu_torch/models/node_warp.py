@@ -1,6 +1,6 @@
 """NodeWarp: the node-based deformation field of stage 1.
 
-Port of ``riggs_tpu/models/node_warp.py:42-291, 365-375, 389-420``. Sparse control
+Port of ``riggs_tpu/models/node_warp.py:42-291, 365-420``. Sparse control
 nodes carry a position with hyper coordinates, a radius and a weight; the
 DeformNetwork queried at the nodes gives per-node residuals, which are
 blended onto the Gaussians with Gaussian-kernel weights over each one's K
@@ -18,6 +18,10 @@ nearest nodes (exp(-d^2 / 2 r^2), node-weight modulated, normalized).
     time. JAX's PRNG streams cannot be reproduced here, so the sample times
     are an argument (``arap_sample_times`` draws them from a
     ``torch.Generator``);
+  * ``arap_loss_with_rot``: ``ops/arap.py:arap_deformation_loss`` over the
+    node trajectories at 8 uniform times, frame 0 against one drawn frame
+    (``arap_rot_draws`` draws both from a ``torch.Generator``), with the
+    rotation term when the warp predicts absolute rotations;
   * ``elastic_loss`` and ``acc_loss``: phase A's trajectory regularizers
     (the variance of neighbour edge lengths over 8 times near the frame's,
     and the second finite difference of the node trajectories). Their
@@ -293,6 +297,33 @@ def arap_loss(warp: NodeWarp, t_samp: torch.Tensor) -> torch.Tensor:
     nodes_t = _trajectory(warp, t_samp)  # (M, T, 3)
     conn = A.connectivity_from_points(nodes_t[:, 0].detach(), K=min(10, warp.node_num - 1))
     return A.arap_error(nodes_t.transpose(0, 1), conn)
+
+
+def arap_rot_draws(
+    generator: torch.Generator | None = None,
+    t_samp_num: int = 8,
+    device: str | torch.device | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``arap_loss_with_rot``'s draws as the reference draws them: the
+    (t_samp_num,) sample times uniform in [0, 1), then the compared frame
+    uniform in [1, t_samp_num) (a () int64 tensor)."""
+    dev = resolve_device(device)
+    t_samp = torch.rand(t_samp_num, generator=generator, device=dev)
+    fid = torch.randint(1, t_samp_num, (), generator=generator, device=dev)
+    return t_samp, fid
+
+
+def arap_loss_with_rot(warp: NodeWarp, t_samp: torch.Tensor, fid: torch.Tensor) -> torch.Tensor:
+    """ARAP error plus 100 x the rotation error (``arap_deformation_loss``)
+    of the node trajectories at the times ``t_samp`` (T,), frame 0 against
+    frame ``fid``; the rotation term only when the warp predicts absolute
+    rotations (not ``d_rot_as_res``)."""
+    T = t_samp.shape[0]
+    d = node_deform(warp, t_samp[None, :, None].expand(warp.node_num, T, 1))
+    trajectory = warp.nodes[:, None, :3].detach() + d["d_xyz"]
+    traj_rot = None if warp.d_rot_as_res else d["d_rotation"] + constant(ROT_BIAS, d["d_rotation"])
+    err, rot_err = A.arap_deformation_loss(trajectory, fid, trajectory_rot=traj_rot)
+    return err + rot_err
 
 
 def sample_time(

@@ -1,9 +1,12 @@
 """As-rigid-as-possible energies over control-node trajectories.
 
-Port of ``riggs_tpu/ops/arap.py:27-84``: the dense (N, K) neighbour table
+Port of ``riggs_tpu/ops/arap.py:27-124``: the dense (N, K) neighbour table
 with a validity mask (``Connectivity``, ``connectivity_from_points``),
-``edge_matrix``, the weighted Procrustes fit ``estimate_rotations`` and the
-stretch energy ``arap_error``.
+``edge_matrix``, the weighted Procrustes fit ``estimate_rotations``, the
+stretch energy ``arap_error`` and ``arap_deformation_loss`` (frame 0 of a
+trajectory against one other frame, with the rotation term). JAX's PRNG
+streams cannot be reproduced here, so that other frame ``fid`` is an
+argument, drawn by the caller.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 from riggs_tpu_torch.device import constant
 from riggs_tpu_torch.ops.geometry import fit_rotations
 from riggs_tpu_torch.ops.knn import knn
+from riggs_tpu_torch.ops.quaternion import quat_to_rotmat
 
 
 class Connectivity(NamedTuple):
@@ -68,3 +72,36 @@ def arap_error(nodes_sequence: torch.Tensor, conn: Connectivity) -> torch.Tensor
         stretch = edge_matrix(tgt_nodes, conn) - torch.einsum("nab,nkb->nka", R, src)
         total = total + torch.sum(conn.weight * torch.sum(stretch**2, dim=-1))
     return total
+
+
+def arap_deformation_loss(
+    trajectory: torch.Tensor,
+    fid: torch.Tensor,
+    trajectory_rot: torch.Tensor | None = None,
+    K: int = 50,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """ARAP energy between frame 0 and frame ``fid`` (a () int64 tensor in
+    [1, T)) of a node trajectory (N, T, 3), over the KNN graph of the
+    trajectories (K = min(K, N - 1), radius 1/8 of frame 0's bounding-box
+    diagonal). Returns (arap error, 100 x rotation error): the rotation
+    error compares the best-fit rotations, applied to frame 0's predicted
+    rotations, with frame fid's (``trajectory_rot`` (N, T, 4)
+    quaternions); 0 without them."""
+    n = trajectory.shape[0]
+    init = trajectory[:, 0]
+    pick = lambda a: torch.index_select(a, 1, fid.reshape(1).to(torch.int64))[:, 0]
+    tar = pick(trajectory)
+    K = min(K, n - 1)
+    radius = torch.linalg.norm(torch.amax(init, dim=0) - torch.amin(init, dim=0)) / 8.0
+    conn = connectivity_from_points(init.detach(), radius=radius, K=K, trajectory=trajectory.detach())
+    src = edge_matrix(init, conn)
+    tgt = edge_matrix(tar, conn)
+    R = estimate_rotations(init, tar, conn).detach()
+    stretch = tgt - torch.einsum("nab,nkb->nka", R, src)
+    err = torch.sum(torch.mean(conn.weight[..., None] * stretch**2, dim=0))
+    if trajectory_rot is None:
+        return err, torch.zeros((), dtype=err.dtype, device=err.device)
+    init_rot = quat_to_rotmat(trajectory_rot[:, 0])
+    tar_rot = quat_to_rotmat(pick(trajectory_rot))
+    rot_err = torch.sum(torch.mean((torch.einsum("nab,nbc->nac", R, init_rot) - tar_rot) ** 2, dim=0))
+    return err, rot_err * 1e2

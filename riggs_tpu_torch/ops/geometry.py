@@ -1,7 +1,8 @@
 """Point-to-segment distances, Procrustes rotation fits, a safe norm.
 
 Port of ``riggs_tpu/ops/geometry.py``: ``point_segment_dist2`` (bone
-skinning), ``fit_rotations`` (the ARAP losses) and ``safe_norm``.
+skinning), ``fit_rotations`` (the ARAP losses), ``safe_norm`` and the
+homogeneous-coordinate pair ``to_homogeneous`` / ``from_homogeneous``.
 
 ``fit_rotations`` is a hand kernel on the card (``csrc/rotfit.cu``: one
 thread per 3x3 matrix, a Jacobi eigen-decomposition of cov^T cov in f64),
@@ -97,3 +98,13 @@ def fit_rotations(cov: torch.Tensor) -> torch.Tensor:
 def safe_norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     """L2 norm with a finite gradient at the origin: sqrt(sum x^2 + eps)."""
     return torch.sqrt(torch.sum(x * x, dim=dim) + eps)
+
+
+def to_homogeneous(x: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 4) with a trailing 1."""
+    return torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+
+
+def from_homogeneous(x: torch.Tensor) -> torch.Tensor:
+    """(..., 4) -> (..., 3), divided by the last coordinate."""
+    return x[..., :3] / x[..., 3:4]

@@ -165,7 +165,10 @@ def render_auto(
     """render() with capacity escalation: re-render with the offending cap
     doubled (the rect cap x4) until nothing is truncated, or warn and return
     the truncated render at the limits. A budget overflow doubles
-    ``max_instances`` from ``4 * gs.capacity``, the binner's default."""
+    ``max_instances`` from ``4 * gs.capacity``, the binner's default; on
+    ``binning="compact"`` the rect counter is that budget's overflow and
+    escalates it too (the compact binner has no rect cap)."""
+    compact = kwargs.get("binning") == "compact"
     while True:
         out = render(
             cam, gs, bg, max_per_tile=max_per_tile,
@@ -180,12 +183,12 @@ def render_auto(
         if tiles_of > 0 and max_per_tile < max_per_tile_limit:
             max_per_tile = min(max_per_tile * 2, max_per_tile_limit)
             escalated = True
-        if budget_of > 0:
+        if budget_of > 0 or (rect_of > 0 and compact):
             cur = max_instances if max_instances is not None else 4 * gs.capacity
             if cur < max_instances_limit:
                 max_instances = min(cur * 2, max_instances_limit)
                 escalated = True
-        if rect_of > 0 and max_tiles_per_gaussian < max_tiles_limit:
+        if rect_of > 0 and not compact and max_tiles_per_gaussian < max_tiles_limit:
             max_tiles_per_gaussian = min(max_tiles_per_gaussian * 4, max_tiles_limit)
             escalated = True
         if not escalated:

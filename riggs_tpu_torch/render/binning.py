@@ -2,8 +2,16 @@
 
 Port of ``riggs_tpu/render/binning.py``: the sort binner
 ``bin_gaussians_sorted`` (with its mid and giant tiers and the exact cell
-cull), the aligned-runs binner ``bin_gaussians_runs`` and the dense
-reference ``bin_gaussians``.
+cull), the aligned-runs binner ``bin_gaussians_runs``, the dense
+reference ``bin_gaussians``, and the two binners whose window gathers have
+structural backwards (``render/tiles.py``): ``bin_gaussians_compact`` (one
+slot per bbox cell under one global instance budget, no per-Gaussian cap)
+with its ``CompactInfo``, and ``bin_gaussians_sorted2`` (the padded cells
+of depth-presorted Gaussians on one packed integer key) with its
+``GridInfo``. Those two take their per-tile counts from
+``_mxu_tile_histogram``, a float32 product of 0/1 interval indicators
+(exact below 2^24 hits a tile), as the reference does; their packed sort
+keys are int64 once (T + 1) times the key range reaches 2^31.
 
 Instance order is (tile, depth, gid), gid breaking exact depth ties, as the
 reference's three-key ``lax.sort`` gives it. Depth and gid are per Gaussian,
@@ -28,7 +36,9 @@ def _extract_windows(src: torch.Tensor, starts: torch.Tensor, max_per_tile: int)
     """(T, MAX) windows ``src[starts[t] : starts[t] + MAX]`` of a 1-D array.
     ``src`` must be padded by the caller so no window reads past its end."""
     s = torch.arange(max_per_tile, dtype=torch.int64, device=src.device)[None, :]
-    return src[starts.to(torch.int64)[:, None] + s]
+    # clamped as XLA clamps a gather: a binner that dropped instances (the
+    # compact budget, sort2's rect cap) counts more hits than it sorted
+    return src[torch.clamp(starts.to(torch.int64)[:, None] + s, max=src.shape[0] - 1)]
 
 
 class RunsInfo(NamedTuple):
@@ -39,6 +49,33 @@ class RunsInfo(NamedTuple):
 
     gid: torch.Tensor  # (M2,) int32 gaussian id per slot; N at pad slots
     sblk: torch.Tensor  # (T,) int32 first block of each tile's run
+
+
+class CompactInfo(NamedTuple):
+    """By-product of ``bin_gaussians_compact`` that makes the window
+    gather's backward a row gather and a segment sum. "Slot" space: the
+    instances of each depth-ordered Gaussian g occupy the slots
+    [offsets[g], offsets[g] + cnt[g])."""
+
+    order: torch.Tensor  # (N,) gaussian ids in depth order
+    invorder: torch.Tensor  # (N,) inverse permutation of order
+    offsets: torch.Tensor  # (N,) slot-run start per depth-ordered gaussian
+    cnt: torch.Tensor  # (N,) slot-run length per depth-ordered gaussian
+    slot_tile: torch.Tensor  # (M,) tile id per slot (T sentinel when invalid)
+    invperm: torch.Tensor  # (M,) sorted position of each slot
+    starts: torch.Tensor  # (T,) start of each tile's window in the sorted array
+
+
+class GridInfo(NamedTuple):
+    """By-product of ``bin_gaussians_sorted2``: every instance is a cell of
+    the padded (K, N) depth-ordered grid, so the window gather's backward
+    writes window gradients to their own cells (no collisions) and sums
+    over K. K is not a field: the caller passes it."""
+
+    order: torch.Tensor  # (N,) gaussian ids in depth order
+    invorder: torch.Tensor  # (N,) inverse of order
+    drank_win: torch.Tensor  # (T, MAX) depth rank per window slot
+    grid_win: torch.Tensor  # (T, MAX) flat (k * N + drank) cell per slot, N * K when invalid
 
 
 class TileBins(NamedTuple):
@@ -52,6 +89,8 @@ class TileBins(NamedTuple):
     gid_sorted: torch.Tensor | None = None  # (M,) tile-grouped depth-ordered gaussian ids
     runs: RunsInfo | None = None  # set by bin_gaussians_runs
     overflow_budget: torch.Tensor | None = None  # () instance-budget slots dropped
+    compact: CompactInfo | None = None  # set by bin_gaussians_compact
+    grid: GridInfo | None = None  # set by bin_gaussians_sorted2
 
 
 def num_tiles(width: int, height: int, tile: int = TILE) -> tuple[int, int]:
@@ -383,4 +422,146 @@ def bin_gaussians_runs(
         overflow=rect_overflow.to(torch.int32),
         runs=RunsInfo(gid=gid_runs, sblk=sblk),
         overflow_budget=budget_overflow.to(torch.int32),
+    )
+
+
+def _mxu_tile_histogram(proj: Projected, lox, hix, loy, hiy, tx_n: int, ty_n: int):
+    """True per-tile hit counts of the bbox rects (inclusive bounds) as one
+    product of the per-axis interval indicators, counts(ty, tx) = sum_g
+    Ly[g, ty] Lx[g, tx], in float32 (0/1 inputs: exact, TF32 or not, below
+    2^24); and each tile's exclusive prefix sum. Returns (count, starts)
+    (T,) int32."""
+    dev = proj.mean2d.device
+    txs = torch.arange(tx_n, dtype=torch.int32, device=dev)[None, :]
+    tys = torch.arange(ty_n, dtype=torch.int32, device=dev)[None, :]
+    m = proj.mask[:, None]
+    Lx = (m & (txs >= lox[:, None]) & (txs <= hix[:, None])).to(torch.float32)
+    Ly = (m & (tys >= loy[:, None]) & (tys <= hiy[:, None])).to(torch.float32)
+    count = (Ly.t() @ Lx).reshape(-1).to(torch.int32)
+    starts = torch.cumsum(count, 0, dtype=torch.int32) - count
+    return count, starts
+
+
+def _inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype, device=perm.device)
+    return inv
+
+
+def bin_gaussians_sorted2(
+    proj: Projected,
+    width: int,
+    height: int,
+    max_per_tile: int = 1024,
+    tile: int = TILE,
+    max_tiles_per_gaussian: int = 16,
+) -> TileBins:
+    """Padded binning on one packed key: the Gaussians are depth-ordered
+    once (masked ones last), then each emits the cells of a side x side
+    window at its rect's corner (side = ceil(sqrt(max_tiles_per_gaussian)),
+    K = side^2), keyed (tile, depth rank, cell) in one integer, so the
+    instance sort carries no payload. Counts come from the histogram of the
+    whole rects. ``overflow`` counts the rect cells past K."""
+    tx_n, ty_n = num_tiles(width, height, tile)
+    T = tx_n * ty_n
+    N = proj.mean2d.shape[0]
+    dev = proj.depth.device
+
+    lox, loy, hix, hiy = _rects(proj, tx_n, ty_n, tile)
+    count, starts = _mxu_tile_histogram(proj, lox, hix, loy, hiy, tx_n, ty_n)
+
+    order = _depth_rank_order(proj.depth, proj.mask)
+    lox_d, loy_d = lox[order], loy[order]
+    w_d = (hix - lox + 1)[order]
+    h_d = (hiy - loy + 1)[order]
+    mask_d = proj.mask[order]
+
+    side = max(int(np.ceil(np.sqrt(max_tiles_per_gaussian))), 1)
+    K = side * side
+    NK = N * K
+    kdt = torch.int64 if (T + 1) * NK >= 2**31 else torch.int32
+    ks = torch.arange(K, dtype=kdt, device=dev)
+    dx = (ks % side)[:, None]
+    dy = (ks // side)[:, None]
+    cell_ok = mask_d[None, :] & (dx < w_d[None, :]) & (dy < h_d[None, :])
+    tile_id = torch.where(cell_ok, (loy_d[None, :] + dy) * tx_n + lox_d[None, :] + dx, T).to(kdt)  # (K, N)
+    drank = torch.arange(N, dtype=kdt, device=dev)[None, :]
+    key_sorted = torch.sort(((tile_id * N + drank) * K + ks[:, None]).reshape(-1)).values
+    j = key_sorted % NK  # drank * K + k per sorted slot
+    drank_sorted = (j // K).to(torch.int64)
+    grid_flat_sorted = (j % K) * N + drank_sorted  # k * N + drank
+
+    s = torch.arange(max_per_tile, dtype=torch.int32, device=dev)[None, :]
+    valid = s < torch.clamp(count, max=max_per_tile)[:, None]
+    drank_win = _extract_windows(torch.nn.functional.pad(drank_sorted, (0, max_per_tile)), starts, max_per_tile)
+    grid_win = _extract_windows(torch.nn.functional.pad(grid_flat_sorted, (0, max_per_tile), value=NK),
+                                starts, max_per_tile)
+    drank_win = torch.where(valid, drank_win, 0)
+    grid_win = torch.where(valid, grid_win, NK)  # the sentinel row, dropped by the backward
+    rect_overflow = torch.sum(torch.where(proj.mask, torch.clamp((hix - lox + 1) * (hiy - loy + 1) - K, min=0), 0))
+    return TileBins(
+        idx=order[drank_win], valid=valid, count=count, tiles_x=tx_n, tiles_y=ty_n,
+        overflow=rect_overflow.to(torch.int32),
+        grid=GridInfo(order=order, invorder=_inverse_permutation(order), drank_win=drank_win, grid_win=grid_win),
+    )
+
+
+def bin_gaussians_compact(
+    proj: Projected,
+    width: int,
+    height: int,
+    max_per_tile: int = 1024,
+    tile: int = TILE,
+    max_instances: int | None = None,
+) -> TileBins:
+    """Compact binning: one slot per bbox cell of every Gaussian (no
+    per-Gaussian tile cap) within one global budget of M slots
+    (``max_instances``, default 4 N, rounded up to 128). The Gaussians are
+    depth-ordered once; their slot runs are laid out by a cumsum of run
+    starts; one sort of the key tile * M + slot groups the slots by tile in
+    depth order. Counts come from the histogram. ``overflow`` counts the
+    cells past the budget (``render_auto`` doubles ``max_instances`` on
+    it)."""
+    tx_n, ty_n = num_tiles(width, height, tile)
+    T = tx_n * ty_n
+    N = proj.mean2d.shape[0]
+    dev = proj.depth.device
+    M = max_instances if max_instances is not None else 4 * N
+    M = max(-(-M // 128) * 128, 128)
+
+    lox, loy, hix, hiy = _rects(proj, tx_n, ty_n, tile)
+    count, starts = _mxu_tile_histogram(proj, lox, hix, loy, hiy, tx_n, ty_n)
+
+    order = _depth_rank_order(proj.depth, proj.mask)
+    lox_d, loy_d = lox[order], loy[order]
+    w_d = (hix - lox + 1)[order]
+    cnt = torch.where(proj.mask[order], w_d * (hiy - loy + 1)[order], 0).to(torch.int32)
+    ends = torch.cumsum(cnt, 0, dtype=torch.int64)
+    offsets = ends - cnt
+    total = ends[-1]
+
+    # slot -> depth rank: +1 at every run start, cumsum, -1
+    seg = torch.zeros(M + 1, dtype=torch.int64, device=dev)
+    seg.index_add_(0, torch.clamp(offsets, max=M), torch.ones_like(offsets))
+    grank = torch.clamp(torch.cumsum(seg[:M], 0) - 1, 0, N - 1)
+    slot = torch.arange(M, dtype=torch.int64, device=dev)
+    valid_slot = slot < torch.clamp(total, max=M)
+    k = slot - offsets[grank]
+    w_g = torch.clamp(w_d[grank], min=1).to(torch.int64)
+    slot_tile = torch.where(valid_slot, (loy_d[grank] + k // w_g) * tx_n + lox_d[grank] + k % w_g, T)
+
+    # one sort: tile in the high part, slot in the low one -> per-tile depth order
+    kdt = torch.int64 if (T + 1) * M >= 2**31 else torch.int32
+    perm = torch.sort((slot_tile * M + slot).to(kdt)).indices  # the slot at each sorted position
+    gid_sorted = order[grank[perm]]
+    invperm = _inverse_permutation(perm)
+
+    s = torch.arange(max_per_tile, dtype=torch.int32, device=dev)[None, :]
+    valid = s < torch.clamp(count, max=max_per_tile)[:, None]
+    win = _extract_windows(torch.nn.functional.pad(gid_sorted, (0, max_per_tile)), starts, max_per_tile)
+    return TileBins(
+        idx=torch.where(valid, win, 0), valid=valid, count=count, tiles_x=tx_n, tiles_y=ty_n,
+        overflow=torch.clamp(total - M, min=0).to(torch.int32),
+        compact=CompactInfo(order=order, invorder=_inverse_permutation(order), offsets=offsets, cnt=cnt,
+                            slot_tile=slot_tile, invperm=invperm, starts=starts),
     )

@@ -4,28 +4,37 @@ Port of ``riggs_tpu/render/tiles.py:rasterize_tiled``: the sort binner
 (and the dense one), the plain-window blend (``blend.blend_cm``,
 ``tiles.py:399-437``), the laddered blend (``blend.blend_permuted_gm``,
 ``tiles.py:294-367``), the aligned-runs binner with its blend
-(``blend.blend_runs``, ``tiles.py:368-388``), the untile step and the
-overflow counters. The
-reference's XLA scan blend (``blend='jnp'``) has no separate port: the
-kernels' plain versions take its place on the CPU.
+(``blend.blend_runs``, ``tiles.py:368-388``), the compact and sort2
+binners on the plain-window blend (``tiles.py:389-393``), the untile step
+and the overflow counters. The reference's XLA scan blend (``blend='jnp'``)
+has no separate port: the kernels' plain versions take its place on the
+CPU.
 
 The result is differentiable in means3d, colors, opacity, scales, rotations
 and ``mean2d_bias``: the blends are autograd Functions with backward
-kernels, and the window gathers (``_gather_windows``) get their scatter-add
-backward from autograd, as XLA gave the reference's.
+kernels. The sort, ladder and runs window gathers (``_gather_windows``) get
+their scatter-add backward from autograd, as XLA gave the reference's; the
+compact and sort2 gathers are autograd Functions with the reference's
+structural backwards (``gather_instances``, ``gather_grid``,
+``tiles.py:39-97``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from riggs_tpu_torch.camera.camera import Camera
 from riggs_tpu_torch.render import blend as _blend
 from riggs_tpu_torch.render.binning import (
     TILE,
+    CompactInfo,
+    GridInfo,
     _extract_windows,
     bin_gaussians,
+    bin_gaussians_compact,
     bin_gaussians_runs,
     bin_gaussians_sorted,
+    bin_gaussians_sorted2,
 )
 from riggs_tpu_torch.render.project import build_cov3d_packed, project_gaussians
 
@@ -51,6 +60,71 @@ def _gather_windows(packed: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor
     spread = torch.arange(valid.numel(), device=idx.device).reshape(valid.shape) % packed.shape[0]
     rows = packed[torch.where(valid, idx, spread)]
     return torch.where(valid[..., None], rows, 0.0)
+
+
+class _GatherInstances(torch.autograd.Function):
+    """``packed[idx]`` (N, D) -> (T, MAX, D) over the compact binner's
+    windows. Backward: each Gaussian's instances are one run of slots, so
+    each slot reads its window gradient (an inverse-permutation row
+    gather), one float32 cumsum runs over the slots, and the differences
+    at the run boundaries are the per-Gaussian sums."""
+
+    @staticmethod
+    def forward(ctx, packed, idx, compact: CompactInfo):
+        ctx.compact = compact
+        return packed[idx.to(torch.int64)]
+
+    @staticmethod
+    def backward(ctx, dg):
+        c = ctx.compact
+        T, MAX, D = dg.shape
+        t = c.slot_tile
+        tc = torch.clamp(t, 0, T - 1)
+        s = c.invperm - c.starts[tc].to(torch.int64)
+        ok = (t < T) & (s < MAX)
+        row = torch.where(ok, tc * MAX + torch.clamp(s, 0, MAX - 1), 0)
+        rows = torch.where(ok[:, None], dg.reshape(T * MAX, D)[row], 0.0)  # (M, D)
+        csz = torch.nn.functional.pad(torch.cumsum(rows.to(torch.float32), 0), (0, 0, 1, 0))
+        M = rows.shape[0]
+        # runs past the budget end at its last slot, as XLA clamps the gather
+        ends = torch.clamp(c.offsets + c.cnt, max=M)
+        per_g = csz[ends] - csz[torch.clamp(c.offsets, max=M)]  # (N, D) depth order
+        return per_g[c.invorder], None, None
+
+
+class _GatherGrid(torch.autograd.Function):
+    """``packed[order][drank_win]`` (N, D) -> (T, MAX, D) over the sort2
+    binner's windows. Backward: every window slot is its own (k, drank)
+    cell of the padded grid, so the window gradients are written (not
+    added) to their cells, invalid slots to a sentinel row that is dropped,
+    and the cells summed over K."""
+
+    @staticmethod
+    def forward(ctx, packed, grid: GridInfo, k: int):
+        ctx.grid, ctx.k = grid, k
+        return packed[grid.order][grid.drank_win]
+
+    @staticmethod
+    def backward(ctx, dg):
+        grid, k = ctx.grid, ctx.k
+        T, MAX, D = dg.shape
+        N = grid.order.shape[0]
+        dcells = torch.zeros((N * k + 1, D), dtype=torch.float32, device=dg.device)
+        dcells[grid.grid_win.reshape(-1)] = dg.reshape(T * MAX, D).to(torch.float32)
+        per_g = dcells[: N * k].reshape(k, N, D).sum(0)  # depth order
+        return per_g[grid.invorder], None, None
+
+
+def gather_instances(packed: torch.Tensor, idx: torch.Tensor, compact: CompactInfo) -> torch.Tensor:
+    """(N, D) packed rows -> (T, MAX, D) compact-binner windows, with the
+    segment-sum backward."""
+    return _GatherInstances.apply(packed, idx, compact)
+
+
+def gather_grid(packed: torch.Tensor, grid: GridInfo, k: int) -> torch.Tensor:
+    """(N, D) packed rows -> (T, MAX, D) sort2 windows, with the
+    cell-scatter backward; ``k`` the padded cells per Gaussian."""
+    return _GatherGrid.apply(packed, grid, k)
 
 
 def rasterize_tiled(
@@ -80,7 +154,10 @@ def rasterize_tiled(
 
     binning='sort' is the (tile, depth, gid) sort binner; 'runs' the same
     sort laid out as aligned runs under an instance budget
-    ``max_instances`` (default 4 N); 'dense' the exact dense-mask reference.
+    ``max_instances`` (default 4 N); 'compact' one slot per bbox cell under
+    such a budget (no per-Gaussian tile cap; its ``overflow_rect`` counts
+    the cells past the budget); 'sort2' the depth-presorted padded binner;
+    'dense' the exact dense-mask reference.
     ``tile_ladder`` ((n_tiles, cap), ...) gives the count-sorted tiles
     rank-dependent window capacities (render/ladder.py; sort binner only).
     Returns image (H, W, 3), depth, alpha, radii, proj, the overflow
@@ -91,8 +168,8 @@ def rasterize_tiled(
         if tile_ladder is not None or binning == "runs":
             raise ValueError("tile_shard_mesh composes with the plain-window blend only")
         raise NotImplementedError("tile-sharded rendering comes with the multi-device port (ROADMAP A11)")
-    if binning not in ("sort", "runs", "dense"):
-        raise NotImplementedError(f"binning={binning!r} is not ported yet (ROADMAP A9)")
+    if binning not in ("sort", "runs", "compact", "sort2", "dense"):
+        raise ValueError(f"unknown binning {binning!r}")
     if tile_ladder is not None and binning != "sort":
         raise ValueError("tile_ladder requires binning='sort'")
 
@@ -113,6 +190,12 @@ def rasterize_tiled(
             proj, cam.width, cam.height, max_per_tile=max_per_tile,
             max_tiles_per_gaussian=max_tiles_per_gaussian, max_instances=max_instances,
         )
+    elif binning == "compact":
+        bins = bin_gaussians_compact(proj, cam.width, cam.height, max_per_tile=max_per_tile,
+                                     max_instances=max_instances)
+    elif binning == "sort2":
+        bins = bin_gaussians_sorted2(proj, cam.width, cam.height, max_per_tile=max_per_tile,
+                                     max_tiles_per_gaussian=max_tiles_per_gaussian)
     else:
         bins = bin_gaussians(proj, cam.width, cam.height, max_per_tile=max_per_tile)
 
@@ -160,6 +243,16 @@ def rasterize_tiled(
             attrs = _gather_windows(packed, bins.runs.gid, bins.runs.gid < packed.shape[0])  # (M2, 10)
             g_runs = torch.nn.functional.pad(attrs, (0, _blend.PACK_ROWS - attrs.shape[-1])).t().contiguous()
             out, _ = _blend.blend_runs(g_runs, counts, bins.runs.sblk, max_per_tile // G_CHUNK, bins.tiles_x)
+        elif bins.compact is not None or bins.grid is not None:
+            if bins.compact is not None:
+                g = gather_instances(packed, bins.idx, bins.compact)
+            else:
+                side = max(int(np.ceil(np.sqrt(max_tiles_per_gaussian))), 1)
+                g = gather_grid(packed, bins.grid, side * side)
+            # invalid slots read row 0; their opacity is masked, as the reference masks it
+            g = torch.cat([g[..., :5], torch.where(bins.valid, g[..., 5], 0.0)[..., None], g[..., 6:]], dim=-1)
+            gp = torch.nn.functional.pad(g, (0, _blend.PACK_ROWS - g.shape[-1])).transpose(1, 2).contiguous()
+            out, _ = _blend.blend_cm(gp, counts, bins.tiles_x)
         else:
             # invalid slots are all zero, their opacity included: the
             # reference's opacity mask (tiles.py:402) is the gather's zeros here

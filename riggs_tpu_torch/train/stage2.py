@@ -60,7 +60,7 @@ from riggs_tpu_torch.train import schedule as S
 from riggs_tpu_torch.train.config import Config
 from riggs_tpu_torch.train.sampling import FrameSampler
 from riggs_tpu_torch.train.stage1 import _overflow
-from riggs_tpu_torch.train.static import TrainState, densify_step
+from riggs_tpu_torch.train.static import SplitDraws, TrainState, densify_step
 
 MAX_PER_TILE_LIMIT = 8192
 MAX_TILES_LIMIT = 1024
@@ -473,18 +473,8 @@ def evaluate_stage2(state: Stage2State, test_frames, bg: torch.Tensor, tile_ladd
     return {k: float(np.mean([r[k] for r in rows])) for k in rows[0]} if rows else {}
 
 
-class Stage2Draws:
-    """The stage-2 loop's random draws, from one ``torch.Generator`` seeded
-    with ``seed`` on ``device``. A test replays the reference's key chain
-    through an object with the same method."""
-
-    def __init__(self, seed: int, device: str | torch.device | None = None):
-        self.device = resolve_device(device)
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
-
-    def split_noise(self, capacity: int) -> torch.Tensor:
-        """A densification's split noise (2, capacity, 3)."""
-        return G.split_noise(capacity, generator=self.gen, device=self.device)
+# the stage-2 loop's one draw is the split noise of each densification
+Stage2Draws = SplitDraws
 
 
 def train_stage2(

@@ -28,26 +28,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 def stage1_template(scene, cfg, model_path: Path, device):
     """``init_stage1``'s state with as many warp nodes as the latest stage-1
     checkpoint holds (the nodes themselves are read from it)."""
-    import numpy as np
-    import torch
+    from riggs_tpu_torch.io import checkpoint as C
 
-    from riggs_tpu_torch.io.checkpoint import search_max_iteration
-    from riggs_tpu_torch.train import optim as O
-    from riggs_tpu_torch.train.stage1 import init_stage1
-
-    template = init_stage1(scene, cfg, generator=torch.Generator(device=device).manual_seed(0), device=device)
-    it = search_max_iteration(model_path / "checkpoints")
+    it = C.search_max_iteration(model_path / "checkpoints")
     if it is None:
         raise FileNotFoundError(f"no stage-1 checkpoint under {model_path / 'checkpoints'}")
-    with np.load(model_path / "checkpoints" / f"iteration_{it}" / "state.npz") as data:
-        n = data[".warp.nodes"].shape[0]
-    w = template.warp
-    if n != w.node_num:
-        dev = w.nodes.device
-        w = w.with_nodes(torch.zeros((n, w.nodes.shape[1]), device=dev), torch.zeros(n, device=dev),
-                         torch.zeros((n, 1), device=dev))
-        template.warp, template.opt_warp = w, O.adam_init(w.params_dict())
-    return template
+    return C.stage1_template(scene, cfg, model_path / "checkpoints" / f"iteration_{it}" / "state.npz", device)
 
 
 def main(argv=None):

@@ -249,10 +249,13 @@ def test_deferred_arguments_raise():
     means, colors, opacity, scales, rots = _t(*_scene(rng, 10))
     _, tc = _cams(32, 32)
     bg = torch.zeros(3)
-    for kw in (dict(binning="compact"), dict(binning="sort2"), dict(tile_shard_mesh=object())):
-        with pytest.raises(NotImplementedError):
-            t_rasterize(tc, means, colors, opacity, scales, rots, bg, **kw)
+    with pytest.raises(NotImplementedError):
+        t_rasterize(tc, means, colors, opacity, scales, rots, bg, tile_shard_mesh=object())
     # mean2d_bias is ported: a zero bias renders the same image
     a = t_rasterize(tc, means, colors, opacity, scales, rots, bg)
+    # the compact and sort2 binners are ported: the same image as the sort binner's
+    for binning in ("compact", "sort2"):
+        c = t_rasterize(tc, means, colors, opacity, scales, rots, bg, binning=binning)
+        np.testing.assert_allclose(c["image"].numpy(), a["image"].numpy(), rtol=0, atol=1e-6)
     b = t_rasterize(tc, means, colors, opacity, scales, rots, bg, mean2d_bias=torch.zeros(10, 2))
     assert torch.equal(a["image"], b["image"])

@@ -215,17 +215,18 @@ def test_random_motion_quats_match():
 
 
 def test_deferred_render_arguments_raise(avatar):
-    """The compact and sort2 binners (ROADMAP A9) and tile sharding (A11)
-    still raise. with_skinning_vis is ported: a second render in the
+    """Tile sharding (ROADMAP A11) still raises; the compact binner (A9)
+    renders the sort binner's frame. with_skinning_vis is ported: a second render in the
     skinning colours beside an unchanged main render. detach_xyz and
     mean2d_bias are ported: detach_xyz stops the image's gradient to gs.xyz
     (at SH degree 0 the colours do not see the view direction), and a zero
     mean2d_bias leaves the image as it is and receives the screen-space
     gradient."""
     _, _, tgs, tsk, _, tc = avatar
-    for kw, item in ((dict(binning="compact"), "A9"), (dict(tile_shard_mesh=object()), "A11")):
-        with pytest.raises(NotImplementedError, match=item):
-            t_render(tc, tgs, torch.zeros(3), **kw)
+    with pytest.raises(NotImplementedError, match="A11"):
+        t_render(tc, tgs, torch.zeros(3), tile_shard_mesh=object())
+    np.testing.assert_allclose(t_render(tc, tgs, torch.zeros(3), binning="compact")["render"].numpy(),
+                               t_render(tc, tgs, torch.zeros(3))["render"].numpy(), rtol=0, atol=2e-5)
     vis = TS.render_rigged(tgs, tsk, tc, t=0.0, with_skinning_vis=True)
     assert torch.equal(vis["render"], TS.render_rigged(tgs, tsk, tc, t=0.0)["render"])
     assert vis["skinning_render"].shape == vis["render"].shape and not torch.equal(vis["skinning_render"], vis["render"])
@@ -260,7 +261,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 CLI_TWINS = ("torch_run_pipeline", "torch_render_rig", "torch_metrics", "torch_render_stage1", "torch_run_zju",
-             "torch_resume_stage2")
+             "torch_resume_stage2", "torch_run_refpoint")
 
 
 def test_port_imports_no_jax():
@@ -279,6 +280,8 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'riggs_tpu', 'cv2')]\n"
         "assert not bad, bad\n"
         "assert 'riggs_tpu_torch.render.tiles' in sys.modules\n"
+        "for m in ('models.hash_encoding', 'models.simple_deform', 'ops.se3', 'train.mlp_deform', 'train.static'):\n"
+        "    assert 'riggs_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
