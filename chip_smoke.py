@@ -20,7 +20,12 @@ Phases, each printed as it runs:
      tile live past half its chunks) each forward kernel held as above, then
      each backward kernel against its plain version on the forward kernel's
      tentry (exact zeros where due, a second launch bitwise equal), and no
-     launch for T == 0 or C == 0, forward or backward;
+     launch for T == 0 or C == 0, forward or backward; then the offset
+     entry (pallas_blend_offset's) on the serving frame's real windows:
+     tiles [k, k + n) blended with tile_offset k, for k = 0, 150 (a
+     multiple of tiles_x) and 313 (the second half of a 2-way split), out,
+     tentry and dg bitwise equal to rows k..k+n-1 of the full call, each
+     held to its plain version, and timed on the 313 shard;
   4. slice: the rigged avatar at full stage-2 width (131072-slot capacity,
      100000 alive Gaussians, SH degree 3, motion mask, a seeded 24-joint
      tree, three 8x256 MLPs, dense skinning, 800x800): eval_image at several
@@ -175,7 +180,18 @@ Phases, each printed as it runs:
   21. hash: apply_hash_deform at the default grid over 131072 points,
      forward and backward, card against CPU (HASH_TOL); arap_loss_with_rot
      on the [loop]'s 512-node warp with and without the rotation term, card
-     against CPU (ARAP_ROT_TOL), the rotation-fit kernel launched.
+     against CPU (ARAP_ROT_TOL), the rotation-fit kernel launched;
+  22. tileshard: two processes on the card over gloo (NCCL takes one rank
+     per device), each building the avatar and the [train] frame from the
+     seeds: rasterize_tile_sharded on a 1 x 2 mesh against rasterize_tiled
+     (frame and gradients bitwise); 5 make_dp_stage2_step steps at 1 x 2
+     (tile-parallel; the counters zeroed just before and read just after:
+     the offset entry's two kernels, no plain blend) against 5
+     stage2_steps; 5 steps at 2 x 1 (B = 2); 20 iterations of
+     train_stage2_dp at 1 x 2 (an FPS reset, a densification, a test
+     evaluation, rank 0's checkpoint); every state hashed equal on both
+     ranks; ms per step beside the single-device step; then one NCCL rank
+     in this process on a 1 x 1 mesh, bitwise against one device.
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without CUDA
 it exits 2 and prints no result. Imports nothing of JAX or riggs_tpu.
@@ -487,11 +503,12 @@ def _active(tentry, counts):
     return (c[None, :] * 128 < counts.to(torch.int64)[:, None]) & (tentry.amax(dim=2) >= 1e-4)
 
 
-def _work(name, calls, outs):
+def _work(name, calls, outs, offset=0):
     """Bytes and operations the blend calls of one frame need on this data.
     Pairs are the (Gaussian, pixel) pairs of active chunks (the chunk starts
     before the tile's count and some pixel enters it with T >= 1e-4), rows
-    before the count; hits are the pairs whose alpha reaches 1/255. The g
+    before the count; hits are the pairs whose alpha reaches 1/255 (local
+    tile t of blend_cm is tile t + ``offset``). The g
     rows of active chunks are read once, counts (and tids) read once, the
     five used rows of out written once, and tentry written for the chunks
     that start before the count (the only ones the backward reads). Also
@@ -505,7 +522,7 @@ def _work(name, calls, outs):
         g, counts, tiles_x = args[0], args[1].to(torch.int64), args[-1]
         if name == "blend_cm":
             g = g[:, :10].transpose(1, 2)  # (T, MAX, 10) view
-            tids = torch.arange(g.shape[0], device=g.device)
+            tids = torch.arange(g.shape[0], device=g.device) + offset
         elif name == "blend_runs":  # the (T, chunks * 128, 10) windows of the blocks read
             g = B._runs_windows(g, B.runs_blocks(args[1], args[2], args[3], g.shape[1] // 128))
             tids = torch.arange(g.shape[0], device=g.device)
@@ -760,7 +777,7 @@ def profile_frames(gs, skel, cam, bg, cap, kw, label, frame_ms, n=5):
         print(f"[profile]   {e.self_device_time_total / 1e3 / n:8.3f} ms  {e.count // n:4d} launches  {e.key[:90]}")
 
 
-def _work_bwd(name, calls):
+def _work_bwd(name, calls, offset=0):
     """Bytes and operations the backward calls of one step need on this data
     (the function's needs, not blend_bwd's two sweeps and zero writes).
     Pairs are the (row, pixel) pairs of rows before the tile's count, in
@@ -779,7 +796,7 @@ def _work_bwd(name, calls):
         if name == "blend_cm_bwd":
             g, counts, tentry, dout, tiles_x = args
             gt = g[:, :10].transpose(1, 2)
-            tids = torch.arange(g.shape[0], device=g.device)
+            tids = torch.arange(g.shape[0], device=g.device) + offset
         elif name == "blend_runs_bwd":
             g, counts, sblk, tentry, dout, tiles_x = args
             gt = B._runs_windows(g, B.runs_blocks(counts, sblk, tentry.shape[1], g.shape[1] // 128))
@@ -1091,6 +1108,77 @@ def edges_phase(blend, device):
         if blend.launches != before:
             raise RuntimeError(f"[edges] T == 0 or C == 0 launched a kernel: {before} -> {blend.launches}")
         print("[edges] T == 0 and C == 0: no launch, forward or backward; out and the runs dg all zero")
+
+
+# the offset entry on the serving frame's real windows: three shards [k, k + n)
+# of the 625 tiles, k = 0, a multiple of tiles_x and 313 (the second half of a
+# 2-way split, not a multiple of 25)
+OFFSET_SHARDS = ((0, 313), (150, 313), (313, 312))
+
+
+def offset_edges_phase(blend, calls):
+    """[edges], the offset entry (``pallas_blend_offset``): on the serving
+    frame's plain windows (``calls``: its blend_cm call), the full call's
+    out, tentry and dg (a seeded cotangent) by the plain entry, then each
+    shard [k, k + n) of OFFSET_SHARDS blended with tile_offset k: out,
+    tentry and dg bitwise equal to rows k..k+n-1 of the full call; each
+    offset forward held to its plain version (_hold_fwd) and each offset
+    backward too (_hold_bwd, on the kernel's tentry). Returns the forward
+    and backward results of the last shard (the second of a 2-way split):
+    errors, CUDA-event times of kernel and plain version, bound."""
+    import torch
+
+    (g, counts, tiles_x), = calls
+    T = g.shape[0]
+    dout = torch.randn((T, 8, 1024), device=g.device, generator=torch.Generator(g.device).manual_seed(3))
+    with torch.no_grad():
+        out_f, te_f = blend.blend_cm_fwd(g, counts, tiles_x)
+        dg_f = blend.blend_cm_bwd(g, counts, te_f, dout, tiles_x)
+        res = {}
+        for k, n in OFFSET_SHARDS:
+            rows = slice(k, k + n)
+            args = (g[rows].contiguous(), counts[rows].contiguous(), tiles_x)
+            kern = lambda g_, c_, tx, k=k: blend.blend_cm_fwd(g_, c_, tx, k, counter="blend_cm_offset")
+            plain = lambda g_, c_, tx, k=k: blend.blend_cm_plain(g_, c_, tx, k)
+            err, outs = _hold_fwd("blend_cm_offset", [args], kern, plain)
+            out, te = outs[0]
+            bargs = (args[0], args[1], te, dout[rows].contiguous(), tiles_x)
+            kern_b = lambda g_, c_, te_, do_, tx, k=k: blend.blend_cm_bwd(g_, c_, te_, do_, tx, k,
+                                                                           counter="blend_cm_offset_bwd")
+            plain_b = lambda g_, c_, te_, do_, tx, k=k: blend.blend_cm_bwd_plain(g_, c_, te_, do_, tx, k)
+            aerr, rel = _hold_bwd("blend_cm_bwd", [bargs], kern_b, plain_b)
+            dg = kern_b(*bargs)
+            torch.cuda.synchronize()
+            same = {"out": _same_bits(out, out_f[rows]), "tentry": _same_bits(te, te_f[rows]),
+                    "dg": _same_bits(dg, dg_f[rows])}
+            if not all(same.values()):
+                raise RuntimeError(f"[edges] offset {k}: not the rows of the full call: {same}")
+            print(f"[edges] blend_cm_offset tiles [{k}, {k + n}) of {T} (tiles_x {tiles_x}), offset {k}: out, tentry "
+                  f"and dg bitwise equal to the full call's rows; vs plain max|d| rgb/acc {err['rgb_acc']:.3e} depth "
+                  f"{err['depth']:.3e}, tentry bitwise; dg per column max|d| / max|plain| <= {float(rel.max()):.2e}")
+            res[k] = dict(fwd=dict(err=err, args=args, outs=outs, kern=kern, plain=plain),
+                          bwd=dict(err=float(aerr.max()), rel=float(rel.max()), args=bargs, kern=kern_b,
+                                   plain=plain_b))
+        # times and bounds on the last shard
+        k, n = OFFSET_SHARDS[-1]
+        f, b = res[k]["fwd"], res[k]["bwd"]
+        work = _work("blend_cm", [f["args"]], f["outs"], offset=k)
+        plain_ms = _event_ms(lambda: f["plain"](*f["args"]), 3)
+        ms = _event_ms(lambda: f["kern"](*f["args"]), 20)
+        work_b = _work_bwd("blend_cm_bwd", [b["args"]], offset=k)
+        plain_b_ms = _event_ms(lambda: b["plain"](*b["args"]), 2)
+        ms_b = _event_ms(lambda: b["kern"](*b["args"]), 20)
+        print(f"[edges] blend_cm_offset on the {n}-tile shard: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; "
+              f"{work['pairs']} pairs ({work['hits']} hits), bound {work['bound_ms']:.4f} ms by {work['bound_term']}")
+        print(f"[edges] blend_cm_offset_bwd on the {n}-tile shard: kernel {ms_b:.4f} ms, plain {plain_b_ms:.3f} ms; "
+              f"{work_b['pairs']} pairs ({work_b['hits']} hits), bound {work_b['bound_ms']:.4f} ms by "
+              f"{work_b['bound_term']}")
+    fwd = dict(err=max(max(r["fwd"]["err"][q] for q in ("rgb_acc", "depth")) for r in res.values()), ms=ms,
+               plain_ms=plain_ms, **{q: work[q] for q in ("bound_ms", "bound_by", "bound_term")})
+    bwd = dict(err=max(r["bwd"]["err"] for r in res.values()), rel=max(r["bwd"]["rel"] for r in res.values()),
+               ms=ms_b, plain_ms=plain_b_ms,
+               **{q: work_b[q] for q in ("bound_ms", "bound_by", "bound_term")})
+    return fwd, bwd
 
 
 def build_training(gs, skel, cam, bg, device):
@@ -3753,6 +3841,456 @@ def hash_phase(gs, warp):
     return launches, check_rotfit(covs, "[hash] arap_loss_with_rot")
 
 
+TILESHARD_STEPS = 5  # dp steps of each mesh shape
+TILESHARD_LOOP = 20  # train_stage2_dp iterations at 1 x 2
+TILESHARD_LADDER_LOOP = 28  # and at 2 x 1 with the ladder: 14 steps, the fit after 12 (LadderPolicy's probe)
+TILESHARD_SCHEDULE = dict(iterations_stage2=TILESHARD_LOOP, skeleton_warm_up=5, optimize_template_offsets_iters=10,
+                          gs_densification_iterations=5, densify_from_iter=12, densify_until_iter=18,
+                          densification_interval=5)
+TILESHARD_LRS = {"xyz": 1.6e-4, "f_dc": 2.5e-3, "f_rest": 1.25e-4, "opacity": 0.05, "scaling": 1e-3,
+                 "rotation": 1e-3, "feature": 2.5e-3}
+TILESHARD_TIMEOUT = 600
+
+
+def _state_leaves(state):
+    """A Stage2State's tensors by path."""
+    from riggs_tpu_torch.train.optim import tree_leaves
+
+    out = {}
+    for name, tree in (("gs", state.gs.params_dict()), ("skel", state.skel.params_dict()),
+                       ("opt_gs", (state.opt_gs.mu, state.opt_gs.nu, state.opt_gs.count)),
+                       ("opt_skel", (state.opt_skel.mu, state.opt_skel.nu, state.opt_skel.count)),
+                       ("stats", dataclasses.astuple(state.stats_gs)), ("rest", (state.proj_loss, state.it))):
+        for i, v in enumerate(tree_leaves(tree)):
+            out[f"{name}.{i}"] = v.detach()
+    return out
+
+
+def _state_hash(state):
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(_state_leaves(state).items()):
+        h.update(k.encode())
+        h.update(v.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _state_diff(a, b):
+    """Per leaf max |a - b| / max |b| (the worst; an integer leaf that
+    differs counts as inf), and whether every leaf is bitwise equal."""
+    return _leaves_diff(_state_leaves(a), _state_leaves(b))
+
+
+def _leaves_diff(la, lb):
+    """_state_diff of two states' leaves (_state_leaves)."""
+    import torch
+
+    worst, same = 0.0, True
+    for k, y in lb.items():
+        x = la[k]
+        if not y.is_floating_point():
+            eq = torch.equal(x, y)
+            same &= eq
+            worst = worst if eq else float("inf")
+            continue
+        same &= _same_bits(x, y)
+        if y.numel():
+            s, e = float(y.abs().max()), float((x - y).abs().max())
+            worst = max(worst, e / s if s > 0 else e)
+    return worst, same
+
+
+def _tileshard_inputs(device):
+    """The avatar and the [train] frame, its deformations, configuration and
+    flags at it = 15001 (a fresh state per use)."""
+    gs, skel, cam, bg = build_avatar(0, N_ALIVE, CAPACITY, SIZE, device)
+    fr, pre_d_xyz, pre_d_joints, cfg = build_training(gs, skel, cam, bg, device)
+    o = cfg.opt
+    flags = dict(warm=False, active_sh=SH_DEGREE, enable_to=True, enable_sm=True)
+    lam = dict(lambda_template_offsets=o.lambda_template_offsets * 1e3, lambda_template_fixed=o.lambda_template_fixed)
+    return gs, skel, cam, bg, fr, pre_d_xyz, pre_d_joints, cfg, flags, lam
+
+
+def _raster_inputs(gs, skel, cam):
+    """The serving avatar at t = 0.3 as rasterize_tiled's inputs: the
+    deformed means (a leaf), SH-0 colours, opacity, scales and rotations."""
+    import torch
+
+    from riggs_tpu_torch.models import skeleton_warp as SW
+    from riggs_tpu_torch.ops.quaternion import quat_normalize
+    from riggs_tpu_torch.ops.sh import C0
+
+    with torch.no_grad():
+        d = SW.skeleton_forward(skel, gs.xyz, 0.3, gs.motion_mask)
+        means = gs.xyz + d["d_xyz"]
+        colors = torch.clamp(gs.get_features[:, 0, :] * C0 + 0.5, min=0.0)
+        rots = quat_normalize(gs.rotation + d["d_rotation"])
+    leaves = [means, gs.get_opacity[:, 0].detach(), gs.get_scaling.detach(), rots]
+    return [x.clone().requires_grad_(True) for x in leaves], colors
+
+
+def _raster_grad(fn, leaves, colors, weight):
+    """The frame and the gradient of sum(image * weight) in the leaves."""
+    import torch
+
+    means, opacity, scales, rots = leaves
+    out = fn(means, colors, opacity, scales, rots)
+    grads = torch.autograd.grad((out["image"] * weight).sum(), leaves)
+    return out["image"].detach(), grads
+
+
+def _tileshard_work(cap, out_dir):
+    """One rank's [tileshard] work (both ranks run it alike; see
+    tileshard_phase)."""
+    import torch
+
+    from riggs_tpu_torch.data.dataset import SceneData
+    from riggs_tpu_torch.parallel.mesh import make_mesh
+    from riggs_tpu_torch.parallel.render import rasterize_tile_sharded
+    from riggs_tpu_torch.parallel.stage2_dp import train_stage2_dp
+    from riggs_tpu_torch.parallel.train import make_dp_stage2_step, stack_frames, stage2_flags
+    from riggs_tpu_torch.render import blend
+    from riggs_tpu_torch.render.tiles import rasterize_tiled
+    from riggs_tpu_torch.train.stage2 import PretrainInfo, stage2_frame_loss, stage2_step
+
+    res = {}
+    gs, skel, cam, bg, fr, pre_d_xyz, pre_d_joints, cfg, flags, lam = _tileshard_inputs(DEVICE)
+    tile, data = make_mesh(1, 2), make_mesh(2, 1)
+
+    # rasterize_tile_sharded against rasterize_tiled on this process
+    leaves, colors = _raster_inputs(gs, skel, cam)
+    weight = torch.randn((SIZE, SIZE, 3), device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(5))
+    single = lambda m, c, o, s, r: rasterize_tiled(cam, m, c, o, s, r, bg, alive=gs.alive, max_per_tile=cap)
+    sharded = lambda m, c, o, s, r: rasterize_tile_sharded(tile, cam, m, c, o, s, r, bg, alive=gs.alive,
+                                                           max_per_tile=cap)
+    img1, g1 = _raster_grad(single, leaves, colors, weight)
+    torch.cuda.synchronize()
+    blend.reset_launches()
+    img2, g2 = _raster_grad(sharded, leaves, colors, weight)
+    torch.cuda.synchronize()
+    res["render_launches"] = dict(blend.launches)
+    res["render_same"] = [_same_bits(img2, img1)] + [_same_bits(a, b) for a, b in zip(g2, g1)]
+    res["render_err"] = [float((img2 - img1).abs().max())] + [float((a - b).abs().max()) for a, b in zip(g2, g1)]
+    res["render_ms"] = {"single": _host_ms(lambda: _raster_grad(single, leaves, colors, weight), 3),
+                        "sharded": _host_ms(lambda: _raster_grad(sharded, leaves, colors, weight), 3)}
+
+    # 5 single-device stage2_steps, then 5 dp steps at 1 x 2 (counted)
+    kw = dict(use_chamfer=True, max_per_tile=cap, lambda_chamfer=cfg.opt.lambda_deformed_node_prjection, **flags)
+    st1 = fresh_state(gs, skel, TRAIN_ITS[-1], DEVICE)
+    losses1 = []
+    t0 = time.perf_counter()
+    for _ in range(TILESHARD_STEPS):
+        st1, m = stage2_step(st1, fr, UID, bg, TILESHARD_LRS, 1e-4, pre_d_xyz[UID], pre_d_joints[UID], **lam, **kw)
+        losses1.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    res["single_ms"] = (time.perf_counter() - t0) / TILESHARD_STEPS * 1e3
+    step = make_dp_stage2_step(tile, use_chamfer=True, lambda_chamfer=kw["lambda_chamfer"], max_per_tile=cap,
+                               tile_parallel=True)
+    batch = stack_frames([fr])
+    uid = np.array([UID])
+
+    def dp(st, step, batch, uids):
+        return step(st, batch, uids, bg, TILESHARD_LRS, 1e-4, pre_d_xyz[uids], pre_d_joints[uids],
+                    np.full(len(uids), lam["lambda_template_offsets"], np.float32),
+                    np.full(len(uids), lam["lambda_template_fixed"], np.float32), stage2_flags(**flags))
+
+    st2 = fresh_state(gs, skel, TRAIN_ITS[-1], DEVICE)
+    losses2 = []
+    torch.cuda.synchronize()
+    blend.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(TILESHARD_STEPS):
+        st2, m = dp(st2, step, batch, uid)
+        losses2.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    res["dp12_ms"] = (time.perf_counter() - t0) / TILESHARD_STEPS * 1e3
+    res["dp12_launches"] = dict(blend.launches)
+    res["dp12_losses"], res["single_losses"] = losses2, losses1
+    res["dp12_vs_single"] = _state_diff(st2, st1)
+    res["dp12_hash"] = _state_hash(st2)
+    del st1, st2
+
+    # 5 dp steps at 2 x 1: rank d takes frame d of the batch (uids 0 and 1)
+    step21 = make_dp_stage2_step(data, use_chamfer=True, lambda_chamfer=kw["lambda_chamfer"], max_per_tile=cap)
+    (f0, f1), uids = _dp21_frames(fr)
+    st3 = fresh_state(gs, skel, TRAIN_ITS[-1], DEVICE)
+    with torch.no_grad():  # the first step's loss: the mean of the two frames' losses
+        params = {"gs": st3.gs.params_dict(), "skel": st3.skel.params_dict()}
+        m2b = torch.zeros_like(gs.xyz[:, :2])
+        want = sum(float(stage2_frame_loss(params, st3, f, u, bg, m2b, pre_d_xyz[u], pre_d_joints[u],
+                                           lam["lambda_template_offsets"], lam["lambda_template_fixed"], **kw)[0])
+                   for f, u in zip((f0, f1), uids)) / 2
+    b2 = stack_frames([f0, f1])
+    losses3 = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TILESHARD_STEPS):
+        st3, m = dp(st3, step21, b2, uids)
+        losses3.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    res["dp21_ms"] = (time.perf_counter() - t0) / TILESHARD_STEPS * 1e3
+    res["dp21_losses"], res["dp21_want"] = losses3, want
+    res["dp21_hash"] = _state_hash(st3)
+    if data.rank == 0:  # nccl_world_one holds it to the same steps on one rank
+        res["dp21_leaves"] = {k: v.cpu() for k, v in _state_leaves(st3).items()}
+    del st3
+
+    # train_stage2_dp at 1 x 2: four frames, one test frame, a densification
+    cfg.pipe.max_per_tile = cap
+    for k, v in TILESHARD_SCHEDULE.items():
+        setattr(cfg.opt, k, v)
+    frames = [dataclasses.replace(fr, cam=dataclasses.replace(fr.cam, fid=torch.tensor(t, device=DEVICE)))
+              for t in np.linspace(0.0, 1.0, N_FRAMES)]
+    info = PretrainInfo(d_xyz=pre_d_xyz, d_joints=pre_d_joints, template_idx=UID, joints=skel.joints.cpu().numpy(),
+                        parents=np.array(PARENTS), joint_node_indices=np.arange(len(PARENTS)))
+    scene = SceneData(np.zeros((1, 3), np.float32), np.zeros((1, 3), np.float32), train_frames=frames,
+                      test_frames=[fr], cameras_extent=1.0)
+    events = []
+    st0 = fresh_state(gs, skel, 0, DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st4, _, hist = train_stage2_dp(None, scene, cfg, tile, init=(st0, info, frames), log_every=5,
+                                   test_every=TILESHARD_LOOP - 1, model_path=Path(out_dir) / "rig", events=events,
+                                   device=DEVICE)
+    torch.cuda.synchronize()
+    res["loop_s"] = time.perf_counter() - t0
+    res["loop_events"] = [{k: v for k, v in e.items() if k != "idx"} for e in events]
+    res["loop_history"] = hist
+    res["loop_hash"] = _state_hash(st4)
+    res["loop_alive"] = int(st4.gs.num_alive)
+    res["loop_finite"] = _finite(st4)
+    del st4
+
+    # train_stage2_dp at 2 x 1 with the tile ladder: fitted from the (B, T)
+    # tile counts of the first 12 steps, the last two steps on it
+    cfg.pipe.use_tile_ladder = True
+    cfg.opt.iterations_stage2 = TILESHARD_LADDER_LOOP
+    events = []
+    st0 = fresh_state(gs, skel, 0, DEVICE)
+    torch.cuda.synchronize()
+    blend.reset_launches()
+    t0 = time.perf_counter()
+    st5, _, hist = train_stage2_dp(None, scene, cfg, data, init=(st0, info, frames), log_every=4, events=events,
+                                   device=DEVICE)
+    torch.cuda.synchronize()
+    res["ladder_loop_s"] = time.perf_counter() - t0
+    res["ladder_loop_launches"] = dict(blend.launches)
+    res["ladder_loop_events"] = [{k: v for k, v in e.items() if k != "idx"} for e in events]
+    res["ladder_loop_history"] = hist
+    res["ladder_loop_hash"] = _state_hash(st5)
+    res["ladder_loop_finite"] = _finite(st5)
+    return res
+
+
+def _finite(state):
+    """Whether every floating leaf of a Stage2State is finite."""
+    import torch
+
+    return all(bool(torch.isfinite(v).all()) for v in _state_leaves(state).values() if v.is_floating_point())
+
+
+def _dp21_frames(fr):
+    """The 2 x 1 steps' two frames: the [train] frame (uid 0) and the same
+    at t = 0.8 (uid 1), and their uids."""
+    import torch
+
+    fr1 = dataclasses.replace(fr, cam=dataclasses.replace(fr.cam, fid=torch.tensor(0.8, device=DEVICE)))
+    return (fr, fr1), np.array([0, 1])
+
+
+def _tileshard_rank(rank, world, port, cap, out_dir):
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=TILESHARD_TIMEOUT))
+    try:
+        res = _tileshard_work(cap, out_dir)
+        torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def tileshard_phase(cap):
+    """[tileshard]: two processes on the one card (gloo with CUDA tensors:
+    NCCL takes one rank per device), each building the full-width avatar
+    and the [train] frame from their seeds: rasterize_tile_sharded on a
+    1 x 2 mesh against rasterize_tiled on the same process (image and
+    gradient bitwise); TILESHARD_STEPS make_dp_stage2_step steps at 1 x 2
+    (tile-parallel, the counters zeroed just before and read just after:
+    the offset entry's kernels and no plain blend) against as many
+    single-device stage2_steps; as many at 2 x 1 (B = 2, the first loss the
+    mean of the two frames', the state held by nccl_world_one to the same
+    steps on one rank); train_stage2_dp at 1 x 2 for TILESHARD_LOOP
+    iterations with a densification, a test evaluation and rank 0's
+    checkpoint; train_stage2_dp at 2 x 1 with the tile ladder for
+    TILESHARD_LADDER_LOOP iterations (the ladder fitted from the (B, T) tile
+    counts, the permuted-gm kernels run on it); every state hashed equal on
+    both ranks. Returns (the 1 x 2 steps' launch counters, the same per
+    step, rank 0's results)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_tileshard_rank, args=(2, _free_port(), cap, out_dir), nprocs=2, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + TILESHARD_TIMEOUT
+        while not ctx.join(timeout=2):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise RuntimeError(f"[tileshard] the two ranks did not finish in {TILESHARD_TIMEOUT} s")
+        wall = time.perf_counter() - t0
+        r0, r1 = (torch.load(Path(out_dir) / f"rank{r}.pt", weights_only=False) for r in range(2))
+        ckpts = sorted(p.relative_to(out_dir).as_posix() for p in Path(out_dir).glob("rig/checkpoints/*/state.npz"))
+    print(f"[tileshard] two gloo ranks on one card, {wall:.1f} s (spawn, set-up and every case)")
+    for r, res in enumerate((r0, r1)):
+        names = ("image", "d means3d", "d opacity", "d scales", "d rotations")
+        if not all(res["render_same"]):
+            raise RuntimeError(f"[tileshard] rank {r}: rasterize_tile_sharded differs from rasterize_tiled: "
+                               + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, res["render_err"])))
+        lc = res["render_launches"]
+        if lc["blend_cm_offset"] != 1 or lc["blend_cm_offset_bwd"] != 1 or lc["blend_cm"] or lc["blend_cm_bwd"]:
+            raise RuntimeError(f"[tileshard] rank {r}: the sharded frame's launches {lc}")
+    print(f"[tileshard] rasterize_tile_sharded (1 x 2, {SIZE}x{SIZE}, {N_ALIVE} alive) vs rasterize_tiled: image and "
+          f"gradients of means, opacity, scales and rotations bitwise equal on both ranks; forward + backward "
+          f"{r0['render_ms']['sharded']:.2f} ms sharded vs {r0['render_ms']['single']:.2f} ms on one process")
+    worst, same = r0["dp12_vs_single"]
+    lc = r0["dp12_launches"]
+    if not worst <= BWD_TOL:
+        raise RuntimeError(f"[tileshard] 1 x 2 dp steps vs stage2_step: worst leaf {worst:.3e} > {BWD_TOL}")
+    if lc["blend_cm"] or lc["blend_cm_bwd"] or lc["blend_cm_offset"] != TILESHARD_STEPS \
+            or lc["blend_cm_offset_bwd"] != TILESHARD_STEPS:
+        raise RuntimeError(f"[tileshard] the 1 x 2 dp steps' launches {lc}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["dp12_losses"], r0["single_losses"]))
+    if not loss_err <= 1e-5:
+        raise RuntimeError(f"[tileshard] 1 x 2 losses {r0['dp12_losses']} vs {r0['single_losses']}")
+    print(f"[tileshard] make_dp_stage2_step 1 x 2 (tile-parallel), {TILESHARD_STEPS} steps at it={TRAIN_ITS[-1]}: "
+          f"losses {', '.join(f'{v:.6f}' for v in r0['dp12_losses'])} vs stage2_step's (max rel {loss_err:.2e}); "
+          f"state vs stage2_step's: worst leaf max|d| / max|leaf| {worst:.2e}, bitwise {same}; "
+          f"{r0['dp12_ms']:.2f} ms per step vs {r0['single_ms']:.2f} ms on one process; launches {lc}")
+    rel21 = abs(r0["dp21_losses"][0] - r0["dp21_want"]) / abs(r0["dp21_want"])
+    if not rel21 <= 1e-5 or not all(np.isfinite(r0["dp21_losses"])):
+        raise RuntimeError(f"[tileshard] 2 x 1 first loss {r0['dp21_losses'][0]} vs the frames' mean {r0['dp21_want']}")
+    print(f"[tileshard] make_dp_stage2_step 2 x 1 (B = 2), {TILESHARD_STEPS} steps: losses "
+          f"{', '.join(f'{v:.6f}' for v in r0['dp21_losses'])}, the first vs the two frames' mean loss rel {rel21:.2e}; "
+          f"{r0['dp21_ms']:.2f} ms per step")
+    ev = [e["event"] for e in r0["loop_events"]]
+    if not r0["loop_finite"] or "fps reset" not in ev or "gs densify" not in ev or "test" not in ev:
+        raise RuntimeError(f"[tileshard] train_stage2_dp: finite {r0['loop_finite']}, events {ev}")
+    if ckpts != [f"rig/checkpoints/iteration_{TILESHARD_LOOP - 1}/state.npz"]:
+        raise RuntimeError(f"[tileshard] train_stage2_dp's checkpoints {ckpts}: one, by rank 0")
+    test = next(e for e in r0["loop_events"] if e["event"] == "test")
+    print(f"[tileshard] train_stage2_dp 1 x 2, {TILESHARD_LOOP} iterations: {r0['loop_s']:.1f} s "
+          f"({r0['loop_s'] / TILESHARD_LOOP * 1e3:.1f} ms per iteration with the events); events {ev}; "
+          f"{r0['loop_alive']} alive; loss {', '.join(f'{it}: {m['loss']:.5f}' for it, m in r0['loop_history'])}; "
+          f"test psnr {test['psnr']:.3f}; one checkpoint, rank 0's")
+    ev = [e["event"] for e in r0["ladder_loop_events"]]
+    llc = r0["ladder_loop_launches"]
+    if not r0["ladder_loop_finite"] or ev[:3] != ["fps reset", "gs densify", "ladder fit"] \
+            or set(ev[3:]) - {"ladder refit"} or not llc["blend_permuted_gm"] or not llc["blend_permuted_gm_bwd"] or llc["blend_cm_offset"]:
+        raise RuntimeError(f"[tileshard] train_stage2_dp 2 x 1 with the ladder: finite {r0['ladder_loop_finite']}, "
+                           f"events {ev}, launches {llc}")
+    fit = next(e for e in r0["ladder_loop_events"] if e["event"] == "ladder fit")
+    print(f"[tileshard] train_stage2_dp 2 x 1 with the tile ladder, {TILESHARD_LADDER_LOOP} iterations: "
+          f"{r0['ladder_loop_s']:.1f} s ({r0['ladder_loop_s'] / TILESHARD_LADDER_LOOP * 2e3:.1f} ms per step of B = 2 "
+          f"with the events); events {ev}, the ladder {fit['ladder']} fitted at it={fit['it']}; loss "
+          f"{', '.join(f'{it}: {m['loss']:.5f}' for it, m in r0['ladder_loop_history'])}; launches {llc}")
+    for key in ("dp12_hash", "dp21_hash", "loop_hash", "ladder_loop_hash"):
+        if r0[key] != r1[key]:
+            raise RuntimeError(f"[tileshard] {key}: the ranks' states differ")
+    print("[tileshard] the states hash equal on both ranks after the 1 x 2 steps, the 2 x 1 steps and both loops")
+    launches_per_step = {k: v / TILESHARD_STEPS for k, v in lc.items()}
+    return lc, launches_per_step, r0
+
+
+def nccl_world_one(cap, dp21_leaves):
+    """[tileshard], NCCL: a one-rank NCCL group in this process, a 1 x 1
+    mesh: rasterize_tile_sharded and a tile-parallel make_dp_stage2_step
+    against rasterize_tiled and stage2_step, bitwise; then TILESHARD_STEPS
+    dp steps of B = 2 on this one rank (both frames' gradients summed by
+    autograd, no collective that matters) from the state the 2 x 1 steps
+    started from: the two ranks' state after those steps (``dp21_leaves``,
+    rank 0's) must match it within BWD_TOL, so a missing, doubled or
+    unscaled sum over the data group fails."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from riggs_tpu_torch.parallel.mesh import make_mesh
+    from riggs_tpu_torch.parallel.render import rasterize_tile_sharded
+    from riggs_tpu_torch.parallel.train import make_dp_stage2_step, stack_frames, stage2_flags
+    from riggs_tpu_torch.render.tiles import rasterize_tiled
+    from riggs_tpu_torch.train.stage2 import stage2_step
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120), device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh(1, 1)
+        gs, skel, cam, bg, fr, pre_d_xyz, pre_d_joints, cfg, flags, lam = _tileshard_inputs(DEVICE)
+        leaves, colors = _raster_inputs(gs, skel, cam)
+        weight = torch.randn((SIZE, SIZE, 3), device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(5))
+        img1, g1 = _raster_grad(lambda m, c, o, s, r: rasterize_tiled(cam, m, c, o, s, r, bg, alive=gs.alive,
+                                                                     max_per_tile=cap), leaves, colors, weight)
+        img2, g2 = _raster_grad(lambda m, c, o, s, r: rasterize_tile_sharded(mesh, cam, m, c, o, s, r, bg,
+                                                                            alive=gs.alive, max_per_tile=cap),
+                                leaves, colors, weight)
+        kw = dict(use_chamfer=True, max_per_tile=cap, lambda_chamfer=cfg.opt.lambda_deformed_node_prjection, **flags)
+        st1, _ = stage2_step(fresh_state(gs, skel, TRAIN_ITS[-1], DEVICE), fr, UID, bg, TILESHARD_LRS, 1e-4,
+                             pre_d_xyz[UID], pre_d_joints[UID], **lam, **kw)
+        step = make_dp_stage2_step(mesh, use_chamfer=True, lambda_chamfer=kw["lambda_chamfer"], max_per_tile=cap,
+                                   tile_parallel=True)
+        uid = np.array([UID])
+        st2, _ = step(fresh_state(gs, skel, TRAIN_ITS[-1], DEVICE), stack_frames([fr]), uid, bg, TILESHARD_LRS, 1e-4,
+                      pre_d_xyz[uid], pre_d_joints[uid], np.array([lam["lambda_template_offsets"]], np.float32),
+                      np.array([lam["lambda_template_fixed"]], np.float32), stage2_flags(**flags))
+        torch.cuda.synchronize()
+        same = [_same_bits(img2, img1)] + [_same_bits(a, b) for a, b in zip(g2, g1)]
+        worst, state_same = _state_diff(st2, st1)
+        if not all(same) or not worst <= BWD_TOL:
+            raise RuntimeError(f"[tileshard] NCCL 1 x 1: frame and gradients bitwise {same}, state worst {worst:.3e}")
+        print(f"[tileshard] NCCL, one rank ({mesh.backend}, 1 x 1 mesh): rasterize_tile_sharded's frame and gradients "
+              f"bitwise equal to rasterize_tiled's; one tile-parallel dp step vs stage2_step: worst leaf "
+              f"{worst:.2e}, bitwise {state_same}")
+        del st1, st2
+        step = make_dp_stage2_step(mesh, use_chamfer=True, lambda_chamfer=kw["lambda_chamfer"], max_per_tile=cap)
+        (f0, f1), uids = _dp21_frames(fr)
+        b2 = stack_frames([f0, f1])
+        st3 = fresh_state(gs, skel, TRAIN_ITS[-1], DEVICE)
+        for _ in range(TILESHARD_STEPS):
+            st3, _ = step(st3, b2, uids, bg, TILESHARD_LRS, 1e-4, pre_d_xyz[uids], pre_d_joints[uids],
+                          np.full(2, lam["lambda_template_offsets"], np.float32),
+                          np.full(2, lam["lambda_template_fixed"], np.float32), stage2_flags(**flags))
+        worst, same = _leaves_diff({k: v.to(DEVICE) for k, v in dp21_leaves.items()}, _state_leaves(st3))
+        if not worst <= BWD_TOL:
+            raise RuntimeError(f"[tileshard] 2 x 1 dp steps vs B = 2 on one rank: worst leaf {worst:.3e} > {BWD_TOL}")
+        print(f"[tileshard] make_dp_stage2_step 2 x 1 (two gloo ranks) vs B = 2 on one rank (NCCL 1 x 1), "
+              f"{TILESHARD_STEPS} steps: worst leaf max|d| / max|leaf| {worst:.2e}, bitwise {same}")
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     import torch
 
@@ -3808,6 +4346,7 @@ def main() -> int:
                                  "blend_permuted_gm": cap_ladder.calls["blend_permuted_gm"]})
     check_oracle(DEVICE)
     edges_phase(blend, DEVICE)
+    off_fwd, off_bwd = offset_edges_phase(blend, cap_plain.calls["blend_cm"])
 
     # 4. the slice: the main path, launch counters zeroed just before
     torch.cuda.synchronize()
@@ -3937,6 +4476,10 @@ def main() -> int:
     # 21. the hash deform and the ARAP loss with rotations, card against CPU (its own counted run)
     hash_launches, hash_rot = hash_phase(gs, loop_warp)
 
+    # 22. the tile-parallel path on two gloo ranks (its own counted run), then one NCCL rank
+    ts_launches, ts_per_step, ts_res = tileshard_phase(cap)
+    nccl_world_one(cap, ts_res.pop("dp21_leaves"))
+
     def held(name, results=loop_held):
         """A loop's held steps of a kernel: error, times and bound."""
         return {label: {"max_abs_err": max(r["err"].values()) if isinstance(r["err"], dict) else r["err"],
@@ -4045,6 +4588,18 @@ def main() -> int:
         "held": {k: {key: v[key] for key in ("fits", "ill_posed", "err", "scaled_err", "ms", "plain_ms", "library_ms",
                                              "bound_ms")} for k, v in rot_runs.items()},
     })
+    # the offset entry: times on the second shard of a 2-way split of the
+    # serving frame's tiles ([edges]), launches of [tileshard]'s 1 x 2 steps
+    for name, r, replaces in (("blend_cm_offset", off_fwd, "riggs_tpu/render/pallas_blend.py:955"),
+                              ("blend_cm_offset_bwd", off_bwd, "riggs_tpu/render/pallas_blend.py:969")):
+        rows.append({
+            "name": name, "route": "cuda", "source": "riggs_tpu_torch/csrc/blend.cu", "replaces": replaces,
+            "launches": ts_launches[name], "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "bound_term": r["bound_term"], "launches_per_step": ts_per_step[name],
+            "shard_tiles": OFFSET_SHARDS[-1][1], "shard_offset": OFFSET_SHARDS[-1][0],
+            **({"max_rel_column_err": r["rel"]} if "rel" in r else {}),
+        })
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,8 @@
 //   riggs_blend_fwd_cm          <- _fwd_kernel      (:179, entry pallas_blend)
 //   riggs_blend_fwd_gm_permuted <- _fwd_kernel_gm   (:602, entry pallas_blend_permuted_gm)
 //   riggs_blend_fwd_runs        <- _fwd_kernel_runs (:347, entry pallas_blend_runs)
+// (riggs_blend_fwd_cm and riggs_blend_bwd_cm take a global tile offset, which
+// makes them the entry pallas_blend_offset (:955) too: a shard of the tiles);
 // and, below the forward, their three backward kernels. One template, over the
 // layout of the attribute rows, gives all three of each; each instantiation
 // is its own kernel.
@@ -173,10 +175,14 @@ struct Pair {
 
 // The block's (tile, chunk) pair, number k in chunk-major order, and its
 // pixels' place; returns whether the chunk starts before the tile's count
-// (uniform over the block).
+// (uniform over the block). Local tile t of kCM and kRuns renders the image's
+// tile t + tile_offset (the global tile of a shard's first row, as in
+// pallas_blend_offset; 0 for kRuns and a whole image), tile t of kGM renders
+// tids[t].
 template <int L, int PPT>
 __device__ __forceinline__ bool place_pair(Pair<PPT>& q, int k, const int* __restrict__ counts,
-                                           const int* __restrict__ tids, int T, int C, int tiles_x) {
+                                           const int* __restrict__ tids, int T, int C, int tiles_x,
+                                           int tile_offset) {
   // chunk-major: the blocks of every tile's first chunk, the heaviest (all
   // its pixels enter live), are dispatched first
   q.c = k / T;
@@ -186,7 +192,7 @@ __device__ __forceinline__ bool place_pair(Pair<PPT>& q, int k, const int* __res
   q.warp = threadIdx.x >> 5;
   q.base = ((size_t)q.t * C + q.c) * P;
   if (q.c * G >= q.count) return false;
-  const int tile = L == kGM ? tids[q.t] : q.t;
+  const int tile = L == kGM ? tids[q.t] : q.t + tile_offset;
   q.px = (float)((tile % tiles_x) * TILE + q.lane);
   q.py0 = (float)((tile / tiles_x) * TILE + q.warp * PPT);
   return true;
@@ -197,8 +203,8 @@ __device__ __forceinline__ bool place_pair(Pair<PPT>& q, int k, const int* __res
 template <int L, int PPT>
 __device__ __forceinline__ bool enter_pair(Pair<PPT>& q, const int* __restrict__ counts,
                                            const int* __restrict__ tids, const float* __restrict__ tentry, int T,
-                                           int C, int tiles_x, bool& started) {
-  started = place_pair<L>(q, blockIdx.x, counts, tids, T, C, tiles_x);
+                                           int C, int tiles_x, int tile_offset, bool& started) {
+  started = place_pair<L>(q, blockIdx.x, counts, tids, T, C, tiles_x, tile_offset);
   if (!started) return false;
   bool live = false;
 #pragma unroll
@@ -336,7 +342,7 @@ template <int L>
 __global__ void __launch_bounds__(Bwd<L>::NT, FWD_MIN_BLOCKS)
 blend_fwd(const float* __restrict__ g, const int* __restrict__ counts, const int* __restrict__ tids,
           const int* __restrict__ sblk, int m2b, float* __restrict__ tentry, float* __restrict__ part,
-          int* __restrict__ state, int T, int C, int tiles_x) {
+          int* __restrict__ state, int T, int C, int tiles_x, int tile_offset) {
   constexpr int BT = Bwd<L>::NT, PPT = P / BT;
   __shared__ float sg[ATTRS][G];
   __shared__ float cut[G];
@@ -347,7 +353,7 @@ blend_fwd(const float* __restrict__ g, const int* __restrict__ counts, const int
   if (threadIdx.x == 0) s_k = atomicAdd(state, 1);
   __syncthreads();
   Pair<PPT> q;
-  const bool started = place_pair<L>(q, s_k, counts, tids, T, C, tiles_x);
+  const bool started = place_pair<L>(q, s_k, counts, tids, T, C, tiles_x, tile_offset);
   const int t = q.t, c = q.c;
   const int nc = (int)min((long long)C, ((long long)q.count + G - 1) / G);  // started chunks
   float v[PPT];
@@ -466,7 +472,7 @@ blend_fwd_combine(const float* __restrict__ part, const int* __restrict__ nact, 
 // chain state (1 + T * C + T ints, zeroed here) and nact (T ints).
 template <int L>
 int launch_fwd(const float* g, const int* counts, const int* tids, const int* sblk, int m2b, float* out,
-               float* tentry, void* scratch, int T, int C, int tiles_x, cudaStream_t stream) {
+               float* tentry, void* scratch, int T, int C, int tiles_x, int tile_offset, cudaStream_t stream) {
   if (T == 0 || C == 0) return 0;
   const long long pairs = (long long)T * C;
   if (pairs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -475,7 +481,7 @@ int launch_fwd(const float* g, const int* counts, const int* tids, const int* sb
   cudaError_t err = cudaMemsetAsync(state, 0, (1 + (size_t)pairs + T) * sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;
   blend_fwd<L><<<(unsigned)pairs, Bwd<L>::NT, 0, stream>>>(g, counts, tids, sblk, m2b, tentry, part, state, T, C,
-                                                          tiles_x);
+                                                          tiles_x, tile_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int* nact = state + 1 + pairs + T;
@@ -649,13 +655,13 @@ __global__ void __launch_bounds__(Bwd<L>::NT, Bwd<L>::MIN_BLOCKS)
 blend_bwd_total(const float* __restrict__ g, const int* __restrict__ counts,
                 const int* __restrict__ tids, const int* __restrict__ sblk, int m2b,
                 const float* __restrict__ tentry, const float* __restrict__ dout,
-                float* __restrict__ total, int T, int C, int tiles_x) {
+                float* __restrict__ total, int T, int C, int tiles_x, int tile_offset) {
   constexpr int BT = Bwd<L>::NT, PPT = Bwd<L>::PPT;
   __shared__ float sg[ATTRS][G];
   __shared__ float cut[G];
   Pair<PPT> q;
   bool started;
-  const bool active = enter_pair<L>(q, counts, tids, tentry, T, C, tiles_x, started);
+  const bool active = enter_pair<L>(q, counts, tids, tentry, T, C, tiles_x, tile_offset, started);
   if (!started) return;
   float s_total[PPT];
 #pragma unroll
@@ -724,7 +730,7 @@ blend_bwd(const float* __restrict__ g, const int* __restrict__ counts,
           const int* __restrict__ tids, const int* __restrict__ sblk, int m2b,
           const float* __restrict__ tentry, const float* __restrict__ dout,
           const float* __restrict__ total, const float* __restrict__ suffix,
-          float* __restrict__ dg, int T, int C, int tiles_x) {
+          float* __restrict__ dg, int T, int C, int tiles_x, int tile_offset) {
   constexpr int BT = Bwd<L>::NT, PPT = Bwd<L>::PPT, BW = Bwd<L>::BW;
   __shared__ float sg[ATTRS][G];
   __shared__ float part[BW][SUB][NV];  // per-warp partial sums of one round
@@ -735,7 +741,7 @@ blend_bwd(const float* __restrict__ g, const int* __restrict__ counts,
   const size_t MAX = (size_t)C * G;
   Pair<PPT> q;
   bool started;
-  if (!enter_pair<L>(q, counts, tids, tentry, T, C, tiles_x, started)) {
+  if (!enter_pair<L>(q, counts, tids, tentry, T, C, tiles_x, tile_offset, started)) {
     zero_chunk<L>(dg, q.t, q.c, MAX, tid);
     return;
   }
@@ -875,14 +881,14 @@ blend_bwd(const float* __restrict__ g, const int* __restrict__ counts,
 template <int L>
 int launch_bwd(const float* g, const int* counts, const int* tids, const int* sblk, int m2b,
                const float* tentry, const float* dout, float* dg, float* scratch, int T, int C,
-               int tiles_x, cudaStream_t stream) {
+               int tiles_x, int tile_offset, cudaStream_t stream) {
   if (T == 0 || C == 0) return 0;
   const long long pairs = (long long)T * C;
   if (pairs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   float* total = scratch;
   float* suffix = scratch + (size_t)pairs * P;
   blend_bwd_total<L><<<(unsigned)pairs, Bwd<L>::NT, 0, stream>>>(g, counts, tids, sblk, m2b, tentry, dout, total,
-                                                                T, C, tiles_x);
+                                                                T, C, tiles_x, tile_offset);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const unsigned suffix_blocks = (unsigned)(((long long)T * P + SUFFIX_NT - 1) / SUFFIX_NT);
@@ -890,7 +896,7 @@ int launch_bwd(const float* g, const int* counts, const int* tids, const int* sb
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   blend_bwd<L><<<(unsigned)pairs, Bwd<L>::NT, 0, stream>>>(g, counts, tids, sblk, m2b, tentry, dout, total, suffix,
-                                                          dg, T, C, tiles_x);
+                                                          dg, T, C, tiles_x, tile_offset);
   return (int)cudaGetLastError();
 }
 
@@ -901,37 +907,39 @@ int launch_bwd(const float* g, const int* counts, const int* tids, const int* sb
 // The forward's scratch: the (T, C, 5, 1024) f32 sums, then 1 + T * C + T ints
 // of chain state (the ticket, ready, done; zeroed here on the stream) and T
 // ints of nact.
+// Local tile t renders the image's tile t + tile_offset (0 but for a shard).
 extern "C" int riggs_blend_fwd_cm(const float* g, const int* counts, float* out, float* tentry, void* scratch,
-                                  int T, int C, int tiles_x, void* stream) {
-  return launch_fwd<kCM>(g, counts, nullptr, nullptr, 0, out, tentry, scratch, T, C, tiles_x,
+                                  int T, int C, int tiles_x, int tile_offset, void* stream) {
+  return launch_fwd<kCM>(g, counts, nullptr, nullptr, 0, out, tentry, scratch, T, C, tiles_x, tile_offset,
                          (cudaStream_t)stream);
 }
 
 extern "C" int riggs_blend_fwd_gm_permuted(const float* g, const int* counts, const int* tids, float* out,
                                            float* tentry, void* scratch, int T, int C, int tiles_x,
                                            void* stream) {
-  return launch_fwd<kGM>(g, counts, tids, nullptr, 0, out, tentry, scratch, T, C, tiles_x,
+  return launch_fwd<kGM>(g, counts, tids, nullptr, 0, out, tentry, scratch, T, C, tiles_x, 0,
                          (cudaStream_t)stream);
 }
 
 // g: (16, m2b * 128); counts, sblk: (T,); C chunks per tile
 extern "C" int riggs_blend_fwd_runs(const float* g, const int* counts, const int* sblk, float* out, float* tentry,
                                     void* scratch, int T, int C, int m2b, int tiles_x, void* stream) {
-  return launch_fwd<kRuns>(g, counts, nullptr, sblk, m2b, out, tentry, scratch, T, C, tiles_x,
+  return launch_fwd<kRuns>(g, counts, nullptr, sblk, m2b, out, tentry, scratch, T, C, tiles_x, 0,
                            (cudaStream_t)stream);
 }
 
+// the forward's tile_offset, in all three launches
 extern "C" int riggs_blend_bwd_cm(const float* g, const int* counts, const float* tentry,
                                   const float* dout, float* dg, float* scratch, int T, int C, int tiles_x,
-                                  void* stream) {
-  return launch_bwd<kCM>(g, counts, nullptr, nullptr, 0, tentry, dout, dg, scratch, T, C, tiles_x,
+                                  int tile_offset, void* stream) {
+  return launch_bwd<kCM>(g, counts, nullptr, nullptr, 0, tentry, dout, dg, scratch, T, C, tiles_x, tile_offset,
                          (cudaStream_t)stream);
 }
 
 extern "C" int riggs_blend_bwd_gm_permuted(const float* g, const int* counts, const int* tids,
                                            const float* tentry, const float* dout, float* dg, float* scratch,
                                            int T, int C, int tiles_x, void* stream) {
-  return launch_bwd<kGM>(g, counts, tids, nullptr, 0, tentry, dout, dg, scratch, T, C, tiles_x,
+  return launch_bwd<kGM>(g, counts, tids, nullptr, 0, tentry, dout, dg, scratch, T, C, tiles_x, 0,
                          (cudaStream_t)stream);
 }
 
@@ -941,6 +949,6 @@ extern "C" int riggs_blend_bwd_runs(const float* g, const int* counts, const int
                                     int T, int C, int m2b, int tiles_x, void* stream) {
   cudaError_t err = cudaMemsetAsync(dg, 0, (size_t)PACK_ROWS * m2b * G * sizeof(float), (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  return launch_bwd<kRuns>(g, counts, nullptr, sblk, m2b, tentry, dout, dg, scratch, T, C, tiles_x,
+  return launch_bwd<kRuns>(g, counts, nullptr, sblk, m2b, tentry, dout, dg, scratch, T, C, tiles_x, 0,
                            (cudaStream_t)stream);
 }

@@ -4,7 +4,10 @@ Port of the blend kernels of ``riggs_tpu/render/pallas_blend.py``:
 
   * ``blend_cm`` replaces ``_fwd_kernel`` (entry ``pallas_blend``): windows
     arrive channel-major, g (T, 16, MAX), opacity already masked by the
-    caller;
+    caller; with a ``tile_offset`` it is the entry ``pallas_blend_offset``
+    of the same kernels, local tile t rendering the image's tile
+    t + tile_offset: ``sharded_blend`` splits the tiles over a mesh's tile
+    group that way;
   * ``blend_permuted_gm`` replaces ``_fwd_kernel_gm`` with ``permuted=True``
     (entry ``pallas_blend_permuted_gm``): windows arrive gaussian-major,
     g (T, MAX, 10), rows past the tile's count are masked inside the kernel,
@@ -84,10 +87,13 @@ LIB_STEM = "libriggs_blend"
 
 # launches of each kernel since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else
+# (sharded_blend's calls, pallas_blend_offset's, count as blend_cm_offset and
+# blend_cm_offset_bwd)
 launches = {"blend_cm": 0, "blend_permuted_gm": 0, "blend_runs": 0,
-            "blend_cm_bwd": 0, "blend_permuted_gm_bwd": 0, "blend_runs_bwd": 0}
+            "blend_cm_bwd": 0, "blend_permuted_gm_bwd": 0, "blend_runs_bwd": 0,
+            "blend_cm_offset": 0, "blend_cm_offset_bwd": 0}
 # calls of the backward wrappers that ran the plain version (CPU tensors)
-plain_bwd_calls = {"blend_cm_bwd": 0, "blend_permuted_gm_bwd": 0, "blend_runs_bwd": 0}
+plain_bwd_calls = {"blend_cm_bwd": 0, "blend_permuted_gm_bwd": 0, "blend_runs_bwd": 0, "blend_cm_offset_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -146,10 +152,11 @@ def _blend_plain(gt: torch.Tensor, counts: torch.Tensor, tids: torch.Tensor, til
     return out, tentry
 
 
-def blend_cm_plain(g: torch.Tensor, counts: torch.Tensor, tiles_x: int):
-    """Plain version of ``blend_cm``: g (T, 16, MAX), counts (T,)."""
+def blend_cm_plain(g: torch.Tensor, counts: torch.Tensor, tiles_x: int, tile_offset: int = 0):
+    """Plain version of ``blend_cm``: g (T, 16, MAX), counts (T,); local
+    tile t renders tile t + tile_offset."""
     T = g.shape[0]
-    tids = torch.arange(T, device=g.device)
+    tids = torch.arange(T, device=g.device) + tile_offset
     return _blend_plain(g[:, :ROWS_GM, :].transpose(1, 2), counts, tids, tiles_x, mask_rows=False)
 
 
@@ -239,10 +246,10 @@ def _blend_bwd_plain(gt, counts, tids, tiles_x: int, tentry, dout, mask_rows: bo
     return dgt
 
 
-def blend_cm_bwd_plain(g, counts, tentry, dout, tiles_x: int):
+def blend_cm_bwd_plain(g, counts, tentry, dout, tiles_x: int, tile_offset: int = 0):
     """Plain version of ``blend_cm_bwd``: dg (T, 16, MAX), padding rows 0."""
     T = g.shape[0]
-    tids = torch.arange(T, device=g.device)
+    tids = torch.arange(T, device=g.device) + tile_offset
     dgt = _blend_bwd_plain(g[:, :ROWS_GM, :].transpose(1, 2), counts, tids, tiles_x, tentry, dout, mask_rows=False)
     dg = torch.zeros_like(g)
     dg[:, :ROWS_GM] = dgt.transpose(1, 2)
@@ -320,11 +327,11 @@ def load_library() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entries' argument and result types on a loaded build."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.riggs_blend_fwd_cm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.riggs_blend_fwd_cm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.riggs_blend_fwd_cm.restype = ci
     lib.riggs_blend_fwd_gm_permuted.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.riggs_blend_fwd_gm_permuted.restype = ci
-    lib.riggs_blend_bwd_cm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.riggs_blend_bwd_cm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.riggs_blend_bwd_cm.restype = ci
     lib.riggs_blend_bwd_gm_permuted.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.riggs_blend_bwd_gm_permuted.restype = ci
@@ -397,12 +404,15 @@ def _bwd_scratch(g: torch.Tensor, T: int, C: int) -> torch.Tensor:
     return torch.empty((2, T, C, P_TILE), dtype=torch.float32, device=g.device)
 
 
-def blend_cm_fwd(g: torch.Tensor, counts: torch.Tensor, tiles_x: int):
+def blend_cm_fwd(g: torch.Tensor, counts: torch.Tensor, tiles_x: int, tile_offset: int = 0,
+                 counter: str = "blend_cm"):
     """Channel-major blend of plain windows, no gradient: the kernel on CUDA,
-    the plain version on the CPU. Returns (out, tentry)."""
+    the plain version on the CPU. Local tile t renders the image's tile
+    t + tile_offset; a launch counts under ``counter``. Returns (out,
+    tentry)."""
     _check(g, counts, None, max_axis=2, rows=PACK_ROWS, rows_axis=1)
     if g.device.type == "cpu":
-        return blend_cm_plain(g, counts, tiles_x)
+        return blend_cm_plain(g, counts, tiles_x, tile_offset)
     T, _, MAX = g.shape
     C = MAX // G_CHUNK
     out, tentry = _outputs(g, T, C)
@@ -413,10 +423,10 @@ def blend_cm_fwd(g: torch.Tensor, counts: torch.Tensor, tiles_x: int):
     with torch.cuda.device(g.device):
         err = lib.riggs_blend_fwd_cm(
             g.data_ptr(), counts.data_ptr(), out.data_ptr(), tentry.data_ptr(), scratch.data_ptr(),
-            T, C, tiles_x, torch.cuda.current_stream(g.device).cuda_stream,
+            T, C, tiles_x, int(tile_offset), torch.cuda.current_stream(g.device).cuda_stream,
         )
-    _raise_on(err, "blend_cm")
-    launches["blend_cm"] += 1
+    _raise_on(err, counter)
+    launches[counter] += 1
     return out, tentry
 
 
@@ -443,14 +453,17 @@ def blend_permuted_gm_fwd(g: torch.Tensor, counts: torch.Tensor, tids: torch.Ten
     return out, tentry
 
 
-def blend_cm_bwd(g: torch.Tensor, counts: torch.Tensor, tentry: torch.Tensor, dout: torch.Tensor, tiles_x: int):
-    """dL/dg (T, 16, MAX) of ``blend_cm`` from the forward's tentry and
-    dL/dout: the kernel on CUDA, the plain version on the CPU."""
+def blend_cm_bwd(g: torch.Tensor, counts: torch.Tensor, tentry: torch.Tensor, dout: torch.Tensor, tiles_x: int,
+                 tile_offset: int = 0, counter: str = "blend_cm_bwd"):
+    """dL/dg (T, 16, MAX) of ``blend_cm_fwd`` (at the same ``tile_offset``)
+    from the forward's tentry and dL/dout: the kernel on CUDA, the plain
+    version on the CPU; a launch, or a plain call, counts under
+    ``counter``."""
     _check(g, counts, None, max_axis=2, rows=PACK_ROWS, rows_axis=1)
     _check_bwd(g, tentry, dout, g.shape[0], g.shape[2] // G_CHUNK)
     if g.device.type == "cpu":
-        plain_bwd_calls["blend_cm_bwd"] += 1
-        return blend_cm_bwd_plain(g, counts, tentry, dout, tiles_x)
+        plain_bwd_calls[counter] += 1
+        return blend_cm_bwd_plain(g, counts, tentry, dout, tiles_x, tile_offset)
     T, _, MAX = g.shape
     dg = torch.empty_like(g)
     if T == 0 or MAX == 0:
@@ -460,10 +473,10 @@ def blend_cm_bwd(g: torch.Tensor, counts: torch.Tensor, tentry: torch.Tensor, do
     with torch.cuda.device(g.device):
         err = lib.riggs_blend_bwd_cm(
             g.data_ptr(), counts.data_ptr(), tentry.data_ptr(), dout.data_ptr(), dg.data_ptr(), scratch.data_ptr(),
-            T, MAX // G_CHUNK, tiles_x, torch.cuda.current_stream(g.device).cuda_stream,
+            T, MAX // G_CHUNK, tiles_x, int(tile_offset), torch.cuda.current_stream(g.device).cuda_stream,
         )
-    _raise_on(err, "blend_cm_bwd")
-    launches["blend_cm_bwd"] += 1
+    _raise_on(err, counter)
+    launches[counter] += 1
     return dg
 
 
@@ -584,6 +597,55 @@ def blend_cm(g: torch.Tensor, counts: torch.Tensor, tiles_x: int):
     (T,) int32 hit counts (chunk predication). Returns (out, tentry);
     differentiable in g."""
     return BlendFn.apply(g, blend_cm_fwd, blend_cm_bwd, tiles_x, counts)
+
+
+class _ShardedBlend(torch.autograd.Function):
+    """(T_pad, 16, MAX) windows -> (T_pad, 8, 1024) out: the rank's slice of
+    tiles blended with its offset, the slices gathered over the tile group;
+    backward the same in reverse."""
+
+    @staticmethod
+    def forward(ctx, gp, counts, tiles_x, mesh):
+        per = gp.shape[0] // mesh.shape["tile"]
+        lo = mesh.tile * per
+        g_l, c_l = gp[lo:lo + per].contiguous(), counts[lo:lo + per].contiguous()
+        out_l, tentry = blend_cm_fwd(g_l, c_l, tiles_x, lo, counter="blend_cm_offset")
+        ctx.save_for_backward(g_l, c_l, tentry)
+        ctx.lo, ctx.per, ctx.tiles_x, ctx.mesh = lo, per, tiles_x, mesh
+        return mesh.gather_tiles(out_l)
+
+    @staticmethod
+    def backward(ctx, dout):
+        g_l, c_l, tentry = ctx.saved_tensors
+        dout_l = dout[ctx.lo:ctx.lo + ctx.per].contiguous()
+        dg_l = blend_cm_bwd(g_l, c_l, tentry, dout_l, ctx.tiles_x, ctx.lo, counter="blend_cm_offset_bwd")
+        return ctx.mesh.gather_tiles(dg_l), None, None, None
+
+
+def sharded_blend(mesh, gp: torch.Tensor, counts: torch.Tensor, tiles_x: int) -> torch.Tensor:
+    """``blend_cm``'s out (T, 8, 1024) of the windows gp (T, 16, MAX) with
+    the tiles split over the tile group of ``mesh`` (a ``parallel.mesh.Mesh``:
+    its group's size and this rank's index in it, and ``gather_tiles``):
+    T is padded to a multiple of the group's size with empty tiles, and the
+    rank blends its contiguous slice, local tile t being the image's tile
+    t + the slice's start (the entry ``pallas_blend_offset``). Every rank
+    gets the whole out; differentiable in gp.
+
+    The gradient is ``shard_map``'s transpose: the backward slices dout to
+    the rank's shard, runs the offset backward and gathers the shards' dg
+    into the whole (T_pad, 16, MAX) tensor, so every rank then runs the
+    same replicated backward upstream and gets the single-device gradient
+    (bit for bit on the card, whose backward reduces each (tile, chunk)
+    pair on its own); no parameter gradient needs an all-reduce over the
+    tile group. ``torch.distributed.nn.functional.all_gather`` is not used:
+    its backward sums the cotangents over the ranks, which would scale the
+    gradient of a loss every rank computes alike by the group's size."""
+    T = gp.shape[0]
+    pad_t = (-T) % mesh.shape["tile"]
+    if pad_t:
+        gp = torch.nn.functional.pad(gp, (0, 0, 0, 0, 0, pad_t))
+        counts = torch.nn.functional.pad(counts, (0, pad_t))
+    return _ShardedBlend.apply(gp, counts, tiles_x, mesh)[:T]
 
 
 def blend_permuted_gm(g: torch.Tensor, counts: torch.Tensor, tids: torch.Tensor, tiles_x: int):

@@ -127,6 +127,14 @@ def gather_grid(packed: torch.Tensor, grid: GridInfo, k: int) -> torch.Tensor:
     return _GatherGrid.apply(packed, grid, k)
 
 
+def _blend_plain_windows(gp: torch.Tensor, counts: torch.Tensor, tiles_x: int, mesh) -> torch.Tensor:
+    """``blend.blend_cm``'s out, its tiles split over ``mesh``'s tile group
+    when a mesh is given (``blend.sharded_blend``)."""
+    if mesh is None:
+        return _blend.blend_cm(gp, counts, tiles_x)[0]
+    return _blend.sharded_blend(mesh, gp, counts, tiles_x)
+
+
 def rasterize_tiled(
     cam: Camera,
     means3d: torch.Tensor,
@@ -160,14 +168,16 @@ def rasterize_tiled(
     'dense' the exact dense-mask reference.
     ``tile_ladder`` ((n_tiles, cap), ...) gives the count-sorted tiles
     rank-dependent window capacities (render/ladder.py; sort binner only).
+    ``tile_shard_mesh`` (a ``parallel.mesh.Mesh``) splits the plain-window
+    blend's tiles over the mesh's tile group, each rank blending its slice
+    with the blend's offset entry (``tiles.py:409-432``); it does not
+    compose with the ladder or the runs binner.
     Returns image (H, W, 3), depth, alpha, radii, proj, the overflow
     counters (``overflow_budget`` 0 but on the runs path) and the true
     per-tile hit counts.
     """
-    if tile_shard_mesh is not None:
-        if tile_ladder is not None or binning == "runs":
-            raise ValueError("tile_shard_mesh composes with the plain-window blend only")
-        raise NotImplementedError("tile-sharded rendering comes with the multi-device port (ROADMAP A11)")
+    if tile_shard_mesh is not None and (tile_ladder is not None or binning == "runs"):
+        raise ValueError("tile_shard_mesh composes with the plain-window blend only")
     if binning not in ("sort", "runs", "compact", "sort2", "dense"):
         raise ValueError(f"unknown binning {binning!r}")
     if tile_ladder is not None and binning != "sort":
@@ -252,14 +262,14 @@ def rasterize_tiled(
             # invalid slots read row 0; their opacity is masked, as the reference masks it
             g = torch.cat([g[..., :5], torch.where(bins.valid, g[..., 5], 0.0)[..., None], g[..., 6:]], dim=-1)
             gp = torch.nn.functional.pad(g, (0, _blend.PACK_ROWS - g.shape[-1])).transpose(1, 2).contiguous()
-            out, _ = _blend.blend_cm(gp, counts, bins.tiles_x)
+            out = _blend_plain_windows(gp, counts, bins.tiles_x, tile_shard_mesh)
         else:
             # invalid slots are all zero, their opacity included: the
             # reference's opacity mask (tiles.py:402) is the gather's zeros here
             g = _gather_windows(packed, bins.idx, bins.valid)  # (T, MAX, 10)
             gp = torch.nn.functional.pad(g, (0, _blend.PACK_ROWS - g.shape[-1]))
             gp = gp.transpose(1, 2).contiguous()  # (T, 16, MAX)
-            out, _ = _blend.blend_cm(gp, counts, bins.tiles_x)
+            out = _blend_plain_windows(gp, counts, bins.tiles_x, tile_shard_mesh)
 
     rgb = out[:, 0:3, :].transpose(1, 2)  # (T, P, 3)
     dep = out[:, 3, :]

@@ -28,13 +28,16 @@ given, whose ``skel`` the returned state shares.
 ``eval_image`` always ends. The reference loops forever on a persistent
 ``overflow_rect`` while ``tiers`` is set (the tiers tuple overrides the
 escalated ``max_tiles_per_gaussian``), and on a persistent ``overflow_tiles``
-once ``max_per_tile`` is at its limit. Here a rect overflow under tiers drops
-the tiers, and a render that cannot escalate further is returned with a
-warning.
+once ``max_per_tile`` is at its limit (8192) with the rect cap below its own.
+Here a rect overflow under tiers drops the tiers, the window grows
+past 8192 to the observed max count as far as the device's free memory
+allows (``window_ceiling``), and only a render that cannot escalate further
+is returned, with a warning.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 from typing import Any
 
@@ -52,6 +55,8 @@ from riggs_tpu_torch.models import skeleton_warp as SW
 from riggs_tpu_torch.ops.fps import farthest_point_sample
 from riggs_tpu_torch.ops.knn import chamfer_distance
 from riggs_tpu_torch.render.api import render, tier_kwargs
+from riggs_tpu_torch.render.binning import TILE
+from riggs_tpu_torch.render.blend import fwd_scratch_bytes
 from riggs_tpu_torch.render.ladder import LadderPolicy
 from riggs_tpu_torch.skeleton.extract import fps_on, obtain_skeleton_tree
 from riggs_tpu_torch.train import losses as L
@@ -116,13 +121,16 @@ def stage2_frame_loss(
     lambda_dssim: float = 0.2,
     max_per_tile: int = 1024,
     isotropic: bool = False,
+    tile_shard_mesh=None,
     tile_ladder: tuple | None = None,
     tiers: tuple | None = None,
 ):
     """The per-frame stage-2 loss. ``params`` is ``{"gs": ..., "skel": ...}``
     in the ``params_dict`` trees (``params["skel"]`` is written into
-    ``state.skel`` unless it holds the module's own parameters). Returns
-    (loss, (render output, aux losses, deformation))."""
+    ``state.skel`` unless it holds the module's own parameters).
+    ``tile_shard_mesh`` (a ``parallel.mesh.Mesh``) blends the frame's tiles
+    across the mesh's tile group. Returns (loss, (render output, aux losses,
+    deformation))."""
     gs = state.gs.replace_params(params["gs"])
     skel = state.skel.replace_params(params["skel"])
     d = SW.skeleton_forward(
@@ -157,7 +165,7 @@ def stage2_frame_loss(
         frame.cam, gs, bg,
         d_xyz=d_xyz, d_rotation=d_rot, d_scaling=d_scaling,
         active_sh_degree=active_sh, mean2d_bias=mean2d_bias, max_per_tile=max_per_tile,
-        tile_ladder=tile_ladder, **tier_kwargs(tiers),
+        tile_shard_mesh=tile_shard_mesh, tile_ladder=tile_ladder, **tier_kwargs(tiers),
     )
     # warmup distils toward the precomputed stage-1 deformation, the main
     # phase trains photometric (both terms are computed, one weighted 0)
@@ -322,12 +330,27 @@ def _eval_image(gs, skel, cam, t, bg, max_per_tile=512, max_tiles_per_gaussian=1
     return out["render"], out["overflow_tiles"], out["overflow_rect"], out["max_count"]
 
 
+def window_ceiling(device: torch.device, n_tiles: int) -> int:
+    """The largest plain window (a multiple of 128 rows) whose forward
+    scratch (``blend.fwd_scratch_bytes``) and (T, MAX, 16) f32 gathered
+    windows take at most half of the free memory of ``device``: the card's
+    ``mem_get_info`` (which does not wait on the stream), the host's free
+    pages on the CPU. The other half is for the render's other buffers."""
+    if device.type == "cuda":
+        free = torch.cuda.mem_get_info(device)[0]
+    else:
+        free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    per_chunk = fwd_scratch_bytes(n_tiles, 2) - fwd_scratch_bytes(n_tiles, 1) + n_tiles * 128 * 16 * 4
+    return max(free // 2 // per_chunk, 1) * 128
+
+
 def eval_image(gs, skel, cam, t, bg, max_per_tile=512, max_tiles_per_gaussian=16,
                tile_ladder=None, tiers=None):
     """Held-out render, re-rendered with the offending cap raised until
     nothing is truncated: a truncating ladder is dropped; tile overflow jumps
-    the window to the observed max count; rect overflow drops the tiers, then
-    quadruples the rect cap."""
+    the window to the observed max count (up to ``MAX_PER_TILE_LIMIT`` as
+    the reference does, past it to ``window_ceiling``); rect overflow drops
+    the tiers, then quadruples the rect cap."""
     while True:
         img, of_t, of_r, max_count = _eval_image(
             gs, skel, cam, t, bg, max_per_tile, max_tiles_per_gaussian,
@@ -340,10 +363,17 @@ def eval_image(gs, skel, cam, t, bg, max_per_tile=512, max_tiles_per_gaussian=16
             tile_ladder = None
             continue
         escalated = False
-        if of_t > 0 and max_per_tile < MAX_PER_TILE_LIMIT:
+        if of_t > 0:
             need = -(-int(max_count) // 128) * 128
-            max_per_tile = min(max(need, max_per_tile * 2), MAX_PER_TILE_LIMIT)
-            escalated = True
+            if need <= MAX_PER_TILE_LIMIT:
+                nxt = min(max(need, max_per_tile * 2), MAX_PER_TILE_LIMIT)
+            else:
+                # the reference stops at its limit; the card's memory allows more
+                n_tiles = -(-cam.width // TILE) * -(-cam.height // TILE)
+                nxt = max(min(need, window_ceiling(gs.device, n_tiles)), MAX_PER_TILE_LIMIT)
+            if nxt > max_per_tile:
+                max_per_tile = nxt
+                escalated = True
         if of_r > 0:
             if tiers is not None:
                 tiers = None

@@ -103,7 +103,7 @@ template <int L>
 __global__ void __launch_bounds__(Bwd<L>::NT, FWD_MIN_BLOCKS)
 blend_fwd(const float* __restrict__ g, const int* __restrict__ counts, const int* __restrict__ tids,
           const int* __restrict__ sblk, int m2b, float* __restrict__ out, float* __restrict__ tentry,
-          int* __restrict__ state, int T, int C, int tiles_x) {
+          int* __restrict__ state, int T, int C, int tiles_x, int tile_offset) {
   constexpr int BT = Bwd<L>::NT, PPT = P / BT;
   __shared__ float sg[ATTRS][G];
   __shared__ float cut[G];
@@ -114,7 +114,7 @@ blend_fwd(const float* __restrict__ g, const int* __restrict__ counts, const int
   if (threadIdx.x == 0) s_k = atomicAdd(state, 1);
   __syncthreads();
   Pair<PPT> q;
-  const bool started = place_pair<L>(q, s_k, counts, tids, T, C, tiles_x);
+  const bool started = place_pair<L>(q, s_k, counts, tids, T, C, tiles_x, tile_offset);
   const int t = q.t, c = q.c;
   const int nc = (int)min((long long)C, ((long long)q.count + G - 1) / G);  // started chunks
   float v[PPT];
@@ -213,7 +213,7 @@ blend_fwd(const float* __restrict__ g, const int* __restrict__ counts, const int
 // of the shipped scratch's size).
 template <int L>
 int launch_fwd(const float* g, const int* counts, const int* tids, const int* sblk, int m2b, float* out,
-               float* tentry, void* scratch_, int T, int C, int tiles_x, cudaStream_t stream) {
+               float* tentry, void* scratch_, int T, int C, int tiles_x, int tile_offset, cudaStream_t stream) {
   if (T == 0 || C == 0) return 0;
   const long long pairs = (long long)T * C;
   if (pairs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -221,7 +221,7 @@ int launch_fwd(const float* g, const int* counts, const int* tids, const int* sb
   const cudaError_t err = cudaMemsetAsync(state, 0, (1 + (size_t)pairs + 2 * (size_t)T) * sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;
   blend_fwd<L><<<(unsigned)pairs, Bwd<L>::NT, 0, stream>>>(g, counts, tids, sblk, m2b, out, tentry, state, T, C,
-                                                          tiles_x);
+                                                          tiles_x, tile_offset);
   return (int)cudaGetLastError();
 }
 

@@ -21,12 +21,12 @@ constexpr int COMBINE_NT = 256;              // threads per block of the combine
 template <int L>
 __global__ void __launch_bounds__(Bwd<L>::NT, FWD_MIN_BLOCKS)
 blend_fwd_cum(const float* __restrict__ g, const int* __restrict__ counts, const int* __restrict__ tids,
-              const int* __restrict__ sblk, int m2b, float* __restrict__ tentry, int T, int C, int tiles_x) {
+              const int* __restrict__ sblk, int m2b, float* __restrict__ tentry, int T, int C, int tiles_x, int tile_offset) {
   constexpr int BT = Bwd<L>::NT, PPT = P / BT;
   __shared__ float sg[ATTRS][G];
   __shared__ float cut[G];
   Pair<PPT> q;
-  if (!place_pair<L>(q, blockIdx.x, counts, tids, T, C, tiles_x)) return;
+  if (!place_pair<L>(q, blockIdx.x, counts, tids, T, C, tiles_x, tile_offset)) return;
   load_chunk<L, BT>(sg, g, q.t, q.c, (size_t)C * G, L == kRuns ? runs_block(sblk, q.t, q.c, q.count, m2b) : 0,
                     m2b, threadIdx.x);
   __syncthreads();
@@ -103,13 +103,13 @@ template <int L>
 __global__ void __launch_bounds__(Bwd<L>::NT, FWD_MIN_BLOCKS)
 blend_fwd(const float* __restrict__ g, const int* __restrict__ counts, const int* __restrict__ tids,
           const int* __restrict__ sblk, int m2b, const float* __restrict__ tentry, float* __restrict__ part,
-          int T, int C, int tiles_x) {
+          int T, int C, int tiles_x, int tile_offset) {
   constexpr int BT = Bwd<L>::NT, PPT = P / BT;
   __shared__ float sg[ATTRS][G];
   __shared__ float cut[G];
   Pair<PPT> q;
   bool started;
-  if (!enter_pair<L>(q, counts, tids, tentry, T, C, tiles_x, started)) return;
+  if (!enter_pair<L>(q, counts, tids, tentry, T, C, tiles_x, tile_offset, started)) return;
   load_chunk<L, BT>(sg, g, q.t, q.c, (size_t)C * G, L == kRuns ? runs_block(sblk, q.t, q.c, q.count, m2b) : 0,
                     m2b, threadIdx.x);
   __syncthreads();
@@ -177,20 +177,20 @@ blend_fwd_combine(const float* __restrict__ part, const int* __restrict__ nact, 
 // (T, C, SUMS, P) f32 sums, then T ints (nact).
 template <int L>
 int launch_fwd(const float* g, const int* counts, const int* tids, const int* sblk, int m2b, float* out,
-               float* tentry, void* scratch, int T, int C, int tiles_x, cudaStream_t stream) {
+               float* tentry, void* scratch, int T, int C, int tiles_x, int tile_offset, cudaStream_t stream) {
   if (T == 0 || C == 0) return 0;
   const long long pairs = (long long)T * C;
   if (pairs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   float* part = static_cast<float*>(scratch);
   int* nact = reinterpret_cast<int*>(part + (size_t)pairs * SUMS * P);
-  blend_fwd_cum<L><<<(unsigned)pairs, Bwd<L>::NT, 0, stream>>>(g, counts, tids, sblk, m2b, tentry, T, C, tiles_x);
+  blend_fwd_cum<L><<<(unsigned)pairs, Bwd<L>::NT, 0, stream>>>(g, counts, tids, sblk, m2b, tentry, T, C, tiles_x, tile_offset);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   blend_fwd_scan<<<(unsigned)T, SCAN_NT, 0, stream>>>(counts, tentry, nact, C);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   blend_fwd<L><<<(unsigned)pairs, Bwd<L>::NT, 0, stream>>>(g, counts, tids, sblk, m2b, tentry, part, T, C,
-                                                          tiles_x);
+                                                          tiles_x, tile_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const unsigned combine_blocks = (unsigned)(((long long)T * P + COMBINE_NT - 1) / COMBINE_NT);

@@ -47,7 +47,8 @@ def parse_args(argv=None):
     add_config_args(ap)
     args = ap.parse_args(argv)
     if args.dp > 1:
-        raise NotImplementedError("--dp: frame-parallel training comes with the multi-device port (ROADMAP A11)")
+        raise NotImplementedError("--dp: stage 2's frame-parallel loop is ported (riggs_tpu_torch.parallel.stage2_dp), "
+                                  "stage 1's (train_stage1_dp) comes with the rest of ROADMAP A11")
     if args.viewer_port or args.gui_port:
         raise NotImplementedError("--viewer_port / --gui_port: the viewers come with ROADMAP A10")
     if args.detect_anomaly:

@@ -125,5 +125,6 @@ def test_wrappers_check_inputs_and_count_no_cpu_launch():
     assert out.shape == (2, 8, 1024) and tentry.shape == (2, 1, 1024)
     # the plain version ran: no kernel launch is counted
     assert set(B.launches) == {"blend_cm", "blend_permuted_gm", "blend_runs",
-                               "blend_cm_bwd", "blend_permuted_gm_bwd", "blend_runs_bwd"}
+                               "blend_cm_bwd", "blend_permuted_gm_bwd", "blend_runs_bwd",
+                               "blend_cm_offset", "blend_cm_offset_bwd"}
     assert all(n == 0 for n in B.launches.values())

@@ -249,10 +249,19 @@ def test_deferred_arguments_raise():
     means, colors, opacity, scales, rots = _t(*_scene(rng, 10))
     _, tc = _cams(32, 32)
     bg = torch.zeros(3)
-    with pytest.raises(NotImplementedError):
-        t_rasterize(tc, means, colors, opacity, scales, rots, bg, tile_shard_mesh=object())
+    # tile sharding composes with the plain-window blend only; on a 1 x 1
+    # mesh (one gloo rank in this process) it renders the same frame
+    from tests.test_torch_tileshard import one_rank_mesh
+
+    for kw in (dict(binning="runs"), dict(tile_ladder=((1, 256),))):
+        with pytest.raises(ValueError, match="plain-window"):
+            t_rasterize(tc, means, colors, opacity, scales, rots, bg, tile_shard_mesh=object(), **kw)
     # mean2d_bias is ported: a zero bias renders the same image
     a = t_rasterize(tc, means, colors, opacity, scales, rots, bg)
+    with one_rank_mesh() as mesh:
+        sharded = t_rasterize(tc, means, colors, opacity, scales, rots, bg, tile_shard_mesh=mesh)
+    for k in ("image", "alpha", "depth"):
+        assert torch.equal(sharded[k], a[k]), k
     # the compact and sort2 binners are ported: the same image as the sort binner's
     for binning in ("compact", "sort2"):
         c = t_rasterize(tc, means, colors, opacity, scales, rots, bg, binning=binning)

@@ -215,16 +215,24 @@ def test_random_motion_quats_match():
 
 
 def test_deferred_render_arguments_raise(avatar):
-    """Tile sharding (ROADMAP A11) still raises; the compact binner (A9)
-    renders the sort binner's frame. with_skinning_vis is ported: a second render in the
+    """Tile sharding composes with the plain-window blend only: with a
+    ladder or the runs binner it raises, and on a 1 x 1 mesh (one gloo
+    rank in this process) it renders today's frame bit for bit; the
+    compact binner (A9) renders the sort binner's frame. with_skinning_vis is ported: a second render in the
     skinning colours beside an unchanged main render. detach_xyz and
     mean2d_bias are ported: detach_xyz stops the image's gradient to gs.xyz
     (at SH degree 0 the colours do not see the view direction), and a zero
     mean2d_bias leaves the image as it is and receives the screen-space
     gradient."""
     _, _, tgs, tsk, _, tc = avatar
-    with pytest.raises(NotImplementedError, match="A11"):
-        t_render(tc, tgs, torch.zeros(3), tile_shard_mesh=object())
+    from tests.test_torch_tileshard import one_rank_mesh
+
+    for kw in (dict(binning="runs"), dict(tile_ladder=((16, 512),))):
+        with pytest.raises(ValueError, match="plain-window"):
+            t_render(tc, tgs, torch.zeros(3), tile_shard_mesh=object(), **kw)
+    with one_rank_mesh() as mesh:
+        assert torch.equal(t_render(tc, tgs, torch.zeros(3), tile_shard_mesh=mesh)["render"],
+                           t_render(tc, tgs, torch.zeros(3))["render"])
     np.testing.assert_allclose(t_render(tc, tgs, torch.zeros(3), binning="compact")["render"].numpy(),
                                t_render(tc, tgs, torch.zeros(3))["render"].numpy(), rtol=0, atol=2e-5)
     vis = TS.render_rigged(tgs, tsk, tc, t=0.0, with_skinning_vis=True)
