@@ -66,11 +66,16 @@ Phases, each printed as it runs:
      before and read just after; gradients finite and nonzero where the
      flags give one, kernel path against plain-version path; each forward
      and backward kernel against its plain version on a real step's inputs,
-     with each call's time, and the rotation-fit kernel on the step's ARAP
-     covariances (max |d R| on the well-posed fits, det R on every fit, the
-     ill-posed ones counted, beside torch.linalg.svd's time), then on
-     planted fits against the choices csrc/rotfit.cu documents; step time,
-     busy time and idle share; the node warp timed alone;
+     with each call's time, and the fused rotation-fit kernel
+     (estimate_rotations) on the step's ARAP fits (max |d R| on the
+     well-posed fits, det R on every fit, the ill-posed ones counted, the
+     Jacobi sweeps counted by its debug build, the covariance entry held
+     on the same edges; a call's time and its device time a launch back to
+     back beside an empty kernel's, the plain version's, the stock chain's
+     with torch.linalg.svd and the chain it replaced), then on
+     planted fits and planted edge sets against the choices csrc/rotfit.cu
+     documents; step time, busy time and idle share; the node warp timed
+     alone;
   9. sync: each auto step (make_stage2_auto and make_phase_b_auto on both
      window paths, make_phase_a_auto) and the serving frame's render, one
      call each under torch.cuda.set_sync_debug_mode("error") (any
@@ -191,7 +196,18 @@ Phases, each printed as it runs:
      train_stage2_dp at 1 x 2 (an FPS reset, a densification, a test
      evaluation, rank 0's checkpoint); every state hashed equal on both
      ranks; ms per step beside the single-device step; then one NCCL rank
-     in this process on a 1 x 1 mesh, bitwise against one device.
+     in this process on a 1 x 1 mesh, bitwise against one device;
+  23. dp1: two processes on the card over gloo, each building [stage1]'s
+     initial state from the seeds: 5 make_dp_stage1_step steps at 2 x 1
+     (B = 2, it = 5000; the counters zeroed just before and read just
+     after: the blend kernels and one estimate_rotations a frame) and 5
+     make_dp_static_step steps; 28 iterations of train_stage1_dp at 2 x 1
+     with the ladder (a node densify/prune, a Gaussian densification, an
+     opacity reset, the ladder fit); every state hashed equal on both
+     ranks; then one NCCL rank in this process on a 1 x 1 mesh: the same
+     steps of B = 2 on one rank, the 2 x 1 states held to them (1e-6 of a
+     leaf's max), a dp step under the sync audit (no host read) and the
+     loop's reads counted (one a step by design).
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without CUDA
 it exits 2 and prints no result. Imports nothing of JAX or riggs_tpu.
@@ -352,10 +368,16 @@ ZJU_CLI_SCHEDULE = CLI_SCHEDULE
 # where min(s1 + s2, s1 + d s3, s2 + d s3) < ILL_POSED * s1
 ROTFIT_TOL = 1e-5
 ILL_POSED = 1e-2
-# its bound: the function's bytes (a 3x3 f32 matrix in, one out, 72 B a
-# fit) over HBM; the kernel's f64 Jacobi sweeps are its design, not the
-# function's work
-ROTFIT_BYTES = 72
+# its bounds: the function's bytes over HBM (the kernels' f64 Jacobi
+# sweeps are their design, not the function's work): the fused entry reads
+# a node's two rows, its K indices, weights and flags and writes R, the
+# covariance entry a 3x3 f32 matrix in and one out
+ROTFIT_COV_BYTES = 72
+ROTFIT_SWEEPS = 8  # csrc/rotfit.cu's cap
+
+
+def _rotfit_bytes(n, K):
+    return n * (24 + 9 * K) + 36 * n
 
 
 def _bound(nbytes, ops, sfu):
@@ -1686,9 +1708,11 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
     torch.cuda.synchronize()
     launches = dict(blend.launches, **GEO.launches)
     print(f"[stage1] launch counters over the stage-1 main path: {launches}")
-    for name in ("blend_cm", "blend_permuted_gm", "blend_cm_bwd", "blend_permuted_gm_bwd", "fit_rotations"):
+    for name in ("blend_cm", "blend_permuted_gm", "blend_cm_bwd", "blend_permuted_gm_bwd", "estimate_rotations"):
         if launches[name] <= 0:
             raise RuntimeError(f"the stage-1 path never launched {name}")
+    if launches["estimate_rotations"] != len(STAGE1_ITS) * len(paths) * STAGE1_STEPS or launches["fit_rotations"]:
+        raise RuntimeError(f"[stage1] not one fused rotation fit a step: {launches}")
 
     # gradients: finite, nonzero where the flags give one, kernel vs plain path
     arap_t = NW.arap_sample_times(gen, device=DEVICE)
@@ -1738,8 +1762,9 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
             fwd_captured[fname.removesuffix("_fwd")] = c.calls[fname]
     fres = check_kernels(blend, fwd_captured, tag="[stage1]", per="step")
     bres = check_bwd_kernels(blend, captured, tag="[stage1]")
-    rres = check_rotfit(rc.covs, "[stage1]")
+    rres = check_rotfit(rc.fits, "[stage1]")
     rres["planted"] = check_rotfit_planted("[stage1]")
+    rres["planted_edges"] = check_estimate_planted("[stage1]")
     del captured, fwd_captured, rc
 
     # step time and the device's share of it
@@ -1802,26 +1827,46 @@ def _site(func, text):
     return f"{Path(inspect.getsourcefile(func)).name}:{first + n}"
 
 
+def _keep_layout(x):
+    """A copy of ``x`` with its strides (a view's layout kept)."""
+    import torch
+
+    return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device).copy_(x)
+
+
 class _RotCapture:
-    """Record the covariances the ARAP loss hands to fit_rotations."""
+    """Record the ARAP fits the losses hand to estimate_rotations: (source,
+    target, connectivity), copied with their layouts."""
 
     def __init__(self):
         from riggs_tpu_torch.ops import arap
 
-        self.arap, self.covs = arap, []
+        self.arap, self.fits = arap, []
 
     def __enter__(self):
-        self.orig = self.arap.fit_rotations
+        self.orig = self.arap.estimate_rotations
 
-        def rec(cov):
-            self.covs.append(cov.detach().clone())
-            return self.orig(cov)
+        def rec(source, target, conn):
+            self.fits.append((_keep_layout(source.detach()), _keep_layout(target.detach()),
+                              type(conn)(*(_keep_layout(x) for x in conn))))
+            return self.orig(source, target, conn)
 
-        self.arap.fit_rotations = rec
+        self.arap.estimate_rotations = rec
         return self
 
     def __exit__(self, *exc):
-        self.arap.fit_rotations = self.orig
+        self.arap.estimate_rotations = self.orig
+
+
+def _edge_cov(source, target, conn):
+    """sum_k w (t_i - t_j)(s_i - s_j)^T per node in the points' dtype, as
+    estimate_rotations_plain forms it."""
+    import torch
+
+    from riggs_tpu_torch.ops.arap import edge_matrix
+
+    return torch.einsum("nka,nk,nkb->nab", edge_matrix(target, conn), conn.weight.to(source.dtype),
+                        edge_matrix(source, conn))
 
 
 def _conditioning(cov):
@@ -1836,57 +1881,138 @@ def _conditioning(cov):
     return low / sv[:, 0].clamp_min(1e-300)
 
 
-def check_rotfit(covs, tag):
-    """The rotation-fit kernel against its plain version (torch.linalg.svd)
-    on the covariances of real steps: finite, a second launch bitwise
-    equal, max |d R| <= ROTFIT_TOL on the well-posed fits, |det R - 1| <=
-    ROTFIT_TOL on every fit; the ill-posed fits counted. Times on the last
-    batch (CUDA events, plain, kernel, kernel, plain), beside
-    torch.linalg.svd alone (the library call) and the bound."""
+# cycles of the spin kernel (torch.cuda._sleep) that holds the stream while
+# the host enqueues _held_ms's calls: about 25 ms, against the 2-3 ms that
+# 50 calls of a rotation fit take to enqueue
+HOLD_CYCLES = 50_000_000
+
+
+def _held_ms(fn, reps=50):
+    """Device ms a call of ``fn`` with its launches back to back: a spin
+    kernel holds the stream while the host enqueues ``reps`` calls between
+    two CUDA events, so the events bracket the device's work and the gaps
+    between its launches, not the host's. Every launch is counted by
+    construction; raises if the hold ended before the host had enqueued
+    them all."""
     import torch
 
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    held = not start.query()
+    torch.cuda.synchronize()
+    if not held:
+        raise RuntimeError(f"_held_ms: the stream's hold ended before {reps} calls were enqueued")
+    return start.elapsed_time(end) / reps
+
+
+def check_rotfit(fits, tag):
+    """The fused rotation-fit kernel (estimate_rotations) against its plain
+    version on the ARAP fits of real steps, as the losses passed them:
+    finite, a second launch bitwise equal, max |d R| <= ROTFIT_TOL on the
+    well-posed fits (their conditioning from a float64 covariance of the
+    same edges), |det R - 1| <= ROTFIT_TOL on every fit, the ill-posed
+    fits counted; the covariance entry (fit_rotations) held the same way
+    on the float32 covariances of the same edges. Each fit's Jacobi sweeps
+    counted by the kernel's debug build (csrc/rotfit.cu,
+    ROTFIT_COUNT_SWEEPS), launched here outside the wrapper. On the last
+    fit, by CUDA events: the fused call's ms (plain, kernel, kernel, plain),
+    its device ms a launch back to back (_held_ms), an empty kernel's (the
+    launch floor) both ways, the plain version's, the library chain's
+    (edge_matrix twice, einsum, torch.linalg.svd), the chain a stage-1 step
+    ran before the fused entry (edge_matrix twice, einsum, fit_rotations),
+    the covariance entry's both ways, and the bound."""
+    import torch
+
+    from riggs_tpu_torch.ops import arap as A
     from riggs_tpu_torch.ops import geometry as GEO
 
-    if not covs:
+    if not fits:
         raise RuntimeError(f"{tag}: the step made no rotation fit")
-    err = det_err = scaled = 0.0
-    fits = ill = 0
-    for cov in covs:
-        R, R2, P = GEO.fit_rotations(cov), GEO.fit_rotations(cov), GEO.fit_rotations_plain(cov)
+    dbg = GEO.load_library(debug=True)
+    err = det_err = scaled = cov_err = 0.0
+    n_fits = ill = 0
+    debug_same = True
+    sweeps = np.zeros(ROTFIT_SWEEPS + 1, np.int64)
+    for s, t, conn in fits:
+        R, R2 = A.estimate_rotations(s, t, conn), A.estimate_rotations(s, t, conn)
+        P = A.estimate_rotations_plain(s, t, conn)
+        C = GEO.fit_rotations(_edge_cov(s, t, conn))
+        sw, Rd = torch.zeros(s.shape[0], dtype=torch.int32, device=s.device), torch.empty_like(R)
+        code = dbg.riggs_rotfit_sweeps_to(sw.data_ptr())
+        code = code or GEO.launch(dbg.riggs_estimate_rotations, s.device, *A.kernel_args(s, t, conn, Rd))
         torch.cuda.synchronize()
+        if code != 0:
+            raise RuntimeError(f"{tag} estimate_rotations' debug build: CUDA error {code}")
         if not bool(torch.isfinite(R).all()):
-            raise RuntimeError(f"{tag} fit_rotations {tuple(cov.shape)}: non-finite kernel output")
+            raise RuntimeError(f"{tag} estimate_rotations {tuple(s.shape)}: non-finite kernel output")
         if not _same_bits(R, R2):
-            raise RuntimeError(f"{tag} fit_rotations {tuple(cov.shape)}: two launches on the same inputs differ")
-        ratio = _conditioning(cov)
+            raise RuntimeError(f"{tag} estimate_rotations {tuple(s.shape)}: two launches on the same inputs differ")
+        debug_same &= _same_bits(R, Rd)
+        ratio = _conditioning(_edge_cov(s.double(), t.double(), conn))
         well = ratio >= ILL_POSED
         d = (R - P).abs().amax(dim=(-2, -1)).double()
         if bool(well.any()):
             err = max(err, float(d[well].max()))
             scaled = max(scaled, float((d * ratio)[well].max()))
-        det_err = max(det_err, float((torch.linalg.det(R.double()) - 1.0).abs().max()))
-        fits += cov.shape[0]
+            cov_err = max(cov_err, float((C - P).abs().amax(dim=(-2, -1))[well].max()))
+        det_err = max(det_err, float((torch.linalg.det(R.double()) - 1.0).abs().max()),
+                      float((torch.linalg.det(C.double()) - 1.0).abs().max()))
+        n_fits += s.shape[0]
         ill += int((~well).sum())
-    if not (err <= ROTFIT_TOL and det_err <= ROTFIT_TOL):
-        raise RuntimeError(f"{tag} fit_rotations: max |d R| {err:.3e} on well-posed fits, max |det R - 1| "
-                           f"{det_err:.3e}; the limit is {ROTFIT_TOL}")
-    cov = covs[-1]
-    for fn in (lambda: GEO.fit_rotations(cov), lambda: GEO.fit_rotations_plain(cov), lambda: torch.linalg.svd(cov)):
+        sweeps += np.bincount(sw.cpu().numpy(), minlength=ROTFIT_SWEEPS + 1)
+    if not (err <= ROTFIT_TOL and cov_err <= ROTFIT_TOL and det_err <= ROTFIT_TOL):
+        raise RuntimeError(f"{tag} rotation fit: max |d R| {err:.3e} (fused) / {cov_err:.3e} (covariance entry) "
+                           f"on well-posed fits, max |det R - 1| {det_err:.3e}; the limit is {ROTFIT_TOL}")
+    s, t, conn = fits[-1]
+    cov = _edge_cov(s, t, conn)
+    lib = GEO.load_library()
+    dev = s.device
+
+    def chain():
+        return torch.linalg.svd(_edge_cov(s, t, conn))
+
+    fused, plain = (lambda: A.estimate_rotations(s, t, conn)), (lambda: A.estimate_rotations_plain(s, t, conn))
+    empty, cov_fit = (lambda: GEO.launch(lib.riggs_rotfit_empty, dev)), (lambda: GEO.fit_rotations(cov))
+    before = lambda: GEO.fit_rotations(_edge_cov(s, t, conn))
+    for fn in (fused, plain, empty, cov_fit, chain, before):
         fn()
     torch.cuda.synchronize()
-    p1 = _event_ms(lambda: GEO.fit_rotations_plain(cov), 5)
-    k1 = _event_ms(lambda: GEO.fit_rotations(cov), 50)
-    k2 = _event_ms(lambda: GEO.fit_rotations(cov), 50)
-    p2 = _event_ms(lambda: GEO.fit_rotations_plain(cov), 5)
-    lib = _event_ms(lambda: torch.linalg.svd(cov), 5)
-    n = cov.shape[0]
-    bound = _bound(n * ROTFIT_BYTES, 0, 0)
-    print(f"{tag} fit_rotations: {len(covs)} fit(s) of {fits} matrices, {ill} ill-posed (conditioning < "
-          f"{ILL_POSED}); max |d R| {err:.3e} on the well-posed (x conditioning {scaled:.3e}), max |det R - 1| "
-          f"{det_err:.3e}; a second launch bitwise equal; kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms, "
-          f"torch.linalg.svd {lib:.3f} ms per batch of {n}; bound {bound['bound_ms']:.2e} ms by {bound['bound_by']}")
-    return dict(err=err, det_err=det_err, scaled_err=scaled, fits=fits, ill_posed=ill, ms=(k1 + k2) / 2,
-                plain_ms=(p1 + p2) / 2, library_ms=lib, batch=n, **bound)
+    p1 = _event_ms(plain, 5)
+    k1, k2 = _event_ms(fused, 50), _event_ms(fused, 50)
+    p2 = _event_ms(plain, 5)
+    floor = _event_ms(empty, 50)
+    library = _event_ms(chain, 5)
+    before_ms = _event_ms(before, 20)
+    cov_call = _event_ms(cov_fit, 50)
+    cov_plain = _event_ms(lambda: GEO.fit_rotations_plain(cov), 5)
+    cov_library = _event_ms(lambda: torch.linalg.svd(cov), 5)
+    dev_ms, floor_dev, cov_dev = _held_ms(fused), _held_ms(empty), _held_ms(cov_fit)
+    n, K = conn.nn_idx.shape
+    bound = _bound(_rotfit_bytes(n, K), 0, 0)
+    cov_bound = _bound(n * ROTFIT_COV_BYTES, 0, 0)
+    sweep_text = ", ".join(f"{k}: {c}" for k, c in enumerate(sweeps) if c)
+    print(f"{tag} estimate_rotations: {len(fits)} fit(s) of {n_fits} nodes, {ill} ill-posed (conditioning < "
+          f"{ILL_POSED}); max |d R| {err:.3e} on the well-posed (x conditioning {scaled:.3e}), the covariance "
+          f"entry {cov_err:.3e}; max |det R - 1| {det_err:.3e}; a second launch bitwise equal; Jacobi sweeps "
+          f"{{{sweep_text}}} (the debug build's rotations bitwise equal: {debug_same})")
+    print(f"{tag} estimate_rotations ({n} nodes, K = {K}), CUDA events: a call {k1:.4f}/{k2:.4f} ms, device "
+          f"{dev_ms:.5f} ms a launch back to back; the launch floor, an empty kernel: a call {floor:.4f} ms, device "
+          f"{floor_dev:.5f} ms; the chain this replaced on the stage-1 step (edge_matrix x2, einsum, "
+          f"fit_rotations) {before_ms:.4f} ms; plain {p1:.3f}/{p2:.3f} ms; library chain (edge_matrix x2, einsum, "
+          f"torch.linalg.svd) {library:.3f} ms; fit_rotations on the same covariances: a call {cov_call:.4f} ms, "
+          f"device {cov_dev:.5f} ms, plain {cov_plain:.3f} ms, torch.linalg.svd {cov_library:.3f} ms; bound "
+          f"{bound['bound_ms']:.2e} ms by {bound['bound_by']} (covariance entry {cov_bound['bound_ms']:.2e})")
+    return dict(err=err, cov_err=cov_err, det_err=det_err, scaled_err=scaled, fits=n_fits, ill_posed=ill,
+                sweeps={k: int(c) for k, c in enumerate(sweeps) if c}, debug_same=debug_same, ms=(k1 + k2) / 2,
+                device_ms=dev_ms, floor_ms=floor, floor_device_ms=floor_dev, before_ms=before_ms,
+                plain_ms=(p1 + p2) / 2, library_ms=library, cov_ms=cov_call, cov_device_ms=cov_dev,
+                cov_plain_ms=cov_plain, cov_library_ms=cov_library, cov_bound_ms=cov_bound["bound_ms"], batch=n, K=K,
+                **bound)
 
 
 def _rotations(rng, n):
@@ -1992,6 +2118,58 @@ def check_rotfit_planted(tag):
         + (f", {r['ill_posed']} ill-posed" if "ill_posed" in r else "") for k, r in res.items()))
     if fails:
         raise RuntimeError(f"{tag} fit_rotations on planted fits: " + "; ".join(fails))
+    return res
+
+
+def planted_edge_sets():
+    """Edge sets whose fit csrc/rotfit.cu documents: points 1-10 at k (1, 2,
+    2) and their targets at k (2, 3, 6) (k = 1..10, exact in f32), point 0
+    at the origin of both, point 11 off the line. Nodes 0-10 take ten
+    neighbours on the line, all valid, so every edge is collinear and the
+    covariance exactly rank 1 (R v = u, v and u the two directions
+    normalized); node 11 takes the same neighbours, all invalid (the
+    identity). Returns (source, target, Connectivity, u, v) on the card."""
+    import torch
+
+    from riggs_tpu_torch.ops.arap import Connectivity
+
+    k = np.arange(12, dtype=np.float32)[:, None]
+    src = k * np.array([1.0, 2.0, 2.0], np.float32)
+    tgt = k * np.array([2.0, 3.0, 6.0], np.float32)
+    src[0] = tgt[0] = 0.0
+    src[11], tgt[11] = (3.0, -1.0, 0.5), (1.0, 4.0, -2.0)
+    idx = np.stack([[j for j in range(11) if j != i][:10] for i in range(11)] + [list(range(1, 11))]).astype(np.int32)
+    valid = np.ones((12, 10), bool)
+    valid[11] = False
+    w = np.where(valid, np.float32(0.1), np.float32(0.0)).astype(np.float32)
+    on = lambda a: torch.as_tensor(a, device="cuda")
+    conn = Connectivity(nn_idx=on(idx), weight=on(w), valid=on(valid))
+    u, v = np.array([2.0, 3.0, 6.0]) / 7.0, np.array([1.0, 2.0, 2.0]) / 3.0
+    return on(src), on(tgt), conn, u, v
+
+
+def check_estimate_planted(tag):
+    """The fused entry on planted_edge_sets: the node with no valid edge
+    gives the identity bitwise; each node with collinear edges a proper
+    rotation with R v = u (|R v - u|, |det R - 1| and |R R^T - I| <=
+    ROTFIT_TOL). Returns the readings."""
+    import torch
+
+    from riggs_tpu_torch.ops import arap as A
+
+    src, tgt, conn, u, v = planted_edge_sets()
+    R = A.estimate_rotations(src, tgt, conn).double()
+    eye = torch.eye(3, dtype=torch.float64, device="cuda")
+    line = R[:11]
+    res = dict(identity=_same_bits(R[11], eye),
+               rv_err=float((line @ torch.as_tensor(v, device="cuda") - torch.as_tensor(u, device="cuda")).abs().max()),
+               det_err=float((torch.linalg.det(line) - 1.0).abs().max()),
+               orth_err=float((line @ line.transpose(-1, -2) - eye).abs().max()))
+    print(f"{tag} estimate_rotations on planted edge sets: no valid edge -> the identity bitwise {res['identity']}; "
+          f"collinear edges (rank 1, 11 nodes): |R v - u| {res['rv_err']:.2e}, |det R - 1| {res['det_err']:.2e}, "
+          f"|R R^T - I| {res['orth_err']:.2e}")
+    if not (res["identity"] and max(res["rv_err"], res["det_err"], res["orth_err"]) <= ROTFIT_TOL):
+        raise RuntimeError(f"{tag} estimate_rotations on planted edge sets: {res}")
     return res
 
 
@@ -2234,7 +2412,7 @@ def stage1_phase_a(blend, scene):
     torch.cuda.synchronize()
     launches = dict(blend.launches, **GEO.launches)
     print(f"[stage1] phase A launch counters: {launches}")
-    for name in ("blend_cm", "blend_cm_bwd", "fit_rotations"):
+    for name in ("blend_cm", "blend_cm_bwd", "estimate_rotations"):
         if launches[name] <= 0:
             raise RuntimeError(f"phase A never launched {name}")
 
@@ -2284,7 +2462,7 @@ def stage1_phase_a(blend, scene):
         step(fresh(PHASE_A_ITS[-1]), fr, bg, reg_t, it=PHASE_A_ITS[-1], **kw)
     fres = check_kernels(blend, {"blend_cm": c.calls["blend_cm_fwd"]}, tag="[stage1] phase A", per="step")
     bres = check_bwd_kernels(blend, {"blend_cm_bwd": c.calls["blend_cm_bwd"]}, tag="[stage1] phase A")
-    rres = check_rotfit(rc.covs, "[stage1] phase A")
+    rres = check_rotfit(rc.fits, "[stage1] phase A")
     del c, rc
 
     # step time, the device's share of it, and the sync audit
@@ -2351,10 +2529,10 @@ class _LoopProbe:
         self.stamps[phase].append((it, time.perf_counter()))
         if (phase, it) in self.held_keys:
             self.held[phase, it] = {k: list(v) for k, v in self.capture.calls.items()}
-            self.held_rot[phase, it] = list(self.rot.covs)
+            self.held_rot[phase, it] = list(self.rot.fits)
         for v in self.capture.calls.values():
             v.clear()
-        self.rot.covs.clear()
+        self.rot.fits.clear()
         start = self.profile_from[phase]
         if it == start - 1:
             self.prof = profile(activities=[ProfilerActivity.CUDA])
@@ -2464,9 +2642,12 @@ def loop_phase(blend, scene, cap):
               + tree_leaves(state.warp.params_dict()))
     if not all(bool(torch.isfinite(v).all()) for v in leaves):
         raise RuntimeError("[loop] non-finite parameters")
-    for name in ("blend_cm", "blend_cm_bwd", "blend_permuted_gm", "blend_permuted_gm_bwd", "fit_rotations"):
+    for name in ("blend_cm", "blend_cm_bwd", "blend_permuted_gm", "blend_permuted_gm_bwd", "estimate_rotations"):
         if launches[name] <= 0:
             raise RuntimeError(f"the loop never launched {name}")
+    n_steps = sum(len(v) for v in probe.stamps.values())
+    if launches["estimate_rotations"] != n_steps or launches["fit_rotations"]:
+        raise RuntimeError(f"[loop] not one fused rotation fit a step over {n_steps} steps: {launches}")
     print(f"[loop] {state.warp.node_num} nodes, {int(state.gs.num_alive)} Gaussians of {state.gs.capacity}, "
           f"every parameter finite; refits {final['refits']}, ladder {final['ladder']}")
     if sorted(probe.held) != sorted(LOOP_HELD):
@@ -3067,7 +3248,7 @@ def flow_phase(blend, scene, cap, gs, skel, loop_b_ms):
                                "the opacity reset, finite")
         if any(a or b for a, b in of) or bad:
             raise RuntimeError(f"[flow] overflow: flow render {of}, events {bad}")
-        for name in ("blend_cm", "blend_cm_bwd", "blend_permuted_gm", "blend_permuted_gm_bwd", "fit_rotations"):
+        for name in ("blend_cm", "blend_cm_bwd", "blend_permuted_gm", "blend_permuted_gm_bwd", "estimate_rotations"):
             if launches[name] <= 0:
                 raise RuntimeError(f"[flow] the flow loop never launched {name}")
         held, held_rot = probe.held, probe.held_rot
@@ -3314,7 +3495,7 @@ def zju_phase(blend, gs, skel):
         bad = [e for e in events if "overflow" in e["event"] and e["tiles"] and e["it"] not in refit_at]
         if bad:
             raise RuntimeError(f"[zju] steps overflowed their windows without the ladder reacting: {bad}")
-        for name in ("blend_cm", "blend_cm_bwd", "blend_permuted_gm", "blend_permuted_gm_bwd", "fit_rotations"):
+        for name in ("blend_cm", "blend_cm_bwd", "blend_permuted_gm", "blend_permuted_gm_bwd", "estimate_rotations"):
             if launches[name] <= 0:
                 raise RuntimeError(f"[zju] the loop never launched {name}")
         held, held_rot = probe.held, probe.held_rot
@@ -3445,7 +3626,7 @@ def refpoint_phase():
         raise RuntimeError("[refpoint] --resume did not read the stage-1 state and the stage-2 checkpoint")
     if runs[1][0]["s1_alive_gaussians"] != runs[0][0]["s1_alive_gaussians"]:
         raise RuntimeError("[refpoint] the resumed stage-1 state is not the saved one")
-    for name in ("blend_cm", "blend_cm_bwd", "blend_permuted_gm", "blend_permuted_gm_bwd", "fit_rotations"):
+    for name in ("blend_cm", "blend_cm_bwd", "blend_permuted_gm", "blend_permuted_gm_bwd", "estimate_rotations"):
         if runs[0][1][name] <= 0:
             raise RuntimeError(f"[refpoint] the twin never launched {name}")
     return runs[0][0], runs[0][1]
@@ -3824,7 +4005,7 @@ def hash_phase(gs, warp):
     torch.cuda.synchronize()
     launches = dict(GEO.launches)
     print(f"[hash] rotation-fit launches over the two card losses: {launches}")
-    if launches["fit_rotations"] <= 0:
+    if launches["estimate_rotations"] <= 0:
         raise RuntimeError("[hash] arap_loss_with_rot never launched the rotation fit")
     for rot_term, ld, lc, gd, gc in results:
         pairs = [(a, b.to(a.device)) for a, b in zip(gd, gc) if a is not None and b is not None]
@@ -3837,8 +4018,8 @@ def hash_phase(gs, warp):
         if not (rel <= ARAP_ROT_TOL["loss"] and g_err <= ARAP_ROT_TOL["grad"]):
             raise RuntimeError(f"[hash] arap_loss_with_rot card vs CPU: loss {rel:.3e}, gradient {g_err:.3e}; "
                                f"limits {ARAP_ROT_TOL}")
-    covs = [c for c in rot.covs if c.device.type == "cuda"]
-    return launches, check_rotfit(covs, "[hash] arap_loss_with_rot")
+    fits = [f for f in rot.fits if f[0].device.type == "cuda"]
+    return launches, check_rotfit(fits, "[hash] arap_loss_with_rot")
 
 
 TILESHARD_STEPS = 5  # dp steps of each mesh shape
@@ -3867,10 +4048,15 @@ def _state_leaves(state):
 
 
 def _state_hash(state):
+    return _leaves_hash(_state_leaves(state))
+
+
+def _leaves_hash(leaves):
+    """A hash of tensors by path (their bytes, in path order)."""
     import hashlib
 
     h = hashlib.sha256()
-    for k, v in sorted(_state_leaves(state).items()):
+    for k, v in sorted(leaves.items()):
         h.update(k.encode())
         h.update(v.contiguous().cpu().numpy().tobytes())
     return h.hexdigest()
@@ -4291,12 +4477,357 @@ def nccl_world_one(cap, dp21_leaves):
         dist.destroy_process_group()
 
 
+# [dp1]: the frame-parallel stage-1 and static steps and train_stage1_dp
+# on two gloo ranks on the card, from [stage1]'s state (its make_phase_b_auto
+# steps' it = 5000 for the steps); the loop from it = 0 over DP1_LOOP
+# iterations of B = 2 with the ladder (fitted after LadderPolicy's 12 probe
+# steps, the last two steps on it), a forced node densify/prune at 8, a
+# Gaussian densification at 12 and an opacity reset at 16
+DP1_STEPS = 5
+DP1_LOOP = 28
+DP1_SCHEDULE = dict(iterations=DP1_LOOP, warm_up=4, node_force_densify_prune_step=9, densify_from_iter=10,
+                    densify_until_iter=14, densification_interval=4, opacity_reset_interval=16)
+DP1_TIMES = (0.5, 0.8, 0.4, 0.6)  # the loop's frames (the [train] frame at these times); a batch: the first two
+DP1_STATIC_LR = 1e-4
+DP1_SYNC_LOOP = 14  # the NCCL rank's loop under the sync counter: B = 1, 12 probe steps, two on the ladder
+DP1_TIMEOUT = 600
+
+
+def _stage1_leaves(state):
+    """A Stage1State's tensors by path."""
+    from riggs_tpu_torch.train.optim import tree_leaves
+
+    out = {}
+    for name, tree in (("gs", (state.gs.params_dict(), state.gs.alive)), ("node_gs", state.node_gs.params_dict()),
+                       ("warp", state.warp.params_dict()),
+                       ("opt_gs", (state.opt_gs.mu, state.opt_gs.nu, state.opt_gs.count)),
+                       ("opt_warp", (state.opt_warp.mu, state.opt_warp.nu, state.opt_warp.count)),
+                       ("stats", dataclasses.astuple(state.stats_gs)), ("it", state.it)):
+        for i, v in enumerate(tree_leaves(tree)):
+            out[f"{name}.{i}"] = v.detach()
+    return out
+
+
+def _static_leaves(state):
+    from riggs_tpu_torch.train.optim import tree_leaves
+
+    return {f"{i}": v.detach() for i, v in enumerate(tree_leaves((state.gs.params_dict(), state.opt.mu, state.opt.nu,
+                                                                   state.opt.count)))}
+
+
+def _dp1_inputs():
+    """[stage1]'s initial state and window from the seeds (build_avatar,
+    the [train] frame, stage1_setup), the batch's two frames and the loop's
+    scene."""
+    import torch
+
+    from riggs_tpu_torch.data.dataset import SceneData
+
+    gs, skel, cam, bg = build_avatar(0, N_ALIVE, CAPACITY, SIZE, DEVICE)
+    fr = build_training(gs, skel, cam, bg, DEVICE)[0]
+    cfg, state0, cap1, _, _ = stage1_setup(gs, bg, fr)
+    frames = [dataclasses.replace(fr, cam=dataclasses.replace(fr.cam, fid=torch.tensor(t, device=DEVICE)))
+              for t in DP1_TIMES]
+    scene = SceneData(np.zeros((1, 3), np.float32), np.zeros((1, 3), np.float32), train_frames=frames,
+                      cameras_extent=1.0)
+    return cfg, state0, cap1, frames, scene, bg
+
+
+def _dp1_steps(mesh, cfg, state0, frames, bg, cap):
+    """DP1_STEPS make_dp_stage1_step steps of B = 2 (the first two frames)
+    at it = STAGE1_ITS[-1] from state0 (a copy), the ARAP sample times drawn
+    from a seeded generator (the same on every rank), then as many
+    make_dp_static_step steps on the Gaussians (the second frame's image
+    flipped upside down); the counters zeroed just before the stage-1
+    steps and read just after. Returns (the stage-1 state, its losses, ms
+    a step, the launches, the static state, its losses)."""
+    import torch
+
+    from riggs_tpu_torch.models import node_warp as NW
+    from riggs_tpu_torch.ops import geometry as GEO
+    from riggs_tpu_torch.parallel.train import make_dp_stage1_step, make_dp_static_step, stack_frames, stage1_flags
+    from riggs_tpu_torch.render import blend
+    from riggs_tpu_torch.train import schedule as S
+    from riggs_tpu_torch.train.stage1 import stage1_lr_fns
+    from riggs_tpu_torch.train.static import TrainState
+
+    it, o = STAGE1_ITS[-1], cfg.opt
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    arap = [torch.stack([NW.arap_sample_times(gen, device=DEVICE) for _ in range(2)]) for _ in range(DP1_STEPS)]
+    f32 = lambda d: {k: float(np.float32(v)) for k, v in d.items()}
+    gauss_lrs, warp_lrs = stage1_lr_fns(cfg)
+    lam = (float(np.float32(S.landmark_interpolate(NW.LAMBDA_ARAP_LANDMARKS, NW.LAMBDA_ARAP_STEPS, it))),
+           float(np.float32(S.landmark_interpolate(o.lambda_motion_mask_landmarks, o.lambda_motion_mask_steps, it,
+                                                   interpolation="log"))))
+    step = make_dp_stage1_step(mesh, use_chamfer=True, use_motion_loss=True,
+                               lambda_chamfer=o.lambda_deformed_node_prjection, max_per_tile=cap)
+    batch = stack_frames(frames[:2])
+    flags = stage1_flags(warm=False, active_sh=min(it // o.oneupSHdegree_step, SH_DEGREE))
+    st, losses = copy.deepcopy(state0), []
+    torch.cuda.synchronize()
+    blend.reset_launches()
+    GEO.reset_launches()
+    t0 = time.perf_counter()
+    for k in range(DP1_STEPS):
+        st, m = step(st, batch, bg, f32(gauss_lrs(it)), f32(warp_lrs(it)), arap[k], *lam, np.zeros(2, np.float32),
+                     flags)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / DP1_STEPS * 1e3
+    launches = dict(blend.launches, **GEO.launches)
+    static = make_dp_static_step(mesh, active_sh=SH_DEGREE, max_per_tile=cap)
+    flipped = dataclasses.replace(frames[1], image=torch.flip(frames[1].image, dims=(0,)))
+    sbatch = stack_frames([frames[0], flipped])
+    s0 = copy.deepcopy(state0)
+    ss, slosses = TrainState(gs=s0.gs, opt=s0.opt_gs, stats=s0.stats_gs), []
+    for _ in range(DP1_STEPS):
+        ss, loss = static(ss, sbatch, bg, DP1_STATIC_LR)
+        slosses.append(loss)
+    return st, [float(v) for v in losses], ms, launches, ss, [float(v) for v in slosses]
+
+
+def _dp1_loop_cfg(cfg, cap, schedule):
+    cfg = copy.deepcopy(cfg)
+    cfg.pipe.max_per_tile = cap
+    for k, v in schedule.items():
+        setattr(cfg.opt, k, v)
+    return cfg
+
+
+def _dp1_work():
+    """One rank's [dp1] work (both ranks run it alike; see dp1_phase)."""
+    import torch
+
+    from riggs_tpu_torch.ops import geometry as GEO
+    from riggs_tpu_torch.parallel.mesh import make_mesh
+    from riggs_tpu_torch.parallel.stage1_dp import train_stage1_dp
+    from riggs_tpu_torch.render import blend
+
+    cfg, state0, cap, frames, scene, bg = _dp1_inputs()
+    mesh = make_mesh(2, 1)
+    res = {"init_hash": _leaves_hash(_stage1_leaves(state0)), "cap": cap}
+    st, res["losses"], res["ms"], res["launches"], ss, res["static_losses"] = _dp1_steps(mesh, cfg, state0, frames,
+                                                                                         bg, cap)
+    leaves, sleaves = _stage1_leaves(st), _static_leaves(ss)
+    res["hash"], res["static_hash"] = _leaves_hash(leaves), _leaves_hash(sleaves)
+    res["finite"] = all(bool(torch.isfinite(v).all()) for v in leaves.values() if v.is_floating_point())
+    if mesh.rank == 0:  # dp1_world_one holds them to the same steps on one rank
+        res["leaves"] = {k: v.cpu() for k, v in leaves.items()}
+        res["static_leaves"] = {k: v.cpu() for k, v in sleaves.items()}
+    del st, ss
+    events, calls = [], []
+    torch.cuda.synchronize()
+    blend.reset_launches()
+    GEO.reset_launches()
+    t0 = time.perf_counter()
+    state, hist = train_stage1_dp(scene, _dp1_loop_cfg(cfg, cap, DP1_SCHEDULE), mesh, seed=0, log_every=4,
+                                  init=copy.deepcopy(state0), events=events,
+                                  step_callback=lambda s_, it: calls.append((it, time.perf_counter())),
+                                  device=DEVICE)
+    torch.cuda.synchronize()
+    res["loop_s"] = time.perf_counter() - t0
+    res["loop_launches"] = dict(blend.launches, **GEO.launches)
+    res["loop_events"], res["loop_history"] = events, hist
+    res["loop_its"] = [it for it, _ in calls]
+    d = np.diff([t for _, t in calls]) * 1e3
+    res["loop_ms"] = float(np.median(d))
+    leaves = _stage1_leaves(state)
+    res["loop_hash"] = _leaves_hash(leaves)
+    res["loop_finite"] = all(bool(torch.isfinite(v).all()) for v in leaves.values() if v.is_floating_point())
+    res["loop_nodes"], res["loop_alive"] = state.warp.node_num, int(state.gs.num_alive)
+    return res
+
+
+def _dp1_rank(rank, world, port, out_dir):
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=DP1_TIMEOUT))
+    try:
+        torch.save(_dp1_work(), Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp1_phase():
+    """[dp1]: two processes on the one card (gloo with CUDA tensors), each
+    building [stage1]'s initial state from the seeds (full width: the
+    avatar's 100000 alive of 131072 slots, 512 nodes, 800x800):
+    DP1_STEPS make_dp_stage1_step steps at 2 x 1 (B = 2, it = 5000, the
+    counters zeroed just before and read just after: the blend kernels and
+    estimate_rotations, one fit a frame) and as many make_dp_static_step
+    steps; train_stage1_dp at 2 x 1 for DP1_LOOP iterations with the
+    ladder, a node densify/prune, a Gaussian densification and an opacity
+    reset; every state hashed equal on both ranks. Two ranks on one card are
+    a correctness path: their times say nothing of two cards. Returns rank
+    0's results (the counted launches of its dp steps among them)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_dp1_rank, args=(2, _free_port(), out_dir), nprocs=2, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + DP1_TIMEOUT
+        while not ctx.join(timeout=2):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise RuntimeError(f"[dp1] the two ranks did not finish in {DP1_TIMEOUT} s")
+        wall = time.perf_counter() - t0
+        r0, r1 = (torch.load(Path(out_dir) / f"rank{r}.pt", weights_only=False) for r in range(2))
+    print(f"[dp1] two gloo ranks on one card, {wall:.1f} s (spawn, set-up and every case); a correctness path: "
+          "two ranks share one card, so no time here is a time on two cards")
+    for r, res in enumerate((r0, r1)):
+        lc = res["launches"]
+        if not res["finite"] or lc["estimate_rotations"] != DP1_STEPS or not lc["blend_cm"] or not lc["blend_cm_bwd"]:
+            raise RuntimeError(f"[dp1] rank {r}: finite {res['finite']}, launches of the dp steps {lc}")
+        print(f"[dp1] rank {r}: make_dp_stage1_step 2 x 1 (B = 2, it={STAGE1_ITS[-1]}), {DP1_STEPS} steps: losses "
+              f"{', '.join(f'{v:.6f}' for v in res['losses'])}; {res['ms']:.2f} ms a step; launches {lc}")
+    for key in ("init_hash", "hash", "static_hash", "loop_hash"):
+        if r0[key] != r1[key]:
+            raise RuntimeError(f"[dp1] {key}: the ranks' states differ")
+    ev = [(e["it"], e["event"]) for e in r0["loop_events"]]
+    kinds = {e for _, e in ev}
+    if not r0["loop_finite"] or not {"node densify/prune", "gs densify", "opacity reset", "ladder fit"} <= kinds \
+            or r0["loop_its"] != list(range(0, DP1_LOOP, 2)):
+        raise RuntimeError(f"[dp1] train_stage1_dp: finite {r0['loop_finite']}, events {ev}, steps {r0['loop_its']}")
+    llc = r0["loop_launches"]
+    if llc["estimate_rotations"] < DP1_LOOP // 2 or not llc["blend_permuted_gm"] or not llc["blend_permuted_gm_bwd"]:
+        raise RuntimeError(f"[dp1] train_stage1_dp's launches {llc}")
+    print(f"[dp1] make_dp_static_step 2 x 1, {DP1_STEPS} steps: losses "
+          f"{', '.join(f'{v:.6f}' for v in r0['static_losses'])}")
+    print(f"[dp1] train_stage1_dp 2 x 1 with the tile ladder, {DP1_LOOP} iterations: {r0['loop_s']:.1f} s, "
+          f"{r0['loop_ms']:.1f} ms a step of B = 2 (median); events {ev}; {r0['loop_nodes']} nodes, "
+          f"{r0['loop_alive']} alive; loss {', '.join(f'{it}: {m['loss']:.5f}' for _, it, m in r0['loop_history'])}; "
+          f"launches {llc}")
+    print("[dp1] the states hash equal on both ranks: the initial state, after the stage-1 and the static dp steps, "
+          "after the loop")
+    return r0
+
+
+def dp1_world_one(r0):
+    """[dp1], NCCL: a one-rank NCCL group in this process, a 1 x 1 mesh:
+    the same DP1_STEPS stage-1 and static dp steps of B = 2 on this one rank
+    from the same initial state (hashed equal to the ranks'), the two
+    ranks' states held to them (<= 1e-6 of each leaf's largest |value|,
+    expected bitwise) and the step times beside the two ranks'; then one
+    dp stage-1 step under the sync audit (no host read), and
+    DP1_SYNC_LOOP iterations of train_stage1_dp (B = 1, no event but the
+    ladder fit) under the sync counter: one read a step, the batch's
+    overflow, and the (B, T) tile counts of the steps the ladder policy
+    observes, by the reference's design, besides the frame sampler's
+    set-up (a frame's time, once). Returns the loop's reads."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from riggs_tpu_torch.parallel.mesh import make_mesh
+    from riggs_tpu_torch.parallel.stage1_dp import train_stage1_dp
+    from riggs_tpu_torch.train.sampling import FrameSampler
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120), device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh(1, 1)
+        cfg, state0, cap, frames, scene, bg = _dp1_inputs()
+        if _leaves_hash(_stage1_leaves(state0)) != r0["init_hash"]:
+            raise RuntimeError("[dp1] NCCL 1 x 1: the initial state differs from the ranks'")
+        st, losses, ms, _, ss, slosses = _dp1_steps(mesh, cfg, state0, frames, bg, cap)
+        res = {}
+        for name, got, want in (("stage-1", r0["leaves"], _stage1_leaves(st)),
+                                ("static", r0["static_leaves"], _static_leaves(ss))):
+            worst, same = _leaves_diff({k: v.to(DEVICE) for k, v in got.items()}, want)
+            res[name] = (worst, same)
+            if not worst <= 1e-6:
+                raise RuntimeError(f"[dp1] {name} dp steps 2 x 1 vs B = 2 on one rank: worst leaf {worst:.3e} > 1e-6")
+        print(f"[dp1] NCCL, one rank ({mesh.backend}, 1 x 1 mesh), the same initial state: the 2 x 1 states (two "
+              f"gloo ranks) vs {DP1_STEPS} steps of B = 2 on one rank: stage-1 worst leaf max|d| / max|leaf| "
+              f"{res['stage-1'][0]:.2e}, bitwise {res['stage-1'][1]}; static {res['static'][0]:.2e}, bitwise "
+              f"{res['static'][1]}; losses {', '.join(f'{v:.6f}' for v in losses)}; {ms:.2f} ms a step of B = 2 "
+              f"on one process vs {r0['ms']:.2f} on two ranks")
+        del st, ss
+        one = _dp1_steps_one(mesh, cfg, state0, frames, bg, cap)
+        sync_audit(f"make_dp_stage1_step (NCCL 1 x 1, B = 2, it={STAGE1_ITS[-1]})", one)
+        sync_cfg = _dp1_loop_cfg(cfg, cap, dict(iterations=DP1_SYNC_LOOP, warm_up=0,
+                                                node_force_densify_prune_step=10 ** 9, densify_from_iter=10 ** 9,
+                                                opacity_reset_interval=10 ** 9))
+        dp_scene = dataclasses.replace(scene, train_frames=frames[:1])
+        init = copy.deepcopy(state0)
+        sites, callers, dtoh, syncs, _ = count_syncs(
+            lambda: train_stage1_dp(dp_scene, sync_cfg, mesh, seed=0, init=init, device=DEVICE))
+        over = _site(train_stage1_dp, 'int(metrics["overflow_tiles"])')
+        counts = _site(train_stage1_dp, 'metrics["tile_counts"].cpu()')
+        setup = _site(FrameSampler.__init__, "float(f.fid)")
+        found = {k: (v, callers.get(k, "")) for k, v in sites.items()}
+        print(f"[sync] train_stage1_dp (NCCL 1 x 1, B = 1, {DP1_SYNC_LOOP} steps, no event but the ladder fit): "
+              f"{dtoh} device-to-host copies, {syncs} stream synchronizations, {found}")
+        # the sync debug mode's warnings count every read; the profiler's
+        # records corroborate them, though it may drop a copy's record
+        if set(sites) - {over, counts, setup} or sites.get(over) != DP1_SYNC_LOOP or sites.get(counts, 0) < 12 \
+                or sites.get(setup, 0) > len(dp_scene.train_frames) or syncs != sum(sites.values()) or dtoh > syncs:
+            raise RuntimeError(f"[sync] train_stage1_dp: reads {found}, {dtoh} copies, {syncs} syncs; expected one "
+                               f"a step at {over}, the observed tile counts at {counts} and the frame sampler's "
+                               f"set-up at {setup}")
+        return sites
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp1_steps_one(mesh, cfg, state0, frames, bg, cap):
+    """A function making one more make_dp_stage1_step step of B = 2 at
+    it = STAGE1_ITS[-1] from a copy of state0 (for the sync audit), called
+    once here."""
+    import torch
+
+    from riggs_tpu_torch.models import node_warp as NW
+    from riggs_tpu_torch.parallel.train import make_dp_stage1_step, stack_frames, stage1_flags
+    from riggs_tpu_torch.train.stage1 import phase_b_flags, stage1_lr_fns
+
+    it, o = STAGE1_ITS[-1], cfg.opt
+    step = make_dp_stage1_step(mesh, use_chamfer=True, use_motion_loss=True,
+                               lambda_chamfer=o.lambda_deformed_node_prjection, max_per_tile=cap)
+    batch = stack_frames(frames[:2])
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    gauss_lrs, warp_lrs = stage1_lr_fns(cfg)
+    fl = phase_b_flags(cfg, it)
+    flags = stage1_flags(warm=False, active_sh=min(it // o.oneupSHdegree_step, SH_DEGREE))
+
+    st = copy.deepcopy(state0)
+
+    def one():
+        nonlocal st
+        arap = torch.stack([NW.arap_sample_times(gen, device=DEVICE) for _ in range(2)])
+        st, _ = step(st, batch, bg, gauss_lrs(it), warp_lrs(it), arap, fl["lambda_arap"], fl["lambda_motion"],
+                     np.zeros(2, np.float32), flags)
+
+    one()  # warm-up
+    return one
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        """The phases' wall times: seconds since the previous lap."""
+        now = time.perf_counter()
+        laps[name], last[0] = now - last[0], now
+        print(f"[time] {name}: {laps[name]:.1f} s", flush=True)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from riggs_tpu_torch import cuda_build
     from riggs_tpu_torch.eval.synthesis import random_motion_poses, render_rigged
@@ -4314,10 +4845,13 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    cuda_build.build_all({blend.LIB_STEM: blend.CSRC, GEO.LIB_STEM: GEO.CSRC})
+    cuda_build.build_all({blend.LIB_STEM: blend.CSRC, GEO.LIB_STEM: GEO.CSRC,
+                          GEO.DEBUG_STEM: (GEO.CSRC, GEO.DEBUG_DEFINES)})
     blend.load_library()
     GEO.load_library()
-    print(f"[build] blend and rotation-fit kernels (sm_90a) built and loaded in {time.perf_counter() - t0:.1f} s")
+    GEO.load_library(debug=True)
+    print(f"[build] blend and rotation-fit kernels (sm_90a) and the rotation fit's sweep-counting debug build, "
+          f"built and loaded in {time.perf_counter() - t0:.1f} s")
     for line in (blend.build_log() + GEO.build_log()).splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build]   {line.strip()}")
@@ -4337,6 +4871,8 @@ def main() -> int:
           f"max tile count {int(counts.max())} -> window {cap}; ladder {ladder} "
           f"({ladder_rows(ladder)} rows vs {counts.shape[1] * cap}); {time.perf_counter() - t0:.1f} s")
 
+    lap("device, build, scene")
+
     # 3. kernels against plain versions on the scene's real windows
     with _Capture(blend) as cap_plain:
         frame(gs, skel, cam, bg, t=0.3, max_per_tile=cap)
@@ -4347,6 +4883,8 @@ def main() -> int:
     check_oracle(DEVICE)
     edges_phase(blend, DEVICE)
     off_fwd, off_bwd = offset_edges_phase(blend, cap_plain.calls["blend_cm"])
+
+    lap("kernels")
 
     # 4. the slice: the main path, launch counters zeroed just before
     torch.cuda.synchronize()
@@ -4430,55 +4968,94 @@ def main() -> int:
                lambda: eval_image(gs, skel, cam, 0.5, bg, max_per_tile=cap),
                expected={_site(eval_image, "int(of_t)"): 2})
 
+    lap("slice, sync")
+
     # 6. the training slice (its own counted run)
     train_launches, train_fwd, bres, frame_train = train_phase(blend, gs, skel, cam, bg, cap, ladder)
+
+    lap("train")
 
     # 7. the aligned-runs render path (its own counted run)
     runs_launches, runs_fwd, runs_bwd = runs_phase(blend, gs, skel, cam, bg, cap, frame_train.image)
 
+    lap("runs")
+
     # 8. the stage-1 phase-B step (its own counted run)
     stage1_launches, stage1_fwd, stage1_bwd, stage1_rot = stage1_phase(blend, gs, cam, bg, frame_train)
+
+    lap("stage1")
 
     # 9-10. the [loop] scene; the stage-1 phase-A step (its own counted run)
     scene, loop_cap = build_loop_scene(gs, skel)
     pa_launches, pa_fwd, pa_bwd, pa_rot = stage1_phase_a(blend, scene)
 
+    lap("loop scene, phase A")
+
     # 11. a short train_stage1 (its own counted run)
     loop_launches, loop_held, loop_rot, stage1_state, loop_b_ms = loop_phase(blend, scene, loop_cap)
 
+    lap("loop")
+
     # 12. init_stage2 and a short train_stage2 from the loop's state (its own counted run)
     pipe_launches, pipe_held, pipe_state, pipe_info, pipe_cfg = pipeline_phase(blend, scene, loop_cap, stage1_state)
+
+    lap("pipeline")
 
     # 13. save, reload and resume the rig; the test-set report (its own counted run)
     io_launches, io_held = io_phase(blend, scene, stage1_state, pipe_state, pipe_info, pipe_cfg)
     loop_warp = stage1_state.warp  # [hash]'s 512-node warp
     del stage1_state, pipe_state
 
+    lap("io")
+
     # 14. train_stage1 with the optical-flow loss (its own counted run)
     flow_launches, flow_held, flow_rot = flow_phase(blend, scene, loop_cap, gs, skel, loop_b_ms)
+
+    lap("flow")
 
     # 15. a ZJU-MoCap subject: the reader, the reference-point branch, the ZJU twin (its own counted run)
     zju_launches, zju_held, zju_rot = zju_phase(blend, gs, skel)
 
+    lap("zju")
+
     # 16. the CLI twins of the pipeline and of the stage-2 resume as processes of their own
     cli_phase()
+
+    lap("cli")
 
     # 17. the reference operating point's twin as a process of its own, then resumed
     refpoint_report, refpoint_launches = refpoint_phase()
 
+    lap("refpoint")
+
     # 18. the compact and sort2 binners on the serving avatar (their own counted run)
     binners_launches, binners_res = binners_phase(blend, gs, skel, cam, bg, cap, frame_train.image)
+
+    lap("binners")
 
     # 19-20. the static and MLP-deform trainers on the [loop] scene (their own counted runs)
     static_launches, static_held, static_times = static_phase(blend, scene, loop_cap)
     mlp_launches, mlp_held, mlp_times = mlpdeform_phase(blend, scene, loop_cap)
 
+    lap("static, mlpdeform")
+
     # 21. the hash deform and the ARAP loss with rotations, card against CPU (its own counted run)
     hash_launches, hash_rot = hash_phase(gs, loop_warp)
+
+    lap("hash")
 
     # 22. the tile-parallel path on two gloo ranks (its own counted run), then one NCCL rank
     ts_launches, ts_per_step, ts_res = tileshard_phase(cap)
     nccl_world_one(cap, ts_res.pop("dp21_leaves"))
+
+    lap("tileshard")
+
+    # 23. the frame-parallel stage-1 and static steps and train_stage1_dp on
+    # two gloo ranks (their own counted runs), then one NCCL rank
+    dp1 = dp1_phase()
+    dp1_launches = dp1["launches"]
+    dp1_world_one(dp1)
+    lap("dp1")
 
     def held(name, results=loop_held):
         """A loop's held steps of a kernel: error, times and bound."""
@@ -4569,24 +5146,43 @@ def main() -> int:
         "launches_per_step": r["launches_per_step"], "max_rel_column_err": r["rel"],
         "bound_term": r["bound_term"],
     })
-    # the rotation fit: no Pallas kernel (a stock SVD in riggs_tpu, C2a);
-    # times on the loop's last held phase-B step, launches of the loop
+    # the rotation fit: no Pallas kernel (stock ops and an SVD in riggs_tpu,
+    # C2a). The fused entry: times on the loop's last held phase-B step (a
+    # call's ms by CUDA events as every row, its device ms a launch back to
+    # back beside it), launches of the loop; the covariance entry: times on
+    # that step's covariances, launches of the loop (no caller on the port's
+    # paths: p2dR and the ARAP editor are A10), held on every recorded fit
+    # and on the planted ones
     r = loop_rot["phase B ladder it=39"]
     rot_runs = {"stage1": stage1_rot, "phase_a": pa_rot, **{f"loop {k}": v for k, v in loop_rot.items()},
                 "flow": flow_rot, **{f"zju {k}": v for k, v in zju_rot.items()}, "hash arap_loss_with_rot": hash_rot}
+    per_path = lambda name: {"launches_stage1": stage1_launches[name], "launches_phase_a": pa_launches[name],
+                             "launches_io": io_launches[name], "launches_flow": flow_launches[name],
+                             "launches_zju": zju_launches[name], "launches_hash": hash_launches[name],
+                             "launches_refpoint": refpoint_launches[name], "launches_dp1": dp1_launches[name]}
+    rows.append({
+        "name": "estimate_rotations", "route": "cuda", "source": "riggs_tpu_torch/csrc/rotfit.cu",
+        "replaces": "riggs_tpu/ops/arap.py:60",
+        "replaces_kind": "stock ops in riggs_tpu (gathers, einsum, jnp.linalg.svd), C2a",
+        "launches": loop_launches["estimate_rotations"], "max_abs_err": max(v["err"] for v in rot_runs.values()),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "device_ms": r["device_ms"], "floor_ms": r["floor_ms"],
+        "floor_device_ms": r["floor_device_ms"], "before_ms": r["before_ms"], "batch": r["batch"], "K": r["K"],
+        **per_path("estimate_rotations"),
+        "planted": stage1_rot["planted_edges"], "max_det_err": max(v["det_err"] for v in rot_runs.values()),
+        "sweeps": {k: v["sweeps"] for k, v in rot_runs.items()},
+        "held": {k: {key: v[key] for key in ("fits", "ill_posed", "err", "scaled_err", "ms", "device_ms",
+                                             "before_ms", "plain_ms", "library_ms", "bound_ms")}
+                 for k, v in rot_runs.items()},
+    })
     rows.append({
         "name": "fit_rotations", "route": "cuda", "source": "riggs_tpu_torch/csrc/rotfit.cu",
-        "replaces": "riggs_tpu/ops/geometry.py:41", "replaces_kind": "stock op in riggs_tpu (jnp.linalg.svd), C2a",
-        "launches": loop_launches["fit_rotations"], "max_abs_err": max(v["err"] for v in rot_runs.values()),
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": r["library_ms"], "batch": r["batch"], "launches_stage1": stage1_launches["fit_rotations"],
-        "launches_phase_a": pa_launches["fit_rotations"], "launches_io": io_launches["fit_rotations"],
-        "launches_flow": flow_launches["fit_rotations"], "launches_zju": zju_launches["fit_rotations"],
-        "launches_hash": hash_launches["fit_rotations"], "launches_refpoint": refpoint_launches["fit_rotations"],
-        "planted": stage1_rot["planted"],
-        "max_det_err": max(v["det_err"] for v in rot_runs.values()),
-        "held": {k: {key: v[key] for key in ("fits", "ill_posed", "err", "scaled_err", "ms", "plain_ms", "library_ms",
-                                             "bound_ms")} for k, v in rot_runs.items()},
+        "replaces": "riggs_tpu/ops/geometry.py:33", "replaces_kind": "stock op in riggs_tpu (jnp.linalg.svd), C2a",
+        "launches": loop_launches["fit_rotations"], "max_abs_err": max(v["cov_err"] for v in rot_runs.values()),
+        "ms": r["cov_ms"], "plain_ms": r["cov_plain_ms"], "bound_ms": r["cov_bound_ms"], "bound_by": "bytes",
+        "library_ms": r["cov_library_ms"], "device_ms": r["cov_device_ms"], "batch": r["batch"],
+        **per_path("fit_rotations"), "planted": stage1_rot["planted"],
+        "held": {k: v["cov_err"] for k, v in rot_runs.items()},
     })
     # the offset entry: times on the second shard of a 2-way split of the
     # serving frame's tiles ([edges]), launches of [tileshard]'s 1 x 2 steps
@@ -4600,6 +5196,8 @@ def main() -> int:
             "shard_tiles": OFFSET_SHARDS[-1][1], "shard_offset": OFFSET_SHARDS[-1][0],
             **({"max_rel_column_err": r["rel"]} if "rel" in r else {}),
         })
+    print(f"[time] every phase's wall seconds {json.dumps({k: round(v, 1) for k, v in laps.items()})}; "
+          f"{sum(laps.values()):.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

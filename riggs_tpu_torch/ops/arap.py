@@ -7,6 +7,13 @@ stretch energy ``arap_error`` and ``arap_deformation_loss`` (frame 0 of a
 trajectory against one other frame, with the rotation term). JAX's PRNG
 streams cannot be reproduced here, so that other frame ``fid`` is an
 argument, drawn by the caller.
+
+``estimate_rotations`` is one hand kernel on the card
+(``csrc/rotfit.cu``'s ``riggs_estimate_rotations``: a warp per node sums
+its weighted edge products and fits the rotation, no other launch), its
+plain version ``estimate_rotations_plain`` (``edge_matrix`` twice, an
+einsum, ``fit_rotations_plain``) on the CPU. The stretch terms stay
+differentiable stock ops; only the detached rotation is fused.
 """
 from __future__ import annotations
 
@@ -15,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from riggs_tpu_torch.device import constant
-from riggs_tpu_torch.ops.geometry import fit_rotations
+from riggs_tpu_torch.ops import geometry as GEO
 from riggs_tpu_torch.ops.knn import knn
 from riggs_tpu_torch.ops.quaternion import quat_to_rotmat
 
@@ -53,12 +60,61 @@ def edge_matrix(verts: torch.Tensor, conn: Connectivity) -> torch.Tensor:
     return torch.where(conn.valid[..., None], e, 0.0)
 
 
-def estimate_rotations(source: torch.Tensor, target: torch.Tensor, conn: Connectivity) -> torch.Tensor:
-    """Per-node best-fit rotation source -> target over its weighted edges."""
+# the fused kernel's largest neighbour count (csrc/rotfit.cu ROTFIT_MAX_K)
+MAX_K = 64
+
+
+def estimate_rotations_plain(source: torch.Tensor, target: torch.Tensor, conn: Connectivity) -> torch.Tensor:
+    """Plain version of ``estimate_rotations``: the weighted edge
+    covariance sum_k w (t_i - t_j)(s_i - s_j)^T from ``edge_matrix``, then
+    ``fit_rotations_plain``."""
     src = edge_matrix(source, conn)
     tgt = edge_matrix(target, conn)
     cov = torch.einsum("nka,nk,nkb->nab", tgt, conn.weight, src)
-    return fit_rotations(cov)
+    return GEO.fit_rotations_plain(cov)
+
+
+_DTYPES = (torch.float32, torch.float32, torch.int32, torch.float32, torch.bool)
+
+
+def estimate_rotations(source: torch.Tensor, target: torch.Tensor, conn: Connectivity) -> torch.Tensor:
+    """Per-node best-fit rotation source -> target over its weighted edges,
+    (N, 3, 3), with no gradient: the fused kernel on CUDA (one launch;
+    source and target (N, 3) float32, K <= MAX_K, every row's entries
+    contiguous, the rows at any stride), the plain version on the CPU."""
+    if source.device.type == "cpu":
+        return estimate_rotations_plain(source, target, conn).detach()
+    if source.device.type != "cuda":
+        raise ValueError(f"unsupported device {source.device}")
+    rot = torch.empty((conn.nn_idx.shape[0], 3, 3), dtype=torch.float32, device=source.device)
+    args = kernel_args(source, target, conn, rot)
+    if rot.shape[0]:
+        err = GEO.launch(GEO.load_library().riggs_estimate_rotations, source.device, *args)
+        if err != 0:
+            raise RuntimeError(f"estimate_rotations launch failed: CUDA error {err}")
+        GEO.launches["estimate_rotations"] += 1
+    return rot
+
+
+def kernel_args(source: torch.Tensor, target: torch.Tensor, conn: Connectivity, rot: torch.Tensor) -> tuple:
+    """``riggs_estimate_rotations``'s arguments but the stream, once the
+    inputs are checked: float32 (N, 3) points, an (N, K) int32 nn_idx,
+    float32 weight and bool valid, K <= MAX_K, all on ``rot``'s device and
+    each row's entries contiguous."""
+    idx, w, v = conn.nn_idx, conn.weight, conn.valid
+    n, K = idx.shape
+    if (source.dtype, target.dtype, idx.dtype, w.dtype, v.dtype) != _DTYPES \
+            or (source.shape, target.shape, w.shape, v.shape) != ((n, 3), (n, 3), (n, K), (n, K)):
+        raise ValueError("estimate_rotations takes float32 (N, 3) points and an (N, K) int32 nn_idx, float32 "
+                         "weight and bool valid")
+    if K > MAX_K:
+        raise ValueError(f"estimate_rotations takes at most {MAX_K} neighbours, got {K}")
+    dev = rot.device
+    if (source.device, target.device, idx.device, w.device, v.device) != (dev, dev, dev, dev, dev) \
+            or (source.stride(1), target.stride(1), idx.stride(1), w.stride(1), v.stride(1)) != (1, 1, 1, 1, 1):
+        raise ValueError("estimate_rotations: every tensor on one device, each row's entries contiguous")
+    return (source.data_ptr(), source.stride(0), target.data_ptr(), target.stride(0), idx.data_ptr(), idx.stride(0),
+            w.data_ptr(), w.stride(0), v.data_ptr(), v.stride(0), n, K, rot.data_ptr())
 
 
 def arap_error(nodes_sequence: torch.Tensor, conn: Connectivity) -> torch.Tensor:

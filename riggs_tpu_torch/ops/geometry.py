@@ -9,7 +9,10 @@ thread per 3x3 matrix, a Jacobi eigen-decomposition of cov^T cov in f64),
 because ``torch.linalg.svd`` there checks its convergence flags on the host,
 two blocking reads a call. On a CPU tensor it runs its plain version,
 ``fit_rotations_plain`` (the SVD); on a CUDA tensor it launches the kernel
-or raises. No backward: the ARAP losses detach the rotations.
+or raises. No backward: the ARAP losses detach the rotations. The same
+library holds the fused fit that ``ops/arap.py:estimate_rotations``
+launches (the covariance built from the edges in the same kernel); both
+wrappers count their launches in ``launches``.
 """
 from __future__ import annotations
 
@@ -25,11 +28,12 @@ LIB_STEM = "libriggs_rotfit"
 
 # launches of the kernel since the last reset_launches(); the wrapper adds
 # one where it launches it and nowhere else
-launches = {"fit_rotations": 0}
+launches = {"fit_rotations": 0, "estimate_rotations": 0}
 
 
 def reset_launches() -> None:
-    launches["fit_rotations"] = 0
+    for k in launches:
+        launches[k] = 0
 
 
 def point_segment_dist2(a: torch.Tensor, b: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
@@ -55,13 +59,39 @@ def fit_rotations_plain(cov: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ab,...b,...bc->...ac", u, d, vt)
 
 
+# the debug build (csrc/rotfit.cu): both kernels also write each fit's
+# Jacobi sweeps where riggs_rotfit_sweeps_to points; no wrapper loads it
+DEBUG_STEM, DEBUG_DEFINES = "libriggs_rotfit_sweeps", ("ROTFIT_COUNT_SWEEPS",)
+
+
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build ``csrc/rotfit.cu`` for sm_90a (once per source version) and load it."""
-    lib = cuda_build.load(CSRC, LIB_STEM)
-    lib.riggs_fit_rotations.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    lib.riggs_fit_rotations.restype = ctypes.c_int
+def load_library(debug: bool = False) -> ctypes.CDLL:
+    """Build ``csrc/rotfit.cu`` for sm_90a (once per source version) and
+    load it; with ``debug``, its sweep-counting build instead."""
+    lib = cuda_build.load(CSRC, DEBUG_STEM, DEBUG_DEFINES) if debug else cuda_build.load(CSRC, LIB_STEM)
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.riggs_fit_rotations.argtypes = [p, p, i32, p]
+    lib.riggs_fit_rotations.restype = i32
+    lib.riggs_estimate_rotations.argtypes = [p, i64, p, i64, p, i64, p, i64, p, i64, i32, i32, p, p]
+    lib.riggs_estimate_rotations.restype = i32
+    lib.riggs_rotfit_empty.argtypes = [p]
+    lib.riggs_rotfit_empty.restype = i32
+    if debug:
+        lib.riggs_rotfit_sweeps_to.argtypes = [p]
+        lib.riggs_rotfit_sweeps_to.restype = i32
     return lib
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` of the loaded library on ``device``'s current
+    stream, from that device's context; returns its CUDA error code. The
+    stream is read as its raw handle (``torch.cuda.current_stream`` builds a
+    Stream object a call, about as much host time as the launch itself)."""
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
+        with torch.cuda.device(device.index):
+            return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    return fn(*args, torch._C._cuda_getCurrentRawStream(current))
 
 
 def build_log() -> str:
@@ -81,14 +111,11 @@ def fit_rotations(cov: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {cov.device}")
     if cov.dtype != torch.float32 or cov.shape[-2:] != (3, 3):
         raise ValueError(f"cov must be float32 (..., 3, 3), got {cov.dtype} {tuple(cov.shape)}")
-    c = cov.detach().contiguous()
-    rot = torch.empty_like(c)
+    c = cov.contiguous()
+    rot = torch.empty(c.shape, dtype=torch.float32, device=c.device)
     n = c.numel() // 9
     if n:
-        lib = load_library()
-        with torch.cuda.device(c.device):
-            err = lib.riggs_fit_rotations(c.data_ptr(), rot.data_ptr(), n,
-                                          torch.cuda.current_stream(c.device).cuda_stream)
+        err = launch(load_library().riggs_fit_rotations, c.device, c.data_ptr(), rot.data_ptr(), n)
         if err != 0:
             raise RuntimeError(f"fit_rotations launch failed: CUDA error {err}")
         launches["fit_rotations"] += 1

@@ -2,8 +2,9 @@
 
 Port of ``riggs_tpu/train/stage1.py``:
 
-  * ``Stage1State``, ``init_stage1`` and ``stage1_lr_fns_f32`` (the float32
-    twin of ``stage1_lr_fns_jit``);
+  * ``Stage1State``, ``init_stage1``, ``stage1_lr_fns`` (the host float64
+    schedules of the frame-parallel loop) and ``stage1_lr_fns_f32`` (the
+    float32 twin of ``stage1_lr_fns_jit``);
   * phase A, the nodes trained as isotropic shared-scale SH-0 Gaussians:
     ``phase_a_step`` (photometric loss, the 2D-skeleton chamfer of the
     projected nodes, the elastic, acceleration and ARAP regularizers) and
@@ -115,6 +116,29 @@ def init_stage1(
         stats_node=G.init_densify_stats(node_cap, device=gs.device),
         it=torch.zeros((), dtype=torch.int32, device=gs.device),
     )
+
+
+def stage1_lr_fns(cfg: Config):
+    """(gauss_lrs(it), warp_lrs(it)): the learning rates of an iteration in
+    float64 on the host, as ``riggs_tpu``'s ``stage1_lr_fns`` (the
+    frame-parallel loop's) computes them; ``stage1_lr_fns_f32`` is the
+    auto steps' float32 twin. Only the warp's ``mlp`` group is
+    rescheduled."""
+    o = cfg.opt
+    deform_init = o.position_lr_init * 5.0 * o.deform_lr_scale
+    mlp_sched = S.expon_lr(deform_init, o.position_lr_final * o.deform_lr_scale,
+                           lr_delay_mult=o.position_lr_delay_mult, max_steps=o.deform_lr_max_steps)
+    gs_xyz = S.expon_lr(o.position_lr_init, o.position_lr_final, lr_delay_mult=o.position_lr_delay_mult,
+                        max_steps=o.position_lr_max_steps)
+
+    def gauss_lrs(it):
+        return {"xyz": gs_xyz(it), "f_dc": o.feature_lr, "f_rest": o.feature_lr / 20.0, "opacity": o.opacity_lr,
+                "scaling": o.scaling_lr, "rotation": o.rotation_lr, "feature": o.feature_lr}
+
+    def warp_lrs(it):
+        return {"mlp": mlp_sched(it), "nodes": deform_init, "radius": deform_init, "weight": deform_init}
+
+    return gauss_lrs, warp_lrs
 
 
 def stage1_lr_fns_f32(cfg: Config):
@@ -669,6 +693,11 @@ class Stage1Draws:
     def phase_b(self) -> torch.Tensor:
         """A phase-B step's ARAP sample times."""
         return NW.arap_sample_times(self.gen, device=self.device)
+
+    def phase_b_batch(self, n: int) -> torch.Tensor:
+        """A frame-parallel step's ARAP sample times, one row per frame of
+        its batch of ``n`` (n, t_samp_num)."""
+        return torch.stack([self.phase_b() for _ in range(n)])
 
     def split_noise(self, capacity: int) -> torch.Tensor:
         """A densification's split noise (2, capacity, 3)."""

@@ -288,7 +288,8 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'riggs_tpu', 'cv2')]\n"
         "assert not bad, bad\n"
         "assert 'riggs_tpu_torch.render.tiles' in sys.modules\n"
-        "for m in ('models.hash_encoding', 'models.simple_deform', 'ops.se3', 'train.mlp_deform', 'train.static'):\n"
+        "for m in ('models.hash_encoding', 'models.simple_deform', 'ops.se3', 'train.mlp_deform', 'train.static',\n"
+        "          'parallel.train', 'parallel.stage1_dp'):\n"
         "    assert 'riggs_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n"
     )
