@@ -208,6 +208,28 @@ Phases, each printed as it runs:
      steps of B = 2 on one rank, the 2 x 1 states held to them (1e-6 of a
      leaf's max), a dp step under the sync audit (no host read) and the
      loop's reads counted (one a step by design).
+  24. multihost: two processes on the card join through
+     parallel/multihost.py's init_distributed from torchrun's environment
+     (gloo: two ranks on one card) and build make_host_mesh (2 x 1); each
+     feeds MH_STEPS full-width dp stage-2 steps through host_local_frames +
+     global_batch and through the whole stack (shard_batch): states bitwise
+     equal both ways and on both ranks; the ranks save the state with the
+     sharded checkpoint pair and this process loads it, every leaf bitwise;
+     then scripts/torch_multihost_smoke.py (static and --stage2, two
+     processes each), scripts/torch_scaling_bench.py --ranks 2 and
+     scripts/torch_run_pipeline.py --synthetic --dp 2 (MH_CLI_SCHEDULE; its
+     files from rank 0 only, its rig reloaded) as processes of their own,
+     after the ranks (whose steps, save and load run alone on the card)
+     and side by side;
+  25. anim: from [stage1]'s initial state, warp_forward_animated with a
+     seeded drag of some nodes and the frame rendered with its d_xyz,
+     d_rotation and d_rotation_bias, the counters zeroed just before and
+     read just after: fit_rotations (p2dR's fit) launched and held to its
+     plain version; geodesic_floyd card against CPU (the same graph, its
+     closure bitwise, the whole call within a bound derived from the
+     edges' differences and the paths' hop counts); the frame finite, a
+     second call bitwise equal; then interpolate_key_poses driving
+     render_rigged between two seeded poses.
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without CUDA
 it exits 2 and prints no result. Imports nothing of JAX or riggs_tpu.
@@ -4815,6 +4837,539 @@ def _dp1_steps_one(mesh, cfg, state0, frames, bg, cap):
     return one
 
 
+
+# ---------------------------------------------------------------------------
+# [multihost]: the multi-process launch, the sharded checkpoints and the twins
+# ---------------------------------------------------------------------------
+
+MH_STEPS = 3  # dp stage-2 steps of B = 2, fed through global_batch and through shard_batch
+MH_TIMEOUT = 600
+MH_ITERS = 5  # the scaling twin's timed steps a size
+# the pipeline twin's --dp 2: CLI_SCHEDULE at half depth (every count and
+# interval halved, so every event still fires), to pay for the ranks
+# running alone before the twins; its test cadence even, since the
+# two-rank loop advances two iterations a step
+MH_CLI_SCHEDULE = {k: v // 2 for k, v in CLI_SCHEDULE.items()}
+MH_TEST_EVERY = 10
+
+
+def _multihost_rank(rank, world, port, cap, out_dir):
+    """One rank of [multihost]: torchrun's environment (two ranks on this
+    host), then init_distributed, which picks gloo for two ranks on one card
+    and makes the card current."""
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    import torch.distributed as dist
+
+    from riggs_tpu_torch.parallel.multihost import init_distributed
+
+    if not init_distributed():
+        raise RuntimeError("[multihost] init_distributed found no group in torchrun's environment")
+    try:
+        torch.save(_multihost_work(cap, out_dir), Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _multihost_work(cap, out_dir):
+    """One rank's [multihost] work: the host mesh; MH_STEPS full-width dp
+    stage-2 steps at 2 x 1 fed by host_local_frames + global_batch, and the
+    same fed by the whole stack (shard_batch); the first fed state saved
+    with the sharded pair."""
+    import torch
+    import torch.distributed as dist
+
+    from riggs_tpu_torch.io.checkpoint import save_checkpoint_sharded
+    from riggs_tpu_torch.parallel.mesh import shard_batch
+    from riggs_tpu_torch.parallel.multihost import global_batch, host_local_frames, make_host_mesh
+    from riggs_tpu_torch.parallel.train import make_dp_stage2_step, stack_frames, stage2_flags
+
+    res = {}
+    gs, skel, cam, bg, fr, pre_d_xyz, pre_d_joints, cfg, flags, lam = _tileshard_inputs(DEVICE)
+    mesh = make_host_mesh(tile=1)
+    res["mesh"] = (dict(mesh.shape), mesh.data, mesh.backend, torch.cuda.current_device())
+    frames = [dataclasses.replace(fr, cam=dataclasses.replace(fr.cam, fid=torch.tensor(t, device=DEVICE)))
+              for t in np.linspace(0.0, 1.0, N_FRAMES)]
+    step = make_dp_stage2_step(mesh, use_chamfer=True, lambda_chamfer=cfg.opt.lambda_deformed_node_prjection,
+                               max_per_tile=cap)
+    local, idx = host_local_frames(frames, batch=2, step=0, mesh=mesh)
+    whole = stack_frames([frames[i] for i in idx])
+    gb, sb = global_batch(stack_frames(local), mesh), shard_batch(whole, mesh)
+    res["global_is_shard"] = all(_same_bits(getattr(gb.tree, k), getattr(sb, k)) for k in ("image", "alpha_mask"))
+
+    def run(feed):
+        st = fresh_state(gs, skel, TRAIN_ITS[-1], DEVICE)
+        losses, picks = [], []
+        for s in range(MH_STEPS):
+            if s == 1:  # time the steps after the first
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            local, idx = host_local_frames(frames, batch=2, step=s, mesh=mesh)
+            batch = (global_batch(stack_frames(local), mesh) if feed == "global"
+                     else stack_frames([frames[i] for i in idx]))
+            st, m = step(st, batch, idx, bg, TILESHARD_LRS, 1e-4, pre_d_xyz[idx], pre_d_joints[idx],
+                         np.full(2, lam["lambda_template_offsets"], np.float32),
+                         np.full(2, lam["lambda_template_fixed"], np.float32), stage2_flags(**flags))
+            losses.append(float(m["loss"]))
+            picks.append(idx.tolist())
+        torch.cuda.synchronize()
+        return st, losses, picks, (time.perf_counter() - t0) / (MH_STEPS - 1) * 1e3
+
+    st, res["losses"], res["picks"], res["ms"] = run("global")
+    res["hash"], res["finite"] = _state_hash(st), _finite(st)
+    _, res["shard_losses"], _, res["shard_ms"] = st2 = run("shard")
+    res["shard_hash"] = _state_hash(st2[0])
+    del st2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res["save_bytes"] = save_checkpoint_sharded(Path(out_dir) / "mh", MH_STEPS, st, mesh=mesh)
+    res["save_s"] = time.perf_counter() - t0
+    res["rank"] = dist.get_rank()
+    return res
+
+
+def _start(cmds):
+    """Start the commands (one process each, each in a session of its own,
+    so that _kill reaches the ranks they spawn) from the repository's root."""
+    root = Path(__file__).resolve().parent
+    return [subprocess.Popen(c, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                             start_new_session=True) for c in cmds]
+
+
+def _kill(procs):
+    """Kill started processes and everything they spawned."""
+    import os
+    import signal
+
+    for p in procs:
+        if p.poll() is None:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+
+
+def _finish(procs, timeout):
+    """Wait for started processes; their (exit code, stdout, stderr). What
+    is still running at ``timeout`` is killed."""
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        _kill(procs)
+    return [(p.returncode, o, e) for p, (o, e) in zip(procs, outs)]
+
+
+def _twin_commands(out_dir):
+    """[multihost]'s twins: scripts/torch_run_pipeline.py --synthetic --dp 2
+    at MH_CLI_SCHEDULE, scripts/torch_multihost_smoke.py static and --stage2
+    (two processes each, the reference's flags), and
+    scripts/torch_scaling_bench.py --ranks 2, in that order."""
+    root, py = Path(__file__).resolve().parent, sys.executable
+    pipe = [py, str(root / "scripts" / "torch_run_pipeline.py"), "--synthetic", "--model_path", str(out_dir),
+            "--test_every", str(MH_TEST_EVERY), "--dp", "2"]
+    for k, v in MH_CLI_SCHEDULE.items():
+        pipe += [f"--{k}", str(v)]
+    smokes = []
+    for mode in ("static", "--stage2"):
+        port = _free_port()
+        smokes += [[py, str(root / "scripts" / "torch_multihost_smoke.py"), "--process_id", str(r), "--coordinator",
+                    f"127.0.0.1:{port}"] + ([mode] if mode != "static" else []) for r in range(2)]
+    scaling = [py, str(root / "scripts" / "torch_scaling_bench.py"), "--ranks", "2", "--iters", str(MH_ITERS)]
+    return [pipe] + smokes + [scaling]
+
+
+def check_twins(runs, out_dir):
+    """The twins' outcomes (_twin_commands' order): the smokes print the
+    reference's line from process 0 only; the pipeline writes exactly a
+    one-process run's files, from rank 0, prints each line once, and its
+    rig reloads as scripts/torch_render_rig.py loads it; the scaling twin
+    prints a line for data = 1 and 2."""
+    import importlib.util
+
+    from riggs_tpu_torch.data.synthetic import make_scene_data
+    from riggs_tpu_torch.train.config import Config
+
+    (rc, out, err), smokes, (src, sout, serr) = runs[0], runs[1:5], runs[5]
+    for mode, ((rc0, o0, e0), (rc1, o1, e1)) in zip(("static", "--stage2"), (smokes[:2], smokes[2:])):
+        line = [l for l in o0.splitlines() if l.startswith("MULTIHOST OK")]
+        if rc0 or rc1 or not line or not line[0].endswith("procs=2") or o1.strip():
+            raise RuntimeError(f"[multihost] torch_multihost_smoke.py {mode}: exits {rc0} {rc1}\n{o0[-2000:]}\n"
+                               f"{e0[-3000:]}\n{o1[-1000:]}\n{e1[-3000:]}")
+        print(f"[multihost] torch_multihost_smoke.py {mode}, two processes on the card: {line[0]}")
+    if rc:
+        raise RuntimeError(f"[multihost] torch_run_pipeline.py --dp 2 failed:\n{out[-3000:]}\n{err[-3000:]}")
+    n = MH_CLI_SCHEDULE["iterations"]
+    want = sorted(["cfg.json", "skeleton_tree.npz", "skeleton.obj", "numerical_res.txt",
+                   f"checkpoints/iteration_{n}/state.npz", f"point_cloud/iteration_{n}/point_cloud.ply",
+                   f"rig/checkpoints/iteration_{MH_TEST_EVERY}/state.npz", f"rig/checkpoints/iteration_{n}/state.npz",
+                   f"rig/point_cloud/iteration_{MH_TEST_EVERY}/point_cloud.ply",
+                   f"rig/point_cloud/iteration_{n}/point_cloud.ply", "rig/cfg.json"])
+    files = sorted(p.relative_to(out_dir).as_posix() for p in out_dir.rglob("*") if p.is_file())
+    once = all(out.count(s) == 1 for s in ("scene:", "stage 1 done", "stage 2 done", "test metrics:"))
+    if files != want or not once:
+        raise RuntimeError(f"[multihost] torch_run_pipeline.py --dp 2 wrote {files} (want {want}); "
+                           f"each line once from rank 0: {once}\n{out[-2000:]}")
+    root = Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location("torch_render_rig", root / "scripts" / "torch_render_rig.py")
+    rr = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rr)
+    cfg = Config.load(out_dir / "cfg.json")
+    _, scene = make_scene_data(n_train=16, n_test=4, width=128, height=128, device=DEVICE)
+    state, it = rr.load_rig(out_dir, cfg, scene, DEVICE)
+    if it != n:
+        raise RuntimeError(f"[multihost] the --dp 2 rig reloaded at iteration {it}, not {n}")
+    tail = [l for l in out.splitlines() if l.strip()][-2:]
+    print(f"[multihost] torch_run_pipeline.py --synthetic --dp 2 (two gloo ranks on the card, MH_CLI_SCHEDULE): exactly "
+          f"the files of a one-process run, from rank 0; each line printed once; rig/ reloaded at iteration {it} "
+          f"({int(state.gs.num_alive)} Gaussians, J = {state.skel.net.n_joints}); {tail}")
+    lines = [l for l in sout.splitlines() if l.startswith("data=")]
+    if src or len(lines) != 2:
+        raise RuntimeError(f"[multihost] torch_scaling_bench.py exit {src}:\n{sout[-2000:]}\n{serr[-3000:]}")
+    print(f"[multihost] torch_scaling_bench.py --ranks 2 --iters {MH_ITERS} (two ranks share one card over gloo, "
+          f"beside the other twins: no time here is one of two cards): {' | '.join(lines)}")
+
+
+def multihost_phase(cap, gs, skel):
+    """[multihost]: two processes on the card join through init_distributed
+    from torchrun's environment (gloo: two ranks on one card) and build
+    make_host_mesh (2 x 1); each feeds MH_STEPS full-width dp stage-2 steps
+    (the serving avatar and [tileshard]'s frames, it = 15001) through
+    host_local_frames + global_batch, and again through the whole stack
+    (shard_batch): the states bitwise equal both ways, and hashed equal on
+    both ranks; the ranks save the state with the sharded pair, and this
+    process loads it onto a fresh template, every leaf bitwise (bytes and
+    seconds of both). The ranks' steps, the save and the load run alone on
+    the card; then the twins run as processes of their own, side by side
+    (_twin_commands, check_twins). Returns the phase's numbers."""
+    import tempfile
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ranks_part = _multihost_ranks(cap, gs, skel)
+    with tempfile.TemporaryDirectory() as twin_dir:
+        t_twins = time.perf_counter()
+        runs = _finish(_start(_twin_commands(Path(twin_dir) / "run")), MH_TIMEOUT)
+        twins_wall = time.perf_counter() - t_twins
+        check_twins(runs, Path(twin_dir) / "run")
+    print(f"[multihost] the twins, after the ranks, side by side: {twins_wall:.1f} s to the last one's end")
+    return dict(ranks_part, twins_wall_s=twins_wall)
+
+
+def _multihost_ranks(cap, gs, skel):
+    """[multihost]'s two ranks (see multihost_phase) and the reload of
+    their checkpoint here; returns its numbers."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from riggs_tpu_torch.io.checkpoint import load_checkpoint_sharded
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_multihost_rank, args=(2, _free_port(), cap, out_dir), nprocs=2, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + MH_TIMEOUT
+        while not ctx.join(timeout=2):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise RuntimeError(f"[multihost] the two ranks did not finish in {MH_TIMEOUT} s")
+        wall = time.perf_counter() - t0
+        r0, r1 = (torch.load(Path(out_dir) / f"rank{r}.pt", weights_only=False) for r in range(2))
+        files = sorted(Path(out_dir, "mh").rglob("*.*"))
+        disk = sum(p.stat().st_size for p in files)
+        template = fresh_state(gs, skel, 0, DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back, it = load_checkpoint_sharded(Path(out_dir) / "mh", template)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        loaded = _state_hash(back)
+        del back, template
+    print(f"[multihost] two ranks through init_distributed (torchrun's environment) on one card, {wall:.1f} s "
+          f"(spawn, set-up and every case): mesh {r0['mesh'][0]}, backend {r0['mesh'][2]}, card {r0['mesh'][3]}")
+    for r, res in enumerate((r0, r1)):
+        if not res["finite"] or not res["global_is_shard"] or res["hash"] != res["shard_hash"] \
+                or res["losses"] != res["shard_losses"] or res["mesh"][:3] != ({"data": 2, "tile": 1}, r, "gloo"):
+            raise RuntimeError(f"[multihost] rank {r}: finite {res['finite']}, global_batch == shard_batch "
+                               f"{res['global_is_shard']}, hashes {res['hash'][:12]} / {res['shard_hash'][:12]}, "
+                               f"losses {res['losses']} / {res['shard_losses']}, mesh {res['mesh']}")
+    if r0["hash"] != r1["hash"] or r0["picks"] != r1["picks"]:
+        raise RuntimeError("[multihost] the ranks' states or frame picks differ")
+    if it != MH_STEPS or loaded != r0["hash"]:
+        raise RuntimeError(f"[multihost] the sharded checkpoint loaded at iteration {it}, hash {loaded[:12]} vs "
+                           f"{r0['hash'][:12]}")
+    print(f"[multihost] make_dp_stage2_step 2 x 1, {MH_STEPS} steps at it={TRAIN_ITS[-1]} fed by host_local_frames + "
+          f"global_batch (picks {r0['picks']}): losses {', '.join(f'{v:.6f}' for v in r0['losses'])}, the same bits "
+          f"as the steps fed by shard_batch of the whole stack, states bitwise equal both ways and on both ranks; "
+          f"{r0['ms']:.2f} / {r0['shard_ms']:.2f} ms a step after the first (global_batch / shard_batch; the ranks "
+          f"alone on the card)")
+    print(f"[multihost] the sharded checkpoint: {len(files)} files, {disk} bytes (rank 0 wrote {r0['save_bytes']}, "
+          f"rank 1 {r1['save_bytes']}); saved in {r0['save_s']:.3f} / {r1['save_s']:.3f} s (ranks 0 / 1); loaded "
+          f"onto a fresh template in one process in {load_s:.3f} s, every leaf bitwise")
+    return dict(ms=r0["ms"], shard_ms=r0["shard_ms"], save_s=max(r0["save_s"], r1["save_s"]), load_s=load_s,
+                bytes=disk, ranks_wall_s=wall)
+
+
+# ---------------------------------------------------------------------------
+# [anim]: the stage-1 animation path
+# ---------------------------------------------------------------------------
+
+ANIM_T = 0.4  # the animated frame's time
+ANIM_DRAG = 24  # nodes dragged
+ANIM_DRAG_SCALE = 0.05  # their seeded displacement's scale
+ANIM_KEY_POSES = (2, 6)  # random_motion_poses' two key poses
+ANIM_FRAMES = 4  # interpolate_key_poses' frames a segment
+GEO_D2_ULPS = 16  # the KNN's squared distances card vs CPU: this many ulps (2^-24) of the largest |x|^2
+
+
+class _CovCapture:
+    """Record the covariances node_warp.p2dR hands to fit_rotations."""
+
+    def __init__(self):
+        from riggs_tpu_torch.models import node_warp
+
+        self.nw, self.covs = node_warp, []
+
+    def __enter__(self):
+        self.orig = self.nw.fit_rotations
+
+        def rec(cov):
+            self.covs.append(cov.detach().clone())
+            return self.orig(cov)
+
+        self.nw.fit_rotations = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.nw.fit_rotations = self.orig
+
+
+def check_cov_fits(covs, tag):
+    """The covariance entry (fit_rotations) against fit_rotations_plain on
+    recorded covariances, as check_rotfit holds it on a step's: finite, a
+    second launch bitwise equal, max |d R| <= ROTFIT_TOL on the well-posed
+    fits (conditioning from a float64 SVD), |det R - 1| <= ROTFIT_TOL on
+    every fit, the ill-posed counted; on the last, by CUDA events, a
+    call's ms, its device ms a launch back to back, the plain version's,
+    torch.linalg.svd's, and the bound."""
+    import torch
+
+    from riggs_tpu_torch.ops import geometry as GEO
+
+    err = det_err = 0.0
+    n_fits = ill = 0
+    for cov in covs:
+        C, C2, P = GEO.fit_rotations(cov), GEO.fit_rotations(cov), GEO.fit_rotations_plain(cov)
+        if not bool(torch.isfinite(C).all()) or not _same_bits(C, C2):
+            raise RuntimeError(f"{tag} fit_rotations {tuple(cov.shape)}: non-finite, or two launches differ")
+        well = _conditioning(cov.double()) >= ILL_POSED
+        if bool(well.any()):
+            err = max(err, float((C - P).abs().amax(dim=(-2, -1))[well].max()))
+        det_err = max(det_err, float((torch.linalg.det(C.double()) - 1.0).abs().max()))
+        n_fits += cov.shape[0]
+        ill += int((~well).sum())
+    if not (err <= ROTFIT_TOL and det_err <= ROTFIT_TOL):
+        raise RuntimeError(f"{tag} fit_rotations: max |d R| {err:.3e} on well-posed fits, max |det R - 1| "
+                           f"{det_err:.3e}; the limit is {ROTFIT_TOL}")
+    cov = covs[-1]
+    fit = lambda: GEO.fit_rotations(cov)
+    fit()
+    torch.cuda.synchronize()
+    p1 = _event_ms(lambda: GEO.fit_rotations_plain(cov), 5)
+    k1, k2 = _event_ms(fit, 50), _event_ms(fit, 50)
+    p2 = _event_ms(lambda: GEO.fit_rotations_plain(cov), 5)
+    library = _event_ms(lambda: torch.linalg.svd(cov), 5)
+    dev_ms = _held_ms(fit)
+    bound = _bound(cov.shape[0] * ROTFIT_COV_BYTES, 0, 0)
+    print(f"{tag} fit_rotations: {len(covs)} call(s), {n_fits} fits, {ill} ill-posed (conditioning < {ILL_POSED}); "
+          f"max |d R| {err:.3e} on the well-posed, max |det R - 1| {det_err:.3e}; a second launch bitwise equal; "
+          f"on {cov.shape[0]} covariances: a call {k1:.4f}/{k2:.4f} ms, device {dev_ms:.5f} ms a launch back to "
+          f"back, plain {p1:.3f}/{p2:.3f} ms, torch.linalg.svd {library:.3f} ms; bound {bound['bound_ms']:.2e} ms "
+          f"by {bound['bound_by']}")
+    return dict(err=err, det_err=det_err, fits=n_fits, ill_posed=ill, ms=(k1 + k2) / 2, device_ms=dev_ms,
+                plain_ms=(p1 + p2) / 2, library_ms=library, batch=cov.shape[0], **bound)
+
+
+def _path_hops(mat):
+    """The largest hop count, off the diagonal, of the paths that the
+    min-plus relaxations of the graph ``mat`` (N, N) keep, relaxed as
+    min_plus_closure relaxes it (an edge is one hop)."""
+    m, h = mat.clone(), mat.isfinite().to(mat.dtype)
+    for i in range(m.shape[0]):
+        cand = m[:, i, None] + m[None, i, :]
+        better = cand < m
+        m = m.where(~better, cand)
+        h = h.where(~better, h[:, i, None] + h[None, i, :])
+    return int(h.fill_diagonal_(0).max())
+
+
+def _geodesic_limit(g_card, g_cpu, geo_cpu):
+    """The bound on |geodesic_floyd card - CPU| off the diagonal, for two
+    graphs with the same edges (N, N; both on the CPU): a shortest path of
+    H hops in one graph is a path of the other whose length differs by at
+    most H times the largest edge difference, and each of the two f32 sums
+    of H edges rounds by at most H ulps (2^-24) of the largest finite
+    distance, so |d| <= H (max |d edge| + 2^-23 max geo). H is the larger
+    of the two graphs' largest hop counts. Returns (bound, H, max |d edge|)."""
+    import torch
+
+    off = g_cpu.isfinite() & ~torch.eye(g_cpu.shape[0], dtype=torch.bool)
+    edge_err = float((g_card - g_cpu)[off].abs().max())
+    hops = max(_path_hops(g.to(DEVICE)) for g in (g_card, g_cpu))  # exact: the same on any device
+    far = float(geo_cpu[geo_cpu.isfinite()].max())
+    return hops * (edge_err + 2.0 ** -23 * far), hops, edge_err
+
+
+def anim_phase(blend, gs, skel, cam, bg, frame_train):
+    """[anim]: from [stage1]'s initial state (stage1_setup: the avatar's
+    100000 alive of 131072 slots, 512 nodes, 800x800), warp_forward_animated
+    at t = ANIM_T with a seeded drag of ANIM_DRAG nodes, and the frame
+    rendered with its d_xyz, d_rotation and d_rotation_bias, the launch
+    counters zeroed just before and read just after: fit_rotations
+    launched (p2dR's fit) and each launch held to fit_rotations_plain
+    (check_cov_fits); geodesic_floyd on the card against the port on the
+    CPU for the same posed nodes (no edge in one graph only; the shared
+    squared edges within the KNN expansion's rounding, GEO_D2_ULPS, and the
+    self distances within its square root; the min-plus closure of the
+    same graph bitwise; the whole call's same inf pattern and its
+    off-diagonal differences within _geodesic_limit); the frame
+    finite; a second call bitwise equal; the animated frame's ms and
+    geodesic_floyd's. Then interpolate_key_poses between two seeded poses
+    of the 24-joint avatar drives render_rigged for ANIM_FRAMES frames, the
+    first within PATH_TOL of the first key pose's own frame."""
+    import torch
+
+    from riggs_tpu_torch.eval.synthesis import random_motion_poses, render_rigged
+    from riggs_tpu_torch.models import node_warp as NW
+    from riggs_tpu_torch.ops import arap as A
+    from riggs_tpu_torch.ops import geometry as GEO
+    from riggs_tpu_torch.render.api import render, tier_kwargs
+    from riggs_tpu_torch.skeleton.interpolation import interpolate_key_poses
+
+    t0 = time.perf_counter()
+    cfg, state0, _, _, _ = stage1_setup(gs, bg, frame_train)
+    warp, g = state0.warp, state0.gs
+    tiers = tier_kwargs((cfg.pipe.max_tiles_per_gaussian, cfg.pipe.mid_cap, cfg.pipe.mid_side))
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    bias = torch.zeros((warp.node_num, 3), device=DEVICE)
+    drag = torch.randperm(warp.node_num, generator=gen, device=DEVICE)[:ANIM_DRAG]
+    bias[drag] = ANIM_DRAG_SCALE * torch.randn((ANIM_DRAG, 3), generator=gen, device=DEVICE)
+    t = torch.tensor(ANIM_T, device=DEVICE)
+
+    def animated(window):
+        with torch.no_grad():
+            out = NW.warp_forward_animated(warp, g.xyz, t, g.feature, g.motion_mask, bias)
+            img = render(cam, g, bg, d_xyz=out["d_xyz"], d_rotation=out["d_rotation"],
+                         d_rotation_bias=out["d_rotation_bias"], active_sh_degree=g.max_sh_degree,
+                         max_per_tile=window, **tiers)
+        return out, img
+
+    _, probe = animated(8192)
+    window = int(-(-int(probe["tile_counts"].max()) // 128) * 128)
+    torch.cuda.synchronize()
+    print(f"[anim] set-up {time.perf_counter() - t0:.1f} s: [stage1]'s initial state ({int(g.num_alive)} of "
+          f"{g.capacity} slots, {warp.node_num} nodes), {ANIM_DRAG} nodes dragged by N(0, {ANIM_DRAG_SCALE}^2), "
+          f"t = {ANIM_T}; window {window}")
+
+    # the main path, counters zeroed just before and read just after
+    torch.cuda.synchronize()
+    blend.reset_launches()
+    GEO.reset_launches()
+    with _CovCapture() as cap:
+        out, img = animated(window)
+        torch.cuda.synchronize()
+    launches = {**{k: v for k, v in blend.launches.items() if v}, **dict(GEO.launches)}
+    print(f"[anim] launch counters over warp_forward_animated + render: {launches}")
+    if GEO.launches["fit_rotations"] < 1 or not blend.launches["blend_cm"]:
+        raise RuntimeError(f"[anim] the path did not launch fit_rotations and blend_cm: {launches}")
+    _check_frame(img, SIZE, "[anim] the animated frame")
+    for k in ("d_xyz", "d_rotation_bias", "d_nodes"):
+        if not bool(torch.isfinite(out[k]).all()):
+            raise RuntimeError(f"[anim] warp_forward_animated's {k} is not finite")
+    out2, img2 = animated(window)
+    same = {k: _same_bits(out[k], out2[k]) for k in ("d_xyz", "d_rotation_bias")}
+    same["render"] = _same_bits(img["render"], img2["render"])
+    if not all(same.values()):
+        raise RuntimeError(f"[anim] a second call differs: {same}")
+    rot = check_cov_fits(cap.covs, "[anim]")
+    del out2, img2
+
+    # geodesic_floyd on the card against the port on the CPU, on the same posed
+    # nodes: the same edges; the shared squared edges within the KNN expansion's
+    # rounding (|x|^2 - 2 x.y + |y|^2: GEO_D2_ULPS ulps of the largest |x|^2;
+    # the self edges are that rounding's square root); the min-plus closure of
+    # one graph bitwise; the whole call within _geodesic_limit
+    with torch.no_grad():
+        cur = (warp.nodes[:, :3] + NW.node_deform(warp, t)["d_xyz"]).detach()
+    geo, geo_cpu = A.geodesic_floyd(cur, K=3).cpu(), A.geodesic_floyd(cur.cpu(), K=3)
+    graph, graph_cpu = A.knn_graph(cur, K=3), A.knn_graph(cur.cpu(), K=3)
+    closure_same = torch.equal(A.min_plus_closure(graph).cpu(), A.min_plus_closure(graph.cpu()))
+    g_card = graph.cpu()
+    fin = torch.isfinite(graph_cpu) & torch.isfinite(g_card)
+    edges_differ = int((torch.isfinite(graph_cpu) != torch.isfinite(g_card)).sum())
+    same_pattern = torch.equal(torch.isfinite(geo), torch.isfinite(geo_cpu))
+    d2_bound = GEO_D2_ULPS * 2.0 ** -24 * float((cur * cur).sum(-1).max())
+    d2_err = float((g_card[fin] ** 2 - graph_cpu[fin] ** 2).abs().max())
+    off = torch.isfinite(geo_cpu) & ~torch.eye(cur.shape[0], dtype=torch.bool)
+    geo_err = float((geo - geo_cpu)[off].abs().max())
+    self_max = float(torch.diagonal(geo_cpu).abs().max().clamp_min(torch.diagonal(geo).abs().max()))
+    geo_bitwise = torch.equal(geo, geo_cpu)
+    geo_limit, hops, edge_err = _geodesic_limit(g_card, graph_cpu, geo_cpu)
+    if not (edges_differ == 0 and d2_err <= d2_bound and self_max <= d2_bound ** 0.5 and closure_same
+            and same_pattern and geo_err <= geo_limit):
+        raise RuntimeError(f"[anim] geodesic_floyd card vs CPU: {edges_differ} edges in one graph only, max |d edge^2| "
+                           f"{d2_err:.3e} (bound {d2_bound:.3e}), self distances {self_max:.3e} (bound "
+                           f"{d2_bound ** 0.5:.3e}), closure of the same graph bitwise {closure_same}, the same inf "
+                           f"pattern {same_pattern}, max |d| {geo_err:.3e} (bound {geo_limit:.3e})")
+    geo_ms = _event_ms(lambda: A.geodesic_floyd(cur, K=3), 3)
+    closure_ms = _event_ms(lambda: A.min_plus_closure(graph), 3)
+    frame_ms = _host_ms(lambda: animated(window), 5)
+    warp_ms = _host_ms(lambda: NW.warp_forward(warp, g.xyz, t, g.feature, g.motion_mask), 5)
+    print(f"[anim] geodesic_floyd on the {cur.shape[0]} posed nodes (K + 1 = 4): the min-plus closure of the same "
+          f"graph bitwise equal on the card and the CPU; the graphs: {edges_differ} edges in one only, max |d edge^2| "
+          f"{d2_err:.2e} on the shared (the expansion's rounding bound {d2_bound:.2e}), max |d edge| {edge_err:.2e}; "
+          f"the whole call card vs CPU: the same inf pattern, bitwise {geo_bitwise}, max |d| {geo_err:.2e} off the "
+          f"diagonal (bound {geo_limit:.2e}: shortest paths of up to {hops} hops), the self distances (sqrt of the "
+          f"rounding) up to {self_max:.2e} (bound {d2_bound ** 0.5:.2e}); "
+          f"{int((~torch.isfinite(geo_cpu)).sum())} inf entries; {geo_ms:.3f} ms a call "
+          f"({closure_ms:.3f} ms the {cur.shape[0]} relaxations) by CUDA events")
+    print(f"[anim] the animated frame (warp_forward_animated + render, {SIZE}x{SIZE}): {frame_ms:.2f} ms by the host "
+          f"clock around synchronized calls (warp_forward alone {warp_ms:.2f} ms); finite, no overflow; a second "
+          f"call bitwise equal {same}")
+
+    # key poses: interpolate_key_poses drives render_rigged
+    poses = random_motion_poses(len(PARENTS), seed=0, pose_num=8)
+    rots = torch.tensor(np.stack([poses[i]["local_rotation"] for i in ANIM_KEY_POSES]), device=DEVICE)
+    trans = torch.tensor(np.stack([poses[i]["global_trans"] for i in ANIM_KEY_POSES]), device=DEVICE)
+    qs, ts = interpolate_key_poses(rots, trans, frames_per_segment=ANIM_FRAMES)
+    frames = [render_rigged(gs, skel, cam, pose={"local_rotation": q, "global_trans": tr}, bg=bg, max_per_tile=8192)
+              for q, tr in zip(qs, ts)]
+    for i, f in enumerate(frames):
+        _check_frame(f, SIZE, f"[anim] key-pose frame {i}")
+    key = render_rigged(gs, skel, cam, pose={"local_rotation": rots[0], "global_trans": trans[0]}, bg=bg,
+                        max_per_tile=8192)
+    first = float((frames[0]["render"] - key["render"]).abs().max())
+    if not first <= PATH_TOL["image"]:
+        raise RuntimeError(f"[anim] the first interpolated frame vs key pose {ANIM_KEY_POSES[0]}: {first:.3e}")
+    step = float(max((a["render"] - b["render"]).abs().max() for a, b in zip(frames, frames[1:])))
+    print(f"[anim] interpolate_key_poses between random-motion poses {ANIM_KEY_POSES} ({len(PARENTS)} joints): "
+          f"{len(frames)} render_rigged frames, finite, no overflow; the first vs the key pose's own frame "
+          f"{first:.2e}; max |d| between neighbours {step:.3f}")
+    return dict(launches=launches, rot=rot, frame_ms=frame_ms, warp_ms=warp_ms, geo_ms=geo_ms,
+                closure_ms=closure_ms, geo_err=geo_err, geo_limit=geo_limit, d2_err=d2_err, geo_bitwise=geo_bitwise,
+                same=same)
+
+
 def main() -> int:
     import torch
 
@@ -5057,6 +5612,17 @@ def main() -> int:
     dp1_world_one(dp1)
     lap("dp1")
 
+    # 24. the multi-process launch, the sharded checkpoints and the twins of
+    # scaling_bench.py and multihost_smoke.py, and the pipeline twin's --dp
+    mh = multihost_phase(cap, gs, skel)
+
+    lap("multihost")
+
+    # 25. the stage-1 animation path (its own counted run): p2dR's rotation fit on the card
+    anim = anim_phase(blend, gs, skel, cam, bg, frame_train)
+
+    lap("anim")
+
     def held(name, results=loop_held):
         """A loop's held steps of a kernel: error, times and bound."""
         return {label: {"max_abs_err": max(r["err"].values()) if isinstance(r["err"], dict) else r["err"],
@@ -5098,6 +5664,7 @@ def main() -> int:
             "launches_zju": zju_launches[name], "held_zju": held(name, zju_held),
             "launches_refpoint": refpoint_launches[name],
             **({"launches_phase_a": pa_launches[name], "ms_phase_a": pa_fwd[name]["ms"],
+                "launches_anim": anim["launches"].get(name, 0),
                 "bound_ms_phase_a": pa_fwd[name]["bound_ms"], "plain_ms_phase_a": pa_fwd[name]["plain_ms"],
                 "held_io": {"max_abs_err": max(io_held["err"].values()), "ms": io_held["ms"],
                             "plain_ms": io_held["plain_ms"], "bound_ms": io_held["bound_ms"]},
@@ -5175,14 +5742,20 @@ def main() -> int:
                                              "before_ms", "plain_ms", "library_ms", "bound_ms")}
                  for k, v in rot_runs.items()},
     })
+    # the covariance entry: launches and times of [anim] (p2dR's fit, its
+    # one caller on a path), the loop's held step's covariances beside them
+    a = anim["rot"]
     rows.append({
         "name": "fit_rotations", "route": "cuda", "source": "riggs_tpu_torch/csrc/rotfit.cu",
         "replaces": "riggs_tpu/ops/geometry.py:33", "replaces_kind": "stock op in riggs_tpu (jnp.linalg.svd), C2a",
-        "launches": loop_launches["fit_rotations"], "max_abs_err": max(v["cov_err"] for v in rot_runs.values()),
-        "ms": r["cov_ms"], "plain_ms": r["cov_plain_ms"], "bound_ms": r["cov_bound_ms"], "bound_by": "bytes",
-        "library_ms": r["cov_library_ms"], "device_ms": r["cov_device_ms"], "batch": r["batch"],
-        **per_path("fit_rotations"), "planted": stage1_rot["planted"],
-        "held": {k: v["cov_err"] for k, v in rot_runs.items()},
+        "launches": anim["launches"]["fit_rotations"],
+        "max_abs_err": max([a["err"]] + [v["cov_err"] for v in rot_runs.values()]),
+        "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+        "library_ms": a["library_ms"], "device_ms": a["device_ms"], "batch": a["batch"], "max_det_err": a["det_err"],
+        "launches_anim": anim["launches"]["fit_rotations"], **per_path("fit_rotations"),
+        "ms_loop": r["cov_ms"], "plain_ms_loop": r["cov_plain_ms"], "bound_ms_loop": r["cov_bound_ms"],
+        "library_ms_loop": r["cov_library_ms"], "device_ms_loop": r["cov_device_ms"], "batch_loop": r["batch"],
+        "planted": stage1_rot["planted"], "held": {"anim p2dR": a["err"], **{k: v["cov_err"] for k, v in rot_runs.items()}},
     })
     # the offset entry: times on the second shard of a 2-way split of the
     # serving frame's tiles ([edges]), launches of [tileshard]'s 1 x 2 steps

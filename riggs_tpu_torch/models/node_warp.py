@@ -1,6 +1,6 @@
 """NodeWarp: the node-based deformation field of stage 1.
 
-Port of ``riggs_tpu/models/node_warp.py:42-291, 365-420``. Sparse control
+Port of ``riggs_tpu/models/node_warp.py``. Sparse control
 nodes carry a position with hyper coordinates, a radius and a weight; the
 DeformNetwork queried at the nodes gives per-node residuals, which are
 blended onto the Gaussians with Gaussian-kernel weights over each one's K
@@ -26,7 +26,12 @@ nearest nodes (exp(-d^2 / 2 r^2), node-weight modulated, normalized).
     (the variance of neighbour edge lengths over 8 times near the frame's,
     and the second finite difference of the node trajectories). Their
     times are arguments too: ``arap_sample_times`` draws elastic's 8
-    (delta_t the frame interval), ``sample_time`` acc's centre.
+    (delta_t the frame interval), ``sample_time`` acc's centre;
+  * the animation path: ``get_trajectory`` (the nodes at uniform times),
+    ``p2dR`` (per-node rotations from displaced nodes, a weighted
+    Procrustes fit on the rotation-fit kernel) and ``warp_forward_animated``
+    (the Gaussians re-bound to dragged nodes by geodesic KNN and carried
+    rigidly with them).
 """
 from __future__ import annotations
 
@@ -38,9 +43,9 @@ from riggs_tpu_torch.device import constant, resolve_device
 from riggs_tpu_torch.models.deform_mlp import DeformNetwork, DeformNetworkDef
 from riggs_tpu_torch.ops import arap as A
 from riggs_tpu_torch.ops.fps import farthest_point_sample
-from riggs_tpu_torch.ops.geometry import safe_norm
+from riggs_tpu_torch.ops.geometry import fit_rotations, safe_norm
 from riggs_tpu_torch.ops.knn import _small_k, knn, pairwise_dist2
-from riggs_tpu_torch.ops.quaternion import quat_to_rotmat
+from riggs_tpu_torch.ops.quaternion import quat_to_rotmat, rotmat_to_quat
 from riggs_tpu_torch.train.optim import tree_map
 
 ROT_BIAS = (1.0, 0.0, 0.0, 0.0)
@@ -264,6 +269,75 @@ def warp_forward(
     }
     for i, (name, _) in enumerate(extra):
         out[name] = part[3 + i] * motion_mask
+    return out
+
+
+def get_trajectory(warp: NodeWarp, t_samp_num: int = 8) -> torch.Tensor:
+    """(M, T, 3) node trajectory over T uniform times in [0, 1]."""
+    ts = torch.linspace(0.0, 1.0, t_samp_num, device=warp.nodes.device)
+    return _trajectory(warp, ts)
+
+
+def p2dR(warp: NodeWarp, p: torch.Tensor, p0: torch.Tensor, K: int = 8) -> torch.Tensor:
+    """Per-node rotations (M, 4) taking the node positions p0 (M, 3) to p:
+    each node's K nearest nodes in flattened-trajectory space (4 times),
+    weighted by a softmax of their distances over the mean, give the edge
+    fans whose weighted, normalized correlation is fitted by
+    ``fit_rotations`` (the kernel on the card)."""
+    traj = get_trajectory(warp, t_samp_num=4).reshape(warp.node_num, -1)
+    d2, idx = knn(traj, traj, K + 1)
+    d2, idx = d2[:, 1:], idx[:, 1:].to(torch.int64)
+    w = torch.softmax(d2 / torch.mean(d2), dim=-1)
+    unit = lambda e: e / (torch.linalg.norm(e, dim=-1, keepdim=True) + 1e-5)
+    e0 = unit(p0[idx] - p0[:, None])
+    e1 = unit(p[idx] - p[:, None])
+    cov = torch.einsum("nka,nkb->nab", e1 * w[..., None], e0)
+    return rotmat_to_quat(fit_rotations(cov))
+
+
+def warp_forward_animated(
+    warp: NodeWarp,
+    x: torch.Tensor,
+    t,
+    feature: torch.Tensor | None,
+    motion_mask: torch.Tensor,
+    node_trans_bias: torch.Tensor,
+    K: int = 8,
+    temperature: float = 1e-3,
+) -> dict:
+    """The animation path: ``warp_forward`` at t, then the posed nodes moved
+    by ``node_trans_bias`` (M, 3) (a drag or an edit), each Gaussian
+    re-bound to its K geodesically nearest posed nodes (its nearest node's
+    row of ``geodesic_floyd`` over the posed nodes' 4-NN graph, plus the
+    distance to it; a softmax at ``temperature``), the nodes' rotation
+    deltas from ``p2dR``, and the Gaussians carried rigidly with their
+    nodes. Returns ``warp_forward``'s dict with d_xyz, d_nodes (the moved
+    nodes) and d_rotation_bias (the blended rotation deltas, to compose
+    with the Gaussians' rotations) replaced or added."""
+    base = warp_forward(warp, x, t, feature, motion_mask)
+    cur_node = (warp.nodes[:, :3] + node_deform(warp, t)["d_xyz"]).detach()
+    cur_gs = (x + base["d_xyz"]).detach()
+
+    dist_mat = A.geodesic_floyd(cur_node, K=3)
+    d2_g, idx_g = knn(cur_gs, cur_node, 1)
+    geo = dist_mat[idx_g[:, 0].to(torch.int64)] + torch.sqrt(torch.clamp(d2_g, min=0.0))  # (N, M)
+    # the K smallest, ties to the lower index as lax.top_k orders them (inf included)
+    vals, cur_idx = torch.sort(geo, dim=-1, stable=True)
+    vals, cur_idx = vals[:, :K], cur_idx[:, :K]
+    cur_w = torch.softmax(-vals / temperature, dim=-1)
+
+    nodes_t = cur_node + node_trans_bias
+    rot_bias = constant(ROT_BIAS, nodes_t)
+    node_rot_bias = p2dR(warp, nodes_t, cur_node, K=8)
+    Rb = quat_to_rotmat(node_rot_bias)
+    gs_t = nodes_t[cur_idx] + torch.einsum("gkab,gkb->gka", Rb[cur_idx], cur_gs[:, None] - cur_node[cur_idx])
+    gs_avg = torch.sum(gs_t * cur_w[..., None], dim=1)
+    d_rotation_bias = (torch.sum(node_rot_bias[cur_idx] * cur_w[..., None], dim=1) - rot_bias) * motion_mask + rot_bias
+
+    out = dict(base)
+    out["d_xyz"] = (gs_avg - x) * motion_mask
+    out["d_rotation_bias"] = d_rotation_bias
+    out["d_nodes"] = nodes_t
     return out
 
 

@@ -1,10 +1,12 @@
 """As-rigid-as-possible energies over control-node trajectories.
 
-Port of ``riggs_tpu/ops/arap.py:27-124``: the dense (N, K) neighbour table
+Port of ``riggs_tpu/ops/arap.py``: the dense (N, K) neighbour table
 with a validity mask (``Connectivity``, ``connectivity_from_points``),
 ``edge_matrix``, the weighted Procrustes fit ``estimate_rotations``, the
-stretch energy ``arap_error`` and ``arap_deformation_loss`` (frame 0 of a
-trajectory against one other frame, with the rotation term). JAX's PRNG
+stretch energy ``arap_error``, ``arap_deformation_loss`` (frame 0 of a
+trajectory against one other frame, with the rotation term) and
+``geodesic_floyd`` (all-pairs distances over the KNN graph, the animation
+path's re-binding). JAX's PRNG
 streams cannot be reproduced here, so that other frame ``fid`` is an
 argument, drawn by the caller.
 
@@ -161,3 +163,35 @@ def arap_deformation_loss(
     tar_rot = quat_to_rotmat(pick(trajectory_rot))
     rot_err = torch.sum(torch.mean((torch.einsum("nab,nbc->nac", R, init_rot) - tar_rot) ** 2, dim=0))
     return err, rot_err * 1e2
+
+
+def knn_graph(points: torch.Tensor, K: int = 8) -> torch.Tensor:
+    """The symmetrized (K + 1)-NN graph of ``points`` (N, 3) as a dense
+    (N, N) matrix: the edge lengths, each pair's shorter one where both
+    ends list it, ``inf`` off the graph."""
+    n = points.shape[0]
+    d2, idx = knn(points, points, K + 1)
+    mat = torch.full((n * n,), torch.inf, dtype=points.dtype, device=points.device)
+    rows = torch.arange(n, device=points.device)[:, None] * n
+    mat.scatter_reduce_(0, (rows + idx.to(torch.int64)).reshape(-1), torch.sqrt(d2).reshape(-1), reduce="amin")
+    mat = mat.view(n, n)
+    return torch.minimum(mat, mat.t())
+
+
+def min_plus_closure(mat: torch.Tensor) -> torch.Tensor:
+    """Floyd-Warshall on a dense (N, N) distance matrix: N min-plus
+    relaxations through each node in turn, stock ops looped on the device
+    (the reference's ``fori_loop``). Each step is exact per element, so the
+    result does not depend on the device."""
+    m = mat.clone()
+    for i in range(m.shape[0]):
+        # the sum is formed before the minimum writes into m
+        torch.minimum(m, m[:, i, None] + m[None, i, :], out=m)
+    return m
+
+
+def geodesic_floyd(points: torch.Tensor, K: int = 8) -> torch.Tensor:
+    """All-pairs geodesic distances (N, N) over the symmetrized (K + 1)-NN
+    graph of ``points`` (N, 3); ``inf`` between pieces of a graph that is
+    not connected."""
+    return min_plus_closure(knn_graph(points, K))

@@ -1,7 +1,7 @@
 """Quaternion and rotation math, batched over leading dimensions.
 
-Port of ``riggs_tpu/ops/quaternion.py`` (the parts the serving path and the
-dual-quaternion skinning use). Quaternions are (w, x, y, z); the quaternion
+Port of ``riggs_tpu/ops/quaternion.py`` (the parts the serving path, the
+dual-quaternion skinning and the key-pose animation use). Quaternions are (w, x, y, z); the quaternion
 axis is the last one. A dual quaternion is a pair (q_r, q_d), each (..., 4).
 """
 from __future__ import annotations
@@ -132,6 +132,29 @@ def rotmat_to_quat(m: torch.Tensor) -> torch.Tensor:
     q = torch.gather(cands, -2, idx)[..., 0, :]
     q = quat_normalize(q)
     return q * torch.where(q[..., :1] < 0.0, -1.0, 1.0)
+
+
+def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
+    """Spherical linear interpolation between unit quaternions q0, q1
+    (..., 4) at t in [0, 1]: a scalar, or one value per quaternion (a
+    tensor of q0's leading shape, broadcast over the quaternion axis). The
+    shorter arc (q1's sign flipped where the dot is negative); a plain lerp
+    where sin(theta) < 1e-5."""
+    q0 = quat_normalize(q0)
+    q1 = quat_normalize(q1)
+    dot = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(dot < 0.0, -q1, q1)
+    dot = torch.clamp(torch.abs(dot), -1.0, 1.0)
+    theta = torch.arccos(torch.clamp(dot, 0.0, 1.0 - 1e-7))
+    sin_theta = torch.sin(theta)
+    t = torch.as_tensor(t, dtype=q0.dtype, device=q0.device)
+    if t.dim() == q0.dim() - 1:
+        t = t[..., None]
+    use_lerp = sin_theta < 1e-5
+    denom = torch.clamp(sin_theta, min=1e-12)
+    w0 = torch.where(use_lerp, 1.0 - t, torch.sin((1.0 - t) * theta) / denom)
+    w1 = torch.where(use_lerp, t, torch.sin(t * theta) / denom)
+    return quat_normalize(w0 * q0 + w1 * q1)
 
 
 # ---------------------------------------------------------------------------

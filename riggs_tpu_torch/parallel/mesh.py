@@ -25,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -90,25 +91,75 @@ def make_mesh(data: int = 1, tile: int = 1, backend: str | None = None) -> Mesh:
                 data_group=data_group, backend=str(dist.get_backend(tile_group)))
 
 
+@dataclasses.dataclass(frozen=True)
+class LocalRows:
+    """One data row's rows of a batch split over a mesh's data axis: every
+    tensor of ``tree`` (a stacked ``Frame``, a tensor, dicts, lists) holds
+    the rows of data row ``index`` of ``data`` equal parts. The counterpart
+    of the reference's global array assembled from host-local rows
+    (``multihost.global_batch``): ``shard_batch`` takes the tree as it is,
+    and a sharded checkpoint writes such a leaf by data row. The fact is the
+    wrapper's, so no op on a tensor can drop it: the tree is reached only
+    through ``shard_batch`` or ``.tree``."""
+
+    tree: Any
+    data: int
+    index: int
+
+
+def map_leaves(tree: Any, fn) -> Any:
+    """``tree`` with every tensor (and numpy array) leaf through ``fn``;
+    dicts, lists, tuples and dataclasses (a stacked ``Frame``) rebuilt,
+    other leaves kept."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_leaves(v, fn) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{f.name: map_leaves(getattr(tree, f.name), fn)
+                                            for f in dataclasses.fields(tree)})
+    return tree
+
+
 def shard_batch(tree: Any, mesh: Mesh) -> Any:
     """This rank's rows of a stacked batch: the leading axis of every tensor
     of ``tree`` (dicts, lists, tuples and dataclasses such as a stacked
     ``Frame``; other leaves stay as they are) split into ``data`` equal
-    parts, part ``mesh.data`` kept."""
+    parts, part ``mesh.data`` kept. A ``LocalRows`` already holds the rank's
+    rows and is taken as it is (its mesh must be ``mesh``). Every tensor
+    kept must have the same rows, so local rows cut again (a ``LocalRows``
+    unwrapped beside whole leaves) raise instead of training on a part."""
     D = mesh.shape["data"]
+    kept = set()
 
-    def rows(a):
-        if isinstance(a, torch.Tensor):
-            if a.shape[0] % D:
-                raise ValueError(f"a batch of {a.shape[0]} does not split over {D} data ranks")
-            n = a.shape[0] // D
-            return a[mesh.data * n:(mesh.data + 1) * n]
-        if isinstance(a, dict):
-            return {k: rows(v) for k, v in a.items()}
-        if isinstance(a, (list, tuple)):
-            return type(a)(rows(v) for v in a)
-        if dataclasses.is_dataclass(a) and not isinstance(a, type):
-            return dataclasses.replace(a, **{f.name: rows(getattr(a, f.name)) for f in dataclasses.fields(a)})
+    def keep(a):
+        kept.add(a.shape[0])
         return a
 
-    return rows(tree)
+    def rows(a):
+        if a.shape[0] % D:
+            raise ValueError(f"a batch of {a.shape[0]} does not split over {D} data ranks")
+        n = a.shape[0] // D
+        return keep(a[mesh.data * n:(mesh.data + 1) * n])
+
+    def walk(t):
+        if isinstance(t, LocalRows):
+            if (t.data, t.index) != (D, mesh.data):
+                raise ValueError(f"rows of data row {t.index} of {t.data} on data row {mesh.data} of {D}")
+            return map_leaves(t.tree, lambda a: keep(a) if isinstance(a, torch.Tensor) else a)
+        if isinstance(t, torch.Tensor):
+            return rows(t)
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        if dataclasses.is_dataclass(t) and not isinstance(t, type):
+            return dataclasses.replace(t, **{f.name: walk(getattr(t, f.name)) for f in dataclasses.fields(t)})
+        return t
+
+    out = walk(tree)
+    if len(kept) > 1:
+        raise ValueError(f"the batch's tensors hold different rows on this rank: {sorted(kept)}")
+    return out

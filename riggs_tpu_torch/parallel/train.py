@@ -134,7 +134,8 @@ def make_dp_stage2_step(
     pre_d_joints_b, lambda_to, lambda_tf, flags)`` with a stacked batch of B
     frames (B a multiple of the data size) and its (B,) uids, (B, C, 3)
     and (B, J, 3) stage-1 deformations and (B,) per-frame lambdas, every
-    rank passing the whole batch. One step applies the mean gradient of the
+    rank passing the whole batch (the frames may be its rows instead, a
+    ``mesh.LocalRows``). One step applies the mean gradient of the
     B frames' ``stage2_frame_loss``: Adam on the skeleton always, on the
     Gaussians outside the warm-up (in it their parameters and moments stay
     as they are); the densification statistics of every frame in frame
@@ -193,7 +194,7 @@ def make_dp_stage2_step(
             else:
                 new_gs_p, opt_gs = O.adam_update(gp["gs"], state.opt_gs, gs_p, lrs_gs)
                 gs = state.gs.replace_params(new_gs_p)
-            stats = _add_stats(state.stats_gs, pf, frame_batch.cam)
+            stats = _add_stats(state.stats_gs, pf, local["frames"].cam)
             proj_loss = state.proj_loss
             if use_chamfer:
                 proj_loss = proj_loss.clone()
@@ -273,7 +274,7 @@ def make_dp_stage1_step(
             })
             new_gs_p, opt_gs = O.adam_update(gp["gs"], state.opt_gs, gs_p, lrs_gs)
             new_warp_p, opt_warp = O.adam_update(gp["warp"], state.opt_warp, params["warp"], lrs_warp)
-            stats = _add_stats(state.stats_gs, pf, frame_batch.cam)
+            stats = _add_stats(state.stats_gs, pf, local["frames"].cam)
         new_state = dataclasses.replace(state, gs=state.gs.replace_params(new_gs_p),
                                         warp=state.warp.replace_params(new_warp_p), opt_gs=opt_gs, opt_warp=opt_warp,
                                         stats_gs=stats)
@@ -287,14 +288,15 @@ def make_dp_stage1_step(
 def make_dp_static_step(mesh: Mesh, active_sh: int = 0, lambda_dssim: float = 0.2, max_per_tile: int = 256):
     """The frame-parallel static-3DGS step over ``mesh``'s data axis:
     ``step(state, frame_batch, bg, lr)`` (a ``TrainState``, a stacked batch
-    of B frames, one learning rate for every group) applies the mean
+    of B frames or the rank's rows of it as a ``mesh.LocalRows``, one
+    learning rate for every group) applies the mean
     gradient of the B frames' photometric loss with Adam; the statistics
     stay as they are, as the reference's do. Returns (new state, the mean
     loss)."""
 
     def step(state: TrainState, frame_batch: Frame, bg, lr):
-        B = frame_batch.image.shape[0]
         local = shard_batch(frame_batch, mesh)
+        B = local.image.shape[0] * mesh.shape["data"]
         params = {k: v.detach().requires_grad_(True) for k, v in state.gs.params_dict().items()}
         gs = state.gs.replace_params(params)
         loss = torch.zeros((), device=state.gs.xyz.device)

@@ -6,14 +6,24 @@ scripts/run_pipeline.py, with the same flags; ``--device`` in place of
     python scripts/torch_run_pipeline.py --source_path <d-nerf scene dir> --model_path out/
     python scripts/torch_run_pipeline.py --synthetic --model_path out/   # the built-in scene, on the card
     python scripts/torch_run_pipeline.py --synthetic --model_path out/ --device cpu
+    python scripts/torch_run_pipeline.py --synthetic --model_path out/ --dp 2   # two ranks, started here
+    torchrun --nproc_per_node 2 scripts/torch_run_pipeline.py --synthetic --model_path out/ --dp 2
 
 Stage 1 (the node deformation) -> skeleton extraction -> stage 2 (the rigged
 model), writing what scripts/run_pipeline.py writes: cfg.json, the stage-1
 checkpoint and PLY, rig/ (the best-PSNR and final stage-2 checkpoints and
 PLYs), skeleton_tree.npz, skeleton.obj, and numerical_res.txt from the test
-set. Every config field is a flag (``--iterations 40`` and so on). The
-multi-device, viewer and debugging flags raise where the reference would use
-them: their ports are later work (ROADMAP A10, A11).
+set. Every config field is a flag (``--iterations 40`` and so on).
+
+``--dp N`` trains frame-parallel: stage 1's phase B (``train_stage1_dp``)
+and stage 2 (``train_stage2_dp``) over a mesh of N data rows, stage 2's
+frames also split over ``--dp_tile`` ranks each (stage 1 has no tile axis:
+the tile ranks of a data row repeat its frames). Under torchrun, or with the
+environment ``parallel.multihost.init_distributed`` reads, this process is
+one rank of the group; otherwise it starts the N x dp_tile ranks itself, on
+this host (spawned processes on localhost, gloo when they share a card).
+Only rank 0 writes files and prints. The viewer and debugging flags raise:
+their ports are later work (ROADMAP A10).
 """
 import argparse
 import sys
@@ -38,17 +48,14 @@ def parse_args(argv=None):
     ap.add_argument("--viewer_port", type=int, default=0, help="serve a live training viewer (ROADMAP A10)")
     ap.add_argument("--gui_ip", type=str, default="127.0.0.1", help="SIBR remote-viewer host")
     ap.add_argument("--gui_port", type=int, default=0, help="the SIBR network_gui protocol (ROADMAP A10)")
-    ap.add_argument("--dp", type=int, default=0, help="frame-parallel training over this many devices (ROADMAP A11)")
-    ap.add_argument("--dp_tile", type=int, default=1, help="with --dp: tile parallelism (ROADMAP A11)")
+    ap.add_argument("--dp", type=int, default=0, help="frame-parallel training over this many data rows of ranks")
+    ap.add_argument("--dp_tile", type=int, default=1, help="with --dp: split stage 2's frames over this many ranks each")
     ap.add_argument("--test_every", type=int, default=1000)
     ap.add_argument("--tensorboard", action="store_true")
     ap.add_argument("--resume", action="store_true", help="continue stage 2 from the latest checkpoint")
     ap.add_argument("--detect_anomaly", action="store_true", help="fail at the first NaN (ROADMAP A10)")
     add_config_args(ap)
     args = ap.parse_args(argv)
-    if args.dp > 1:
-        raise NotImplementedError("--dp: stage 2's frame-parallel loop is ported (riggs_tpu_torch.parallel.stage2_dp), "
-                                  "stage 1's (train_stage1_dp) comes with the rest of ROADMAP A11")
     if args.viewer_port or args.gui_port:
         raise NotImplementedError("--viewer_port / --gui_port: the viewers come with ROADMAP A10")
     if args.detect_anomaly:
@@ -56,23 +63,65 @@ def parse_args(argv=None):
     return args
 
 
+def _rank_main(rank, world, port, argv):
+    """One spawned rank: torchrun's environment, then the pipeline."""
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    main(argv)
+
+
+def spawn_ranks(argv, world: int):
+    """Run the pipeline on ``world`` spawned processes of this host, a
+    group on a free localhost port; raises if a rank fails."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(_rank_main, args=(world, port, list(argv)), nprocs=world, start_method="spawn")
+
+
 def main(argv=None):
+    import torch.distributed as dist
+
     from riggs_tpu_torch.data.scene import load_scene
     from riggs_tpu_torch.data.synthetic import make_scene_data
     from riggs_tpu_torch.eval.synthesis import format_numerical_res, render_test_set
     from riggs_tpu_torch.io.checkpoint import save_checkpoint, save_skeleton_tree
     from riggs_tpu_torch.io.obj import write_skeleton_obj
+    from riggs_tpu_torch.parallel.mesh import make_mesh
+    from riggs_tpu_torch.parallel.multihost import init_distributed
+    from riggs_tpu_torch.parallel.stage1_dp import train_stage1_dp
+    from riggs_tpu_torch.parallel.stage2_dp import train_stage2_dp
     from riggs_tpu_torch.train.config import config_from_args
     from riggs_tpu_torch.train.logging import TrainLogger
     from riggs_tpu_torch.train.stage1 import train_stage1
     from riggs_tpu_torch.train.stage2 import train_stage2
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
+    mesh = None
+    if args.dp > 1:
+        if not init_distributed():
+            spawn_ranks(argv, args.dp * args.dp_tile)
+            return
+        mesh = make_mesh(data=args.dp, tile=args.dp_tile)
+    lead = mesh is None or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     dev = args.device
+    if mesh is not None and dev.startswith("cuda"):
+        import torch
+
+        dev = f"cuda:{torch.cuda.current_device()}"
     cfg = config_from_args(args)
     model_path = Path(cfg.model.model_path or "output/run")
-    model_path.mkdir(parents=True, exist_ok=True)
-    cfg.save(model_path / "cfg.json")
+    if lead:
+        model_path.mkdir(parents=True, exist_ok=True)
+        cfg.save(model_path / "cfg.json")
 
     if args.synthetic:
         _, scene = make_scene_data(
@@ -83,29 +132,42 @@ def main(argv=None):
     else:
         scene = load_scene(cfg.model.source_path, white_background=cfg.model.white_background,
                            resolution=max(cfg.model.resolution, 1), device=dev)
-    print(f"scene: {len(scene.train_frames)} train / {len(scene.test_frames)} test frames")
+    say(f"scene: {len(scene.train_frames)} train / {len(scene.test_frames)} test frames")
 
     t0 = time.time()
-    s1, _ = train_stage1(scene, cfg, log_every=500, source_path=None if args.synthetic else cfg.model.source_path,
-                         device=dev)
-    print(f"stage 1 done in {time.time() - t0:.0f}s")
-    save_checkpoint(model_path, cfg.opt.iterations, s1, gs=s1.gs, cfg=cfg)
+    source_path = None if args.synthetic else cfg.model.source_path
+    if mesh is not None:
+        s1, _ = train_stage1_dp(scene, cfg, mesh, log_every=500, source_path=source_path, device=dev)
+    else:
+        s1, _ = train_stage1(scene, cfg, log_every=500, source_path=source_path, device=dev)
+    say(f"stage 1 done in {time.time() - t0:.0f}s")
+    if lead:
+        save_checkpoint(model_path, cfg.opt.iterations, s1, gs=s1.gs, cfg=cfg)
 
     if args.stage in ("2", "both"):
         t0 = time.time()
-        logger = TrainLogger(model_path / "tb") if args.tensorboard else None
-        s2, info, _ = train_stage2(s1, scene, cfg, log_every=500, test_every=args.test_every,
-                                   model_path=model_path / "rig", logger=logger, resume=args.resume, device=dev)
+        logger = TrainLogger(model_path / "tb") if args.tensorboard and lead else None
+        if mesh is not None:
+            s2, info, _ = train_stage2_dp(s1, scene, cfg, mesh, log_every=500, test_every=args.test_every,
+                                          model_path=model_path / "rig", device=dev)
+        else:
+            s2, info, _ = train_stage2(s1, scene, cfg, log_every=500, test_every=args.test_every,
+                                       model_path=model_path / "rig", logger=logger, resume=args.resume, device=dev)
         if logger is not None:
             logger.close()
-        print(f"stage 2 done in {time.time() - t0:.0f}s")
-        save_skeleton_tree(model_path, info.joints, info.parents, info.joint_node_indices, info.template_idx)
-        write_skeleton_obj(model_path / "skeleton.obj", info.joints, info.parents)
-        save_checkpoint(model_path / "rig", cfg.opt.iterations, s2, gs=s2.gs, cfg=cfg)
-        if scene.test_frames:
-            rows, means, _ = render_test_set(s2.gs, s2.skel, scene.test_frames, max_per_tile=cfg.pipe.max_per_tile)
-            (model_path / "numerical_res.txt").write_text(format_numerical_res(rows, means))
-            print("test metrics:", means)
+        say(f"stage 2 done in {time.time() - t0:.0f}s")
+        if lead:
+            save_skeleton_tree(model_path, info.joints, info.parents, info.joint_node_indices, info.template_idx)
+            write_skeleton_obj(model_path / "skeleton.obj", info.joints, info.parents)
+            save_checkpoint(model_path / "rig", cfg.opt.iterations, s2, gs=s2.gs, cfg=cfg)
+            if scene.test_frames:
+                rows, means, _ = render_test_set(s2.gs, s2.skel, scene.test_frames,
+                                                 max_per_tile=cfg.pipe.max_per_tile)
+                (model_path / "numerical_res.txt").write_text(format_numerical_res(rows, means))
+                print("test metrics:", means)
+    if mesh is not None:
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

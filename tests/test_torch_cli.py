@@ -6,13 +6,14 @@ whole rig checkpoint and reproduces its numerical_res.txt; torch_render_stage1.p
 loads its stage-1 checkpoint; torch_metrics.py scores a renders/gt folder as
 riggs_tpu's evaluate_image does (psnr 1e-4 dB, ssim 1e-5);
 torch_resume_stage2.py resumes the pipeline's stage-1 checkpoint into 2 more
-stage-2 steps and writes the rig, tree, OBJ and table; torch_run_zju.py runs
-the pipeline (6 reference-point steps at 1024 slots, so past C5's M = 200)
-and the render twin on a ZJU-MoCap subject of tests/test_torch_zju.py, its
-two scripts called in this process with the flags it builds; the flags of
-later items raise. The render and resume twins rebuild the 16-frame
-128 x 128 synthetic scene that the pipeline trained on; it is built once
-here and handed to each.
+stage-2 steps and writes the rig, tree, OBJ and table; torch_run_pipeline.py
+--dp 2 starts two gloo ranks and writes the same files from rank 0;
+torch_run_zju.py runs the pipeline (6 reference-point steps at 1024 slots,
+so past C5's M = 200) and the render twin on a ZJU-MoCap subject of
+tests/test_torch_zju.py, its two scripts called in this process with the
+flags it builds; the flags of later items (the viewers, ROADMAP A10) raise.
+The render and resume twins rebuild the 16-frame 128 x 128 synthetic scene
+that the pipeline trained on; it is built once here and handed to each.
 """
 import inspect
 import json
@@ -146,8 +147,37 @@ def _metrics(tmp_path):
     assert set(json.loads((tmp_path / "m" / "results.json").read_text())) == {"ours_8"}
 
 
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--viewer_port", "8000"], ["--gui_port", "6009"],
-                                  ["--detect_anomaly"]])
+@pytest.mark.parametrize("flag", [["--viewer_port", "8000"], ["--gui_port", "6009"], ["--detect_anomaly"]])
 def test_cli_flags_of_later_items_raise(flag):
-    with pytest.raises(NotImplementedError, match="A1[01]"):
+    with pytest.raises(NotImplementedError, match="A10"):
         torch_run_pipeline.parse_args(["--synthetic"] + flag)
+
+
+def test_pipeline_twin_trains_frame_parallel_on_two_ranks(tmp_path, capfd, monkeypatch):
+    """torch_run_pipeline.py --dp 2 with no launcher environment starts its
+    two gloo ranks itself: train_stage1_dp, then train_stage2_dp at 2 x 1,
+    on the schedule of test_cli_twins_run_on_the_cpu. Only rank 0 writes
+    (exactly the files of a one-process run) and prints (each line once),
+    and the rig reloads as torch_render_rig.py loads it."""
+    from riggs_tpu_torch.train.config import Config
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    for name in ("RANK", "WORLD_SIZE", "JAX_NUM_PROCESSES"):
+        monkeypatch.delenv(name, raising=False)
+    out = tmp_path / "run"
+    torch_run_pipeline.main(["--synthetic", "--synthetic_frames", "16", "--synthetic_size", "128", "--model_path",
+                             str(out), "--test_every", "6", "--dp", "2"] + SMALL)
+    files = sorted(p.relative_to(out).as_posix() for p in out.rglob("*") if p.is_file())
+    assert files == ["cfg.json", "checkpoints/iteration_8/state.npz", "numerical_res.txt",
+                     "point_cloud/iteration_8/point_cloud.ply", "rig/cfg.json", "rig/checkpoints/iteration_6/state.npz",
+                     "rig/checkpoints/iteration_8/state.npz", "rig/point_cloud/iteration_6/point_cloud.ply",
+                     "rig/point_cloud/iteration_8/point_cloud.ply", "skeleton.obj", "skeleton_tree.npz"]
+    text = capfd.readouterr().out
+    for line in ("scene: 16 train / 4 test frames", "stage 1 done", "stage 2 done", "test metrics:"):
+        assert text.count(line) == 1, (line, text)
+    res = (out / "numerical_res.txt").read_text().splitlines()
+    assert len(res) == 1 + 4 + 1 and all(np.isfinite(float(x)) for line in res[1:] for x in line.split("\t")[1:])
+    cfg = Config.load(out / "cfg.json")
+    _, it = torch_render_rig.load_rig(out, cfg, TSyn.make_scene_data(n_train=16, n_test=4, width=128, height=128,
+                                                                     device="cpu")[1], "cpu")
+    assert it == 8

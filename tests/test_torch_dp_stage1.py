@@ -5,7 +5,8 @@ train_stage1_dp) on two gloo ranks on the CPU, against riggs_tpu's.
 
 One job of two spawned processes (gloo, a file store in a temporary
 directory) runs every two-rank case once on a 2 x 1 mesh and saves each
-rank's results, while this process computes the reference's:
+rank's results, started as soon as its inputs are there, while this process
+computes the reference's steps and a third process the reference's loops:
   * make_dp_stage1_step, three steps of B = 2 on the phase-B scene of
     tests/test_torch_stage1_step.py (four frames at t = 0, 0.6, 0.3, 0.9,
     chamfer and the motion-mask loss on, laddered windows off), without
@@ -290,7 +291,10 @@ def _loop_inputs():
 
 @pytest.fixture(scope="module")
 def inputs(loop_job):
+    """The steps' inputs (here) and the loop's (from the reference's
+    process, where its loops then run)."""
     ref, port = _step_inputs()
+    port.update(loop_job[0].result(timeout=600))
     return dict(ref=ref, port=port)
 
 
@@ -366,41 +370,63 @@ def _reference_loops(ref):
     return out
 
 
-def _reference_loop_job():
+# the reference's process keeps the loop's inputs between its two tasks
+_LOOP_REF = {}
+
+
+def _reference_loop_inputs():
     """In a process of its own (spawned, with the suite's jax settings):
-    the loop's inputs, and riggs_tpu's three loops. Returns (the port's
-    inputs, the loops' readings)."""
+    the loop's inputs; returns the port's, keeps the reference's."""
     import tests.conftest  # noqa: F401  (jax on the CPU mesh, the compilation cache)
 
-    lref, lport = _loop_inputs()
-    return lport, _reference_loops(lref)
+    _LOOP_REF["ref"], lport = _loop_inputs()
+    return lport
+
+
+def _reference_loop_job():
+    """In the same process, after ``_reference_loop_inputs``: riggs_tpu's
+    three loops."""
+    return _reference_loops(_LOOP_REF.pop("ref"))
 
 
 @pytest.fixture(scope="module")
 def loop_job():
-    """The reference's loops, started in a process of their own first, so
-    that they run while this process computes the reference's steps."""
+    """The reference's loops in a process of their own, started first: the
+    loop's inputs (a future of the port's), then the three loops (a future
+    of their readings), which run while this process computes the
+    reference's steps and the two ranks run theirs."""
     pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
-    yield pool.submit(_reference_loop_job)
+    yield pool.submit(_reference_loop_inputs), pool.submit(_reference_loop_job)
     pool.shutdown(cancel_futures=True)
 
 
 @pytest.fixture(scope="module")
-def reference(inputs, loop_job):
-    """The reference's steps (here) and loops (from their process)."""
+def ranks_job(inputs, tmp_path_factory):
+    """Start the two-rank job as soon as its inputs are there; (the
+    processes, their directory)."""
+    out = tmp_path_factory.mktemp("dp_stage1")
+    ctx = mp.start_processes(_worker, args=(2, inputs["port"], str(out)), nprocs=2, join=False, start_method="spawn")
+    yield ctx, out
+    for p in ctx.processes:
+        if p.is_alive():
+            p.kill()
+
+
+@pytest.fixture(scope="module")
+def reference(inputs, loop_job, ranks_job):
+    """The reference's steps (here, while the ranks run) and loops (from
+    their process)."""
     ref = inputs["ref"]
     out = {"dp": _reference_steps(ref, flow=False), "dp_flow": _reference_steps(ref, flow=True),
            "static": _reference_static(ref)}
-    lport, out["loops"] = loop_job.result(timeout=600)
-    inputs["port"].update(lport)
+    out["loops"] = loop_job[1].result(timeout=600)
     return out
 
 
 @pytest.fixture(scope="module")
-def ranks(inputs, reference, tmp_path_factory):
-    """Run the two-rank job once; each rank's saved results."""
-    out = tmp_path_factory.mktemp("dp_stage1")
-    ctx = mp.start_processes(_worker, args=(2, inputs["port"], str(out)), nprocs=2, join=False, start_method="spawn")
+def ranks(ranks_job, reference):
+    """Wait for the two-rank job; each rank's saved results."""
+    ctx, out = ranks_job
     deadline = time.monotonic() + 300
     while not ctx.join(timeout=2):
         if time.monotonic() > deadline:

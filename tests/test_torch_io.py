@@ -206,9 +206,18 @@ def test_missing_or_misshaped_leaf_raises(states, tmp_path):
     np.savez(tmp_path / "shape.npz", **bad)
     with pytest.raises(ValueError, match="shape mismatch"):
         TC.load_state_npz(tmp_path / "shape.npz", other)
-    for fn in (TC.save_checkpoint_sharded, TC.load_checkpoint_sharded):
-        with pytest.raises(NotImplementedError, match="A11"):
-            fn(tmp_path, 0, other)
+    # the sharded pair reads the same leaves: a round trip onto the other state, then the same two faults
+    TC.save_checkpoint_sharded(tmp_path, 0, port)
+    back, it = TC.load_checkpoint_sharded(tmp_path, other)
+    assert it == 0
+    _assert_same_leaves(TC.state_to_numpy(back), leaves, "the sharded pair")
+    rep = tmp_path / "sharded" / "iteration_0" / "replicated.npz"
+    np.savez(rep, **{k: v for k, v in leaves.items() if k != ".opt_skel.count"})
+    with pytest.raises(KeyError, match=r"\.opt_skel\.count"):
+        TC.load_checkpoint_sharded(tmp_path, other)
+    np.savez(rep, **bad)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        TC.load_checkpoint_sharded(tmp_path, other)
 
 
 def test_search_max_iteration_and_latest_checkpoint(states, tmp_path):

@@ -269,13 +269,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 CLI_TWINS = ("torch_run_pipeline", "torch_render_rig", "torch_metrics", "torch_render_stage1", "torch_run_zju",
-             "torch_resume_stage2", "torch_run_refpoint")
+             "torch_resume_stage2", "torch_run_refpoint", "torch_scaling_bench", "torch_multihost_smoke")
 
 
 def test_port_imports_no_jax():
     """In a fresh interpreter, importing the whole port and its CLI twins
     leaves jax, riggs_tpu and cv2 out of sys.modules; no source file of
-    the port, of the twins or of chip_smoke.py imports them."""
+    the port, of scripts/torch_*.py or of chip_smoke.py imports them."""
     code = (
         "import importlib, pkgutil, sys, riggs_tpu_torch\n"
         "for m in pkgutil.walk_packages(riggs_tpu_torch.__path__, 'riggs_tpu_torch.'):\n"
@@ -289,14 +289,15 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "assert 'riggs_tpu_torch.render.tiles' in sys.modules\n"
         "for m in ('models.hash_encoding', 'models.simple_deform', 'ops.se3', 'train.mlp_deform', 'train.static',\n"
-        "          'parallel.train', 'parallel.stage1_dp'):\n"
+        "          'parallel.train', 'parallel.stage1_dp', 'parallel.multihost', 'skeleton.interpolation'):\n"
         "    assert 'riggs_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
-    twins = [REPO / "scripts" / f"{name}.py" for name in CLI_TWINS]
-    for f in list((REPO / "riggs_tpu_torch").rglob("*.py")) + twins + [REPO / "chip_smoke.py"]:
+    scripts = sorted((REPO / "scripts").glob("torch_*.py"))  # the twins and the port's other scripts
+    assert {f"{name}.py" for name in CLI_TWINS} <= {f.name for f in scripts}
+    for f in list((REPO / "riggs_tpu_torch").rglob("*.py")) + scripts + [REPO / "chip_smoke.py"]:
         src = f.read_text()
         for bad in ("import jax", "from jax", "from riggs_tpu.", "import riggs_tpu\n", "from riggs_tpu import",
                     "import cv2", "from cv2"):

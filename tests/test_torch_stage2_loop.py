@@ -362,16 +362,25 @@ def test_train_stage2_comparison_rejects_a_planted_fault(loops, fault):
     assert discrete or out
 
 
-def test_train_stage2_raises_for_what_is_not_ported():
+def test_train_stage2_raises_for_what_is_not_ported(tmp_path):
     """train_stage2's model_path, logger and resume are ported
-    (tests/test_torch_eval_io.py). What the stage-2 loop still lacks raises,
-    naming its item: the sharded (orbax) checkpoints and the pipeline's
-    frame-parallel --dp (ROADMAP A11)."""
+    (tests/test_torch_eval_io.py), and so are the sharded checkpoints and
+    the pipeline's frame-parallel --dp (ROADMAP A11): the sharded pair
+    round-trips the loop's state and --dp 2 --dp_tile 2 parses. What the
+    pipeline still lacks raises, naming its item: the viewers (A10)."""
+    import copy
+
     from riggs_tpu_torch.io import checkpoint as TC
     from scripts import torch_run_pipeline
+    from scripts.torch_scaling_bench import build_tiny_scene
 
-    for fn in (TC.save_checkpoint_sharded, TC.load_checkpoint_sharded):
-        with pytest.raises(NotImplementedError, match="A11"):
-            fn("x", 0, None)
-    with pytest.raises(NotImplementedError, match="A11"):
-        torch_run_pipeline.parse_args(["--synthetic", "--dp", "2"])
+    state = build_tiny_scene(32, 32, n_train=2, render_gt=False, device="cpu")[1]
+    TC.save_checkpoint_sharded(tmp_path, 4, state)
+    back, it = TC.load_checkpoint_sharded(tmp_path, copy.deepcopy(state))
+    want = TC.state_to_numpy(state)
+    got = TC.state_to_numpy(back)
+    assert it == 4 and set(got) == set(want) and all(np.array_equal(got[k], want[k]) for k in want)
+    args = torch_run_pipeline.parse_args(["--synthetic", "--dp", "2", "--dp_tile", "2"])
+    assert (args.dp, args.dp_tile) == (2, 2)
+    with pytest.raises(NotImplementedError, match="A10"):
+        torch_run_pipeline.parse_args(["--synthetic", "--viewer_port", "8000"])

@@ -12,8 +12,9 @@ then the unlock with its FPS reset) and six at 2 x 1 with the tile ladder on
 (three steps of B = 2: the warm-up, the unlock, and a step on the ladder
 that the policy fitted from the first two steps' (B, T) tile counts; the
 policy's probe is cut from 12 steps to 2 in both packages). Each rank saves
-what it computed; the tests hold it to the reference and the ranks to each
-other.
+what it computed; this process computes every reference result while the
+ranks run, and the tests hold the ranks' results to the reference and the
+ranks to each other.
 
 Tolerances: the sharded frame against riggs_tpu's
 ``rasterize_tile_sharded`` on ``make_mesh(1, 2)``: image and alpha 3e-5,
@@ -281,11 +282,34 @@ def inputs():
 
 
 @pytest.fixture(scope="module")
-def ranks(inputs, tmp_path_factory):
-    """Run the two-rank job once; each rank's saved results."""
+def ranks_job(inputs, tmp_path_factory):
+    """Start the two-rank job (it runs while this process computes the
+    reference's side); (the processes, their directory)."""
     out = tmp_path_factory.mktemp("tileshard")
     ctx = mp.start_processes(_worker, args=(2, inputs["port"], str(out)), nprocs=2, join=False,
                              start_method="spawn")
+    yield ctx, out
+    for p in ctx.processes:
+        if p.is_alive():
+            p.kill()
+
+
+@pytest.fixture(scope="module")
+def reference(inputs, ranks_job):
+    """Every reference result of the file, computed while the ranks run:
+    the sharded frames and their gradients, the dp steps and the loops."""
+    out = {"render": {size: _reference_render(inputs, size) for size in (128, 96)}}
+    for shape in ((1, 2), (2, 1)):
+        out[shape] = _reference_dp_step(inputs, shape)
+    out["loop_1x2"] = _reference_loop(inputs, (1, 2), ladder=False)
+    out["loop_2x1_ladder"] = _reference_loop(inputs, (2, 1), ladder=True)
+    return out
+
+
+@pytest.fixture(scope="module")
+def ranks(ranks_job, reference):
+    """Wait for the two-rank job; each rank's saved results."""
+    ctx, out = ranks_job
     deadline = time.monotonic() + 240
     while not ctx.join(timeout=2):
         if time.monotonic() > deadline:
@@ -307,8 +331,9 @@ def one_rank_mesh():
             dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("size", [128, 96])
-def test_tile_sharded_render_matches_reference(inputs, ranks, size):
+def _reference_render(inputs, size):
+    """riggs_tpu's rasterize_tile_sharded on make_mesh(1, 2) and its
+    gradient of mean(image) in the means."""
     import jax
     import jax.numpy as jnp
 
@@ -321,10 +346,16 @@ def test_tile_sharded_render_matches_reference(inputs, ranks, size):
     ref = j_sharded(mesh, c["jcam"], means, colors, opacity, scales, rots, c["jbg"], max_per_tile=256)
     g_ref = jax.grad(lambda m: jnp.mean(j_sharded(mesh, c["jcam"], m, colors, opacity, scales, rots, c["jbg"],
                                                   max_per_tile=256)["image"]))(means)
+    return {"image": np.asarray(ref["image"]), "alpha": np.asarray(ref["alpha"]), "grad": np.asarray(g_ref)}
+
+
+@pytest.mark.parametrize("size", [128, 96])
+def test_tile_sharded_render_matches_reference(reference, ranks, size):
+    ref = reference["render"][size]
     got = ranks[0]["render"][size]["sharded"]
-    np.testing.assert_allclose(got["image"], np.asarray(ref["image"]), rtol=0, atol=3e-5)
-    np.testing.assert_allclose(got["alpha"], np.asarray(ref["alpha"]), rtol=0, atol=3e-5)
-    np.testing.assert_allclose(got["grad"], np.asarray(g_ref), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got["image"], ref["image"], rtol=0, atol=3e-5)
+    np.testing.assert_allclose(got["alpha"], ref["alpha"], rtol=0, atol=3e-5)
+    np.testing.assert_allclose(got["grad"], ref["grad"], rtol=0, atol=1e-6)
     assert float(np.abs(got["grad"]).max()) > 1e-3
     for k, v in got.items():  # both ranks hold the whole frame and gradient
         assert np.array_equal(ranks[1]["render"][size]["sharded"][k], v), k
@@ -338,12 +369,12 @@ def test_tile_sharded_frame_is_the_single_device_frame(ranks, size):
     np.testing.assert_allclose(got["grad"], single["grad"], rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("shape", [(1, 2), (2, 1)], ids=["1x2_tile_parallel", "2x1_data_parallel"])
-def test_dp_stage2_step_matches_reference(inputs, ranks, shape):
+def _reference_dp_step(inputs, shape):
+    """riggs_tpu's make_dp_stage2_step on make_mesh(*shape), one step of
+    B = the data size from the shared state."""
     import jax
     import jax.numpy as jnp
 
-    import tests.test_torch_stage2_step as T2
     from riggs_tpu.parallel.mesh import make_mesh as j_make_mesh
     from riggs_tpu.parallel.train import make_dp_stage2_step as j_step
     from riggs_tpu.parallel.train import stack_frames as j_stack
@@ -351,19 +382,25 @@ def test_dp_stage2_step_matches_reference(inputs, ranks, shape):
 
     ref = inputs["ref"]
     B = shape[0]
-    tile_parallel = shape[1] > 1
-    step = j_step(j_make_mesh(*shape), use_chamfer=True, max_per_tile=512, tile_parallel=tile_parallel)
+    step = j_step(j_make_mesh(*shape), use_chamfer=True, max_per_tile=512, tile_parallel=shape[1] > 1)
     uids = np.array(UIDS[:B])
     s = ref["setup"]
-    jnew, jm = step(ref["jstate"], j_stack([ref["jframes"][u] for u in uids]), jnp.asarray(uids, jnp.int32),
-                    jnp.zeros(3), jax.tree.map(jnp.float32, LRS_GS), jnp.float32(1e-4),
-                    jnp.asarray(s["pre_d_xyz"][uids]), jnp.asarray(s["pre_d_joints"][uids]),
-                    jnp.ones(B, jnp.float32), jnp.zeros(B, jnp.float32), j_flags(**FLAGS))
+    return step(ref["jstate"], j_stack([ref["jframes"][u] for u in uids]), jnp.asarray(uids, jnp.int32),
+                jnp.zeros(3), jax.tree.map(jnp.float32, LRS_GS), jnp.float32(1e-4),
+                jnp.asarray(s["pre_d_xyz"][uids]), jnp.asarray(s["pre_d_joints"][uids]),
+                jnp.ones(B, jnp.float32), jnp.zeros(B, jnp.float32), j_flags(**FLAGS))
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1)], ids=["1x2_tile_parallel", "2x1_data_parallel"])
+def test_dp_stage2_step_matches_reference(reference, ranks, shape):
+    import tests.test_torch_stage2_step as T2
+
+    jnew, jm = reference[shape]
     name = f"dp_{shape[0]}x{shape[1]}"
     got = ranks[0][name]
     T2._assert_step(jnew, jm, got["state"], got["metrics"], warm=False)
     assert ranks[1][name]["hash"] == got["hash"]
-    if tile_parallel:  # the blend's backward ran through the offset entry only
+    if shape[1] > 1:  # the blend's backward ran through the offset entry only
         calls = ranks[0]["plain_bwd_calls"]
         assert calls["blend_cm_offset_bwd"] > 0 and calls["blend_cm_bwd"] == 0
 
@@ -446,18 +483,18 @@ def _assert_loop(jstate, jhist, rec, got, n_steps, B):
             np.testing.assert_allclose(a[k], b[k], atol=1e-5, rtol=1e-6, err_msg=k)
 
 
-def test_train_stage2_dp_tile_parallel_matches_reference(inputs, ranks):
+def test_train_stage2_dp_tile_parallel_matches_reference(reference, ranks):
     """LOOP_STEPS iterations at 1 x 2 (the warm-up step, then the unlock
     with its FPS reset) against riggs_tpu's loop on make_mesh(1, 2); both
     ranks' states bitwise equal."""
     got = ranks[0]["loop_1x2"]
     assert ranks[1]["loop_1x2"]["hash"] == got["hash"]
     assert [e["event"] for e in got["events"]] == ["fps reset"]
-    jstate, jhist, rec = _reference_loop(inputs, (1, 2), ladder=False)
+    jstate, jhist, rec = reference["loop_1x2"]
     _assert_loop(jstate, jhist, rec, got, LOOP_STEPS, 1)
 
 
-def test_train_stage2_dp_data_parallel_ladder_matches_reference(inputs, ranks):
+def test_train_stage2_dp_data_parallel_ladder_matches_reference(reference, ranks):
     """LADDER_LOOP_STEPS iterations at 2 x 1 with the tile ladder on (the
     ladder fitted from the first two steps' (B, T) tile counts, the last
     step on it) against riggs_tpu's loop on make_mesh(2, 1); both ranks'
@@ -469,6 +506,6 @@ def test_train_stage2_dp_data_parallel_ladder_matches_reference(inputs, ranks):
     calls = ranks[0]["loop_2x1_plain_bwd_calls"]
     # two steps on plain windows, the last on the ladder's buckets
     assert calls["blend_cm_bwd"] == 2 and calls["blend_permuted_gm_bwd"] > 0, calls
-    jstate, jhist, rec = _reference_loop(inputs, (2, 1), ladder=True)
+    jstate, jhist, rec = reference["loop_2x1_ladder"]
     assert rec.ladders == [fits[0]["ladder"]]
     _assert_loop(jstate, jhist, rec, got, LADDER_LOOP_STEPS, 2)
