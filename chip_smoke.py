@@ -154,7 +154,10 @@ Phases, each printed as it runs:
      sync audit; scripts/torch_run_zju.py as a process of its own: exit 0,
      every file of scripts/run_zju.py's chain, J, the test metrics;
   16. cli: scripts/torch_run_pipeline.py --synthetic as a process of its
-     own on the card (CLI_SCHEDULE cuts only the schedule), exit 0, every
+     own on the card (CLI_RUN_SCHEDULE cuts only the schedule) with
+     --viewer_port, --gui_port and --detect_anomaly: while it trains, its
+     live viewer answers a /render and its SIBR endpoint a request from
+     this process; exit 0, every
      file scripts/run_pipeline.py writes, a finite numerical_res.txt, and
      its rig/ reloaded as scripts/torch_render_rig.py loads it, reproducing
      that table; then scripts/torch_resume_stage2.py on its stage-1
@@ -230,6 +233,21 @@ Phases, each printed as it runs:
      edges' differences and the paths' hop counts); the frame finite, a
      second call bitwise equal; then interpolate_key_poses driving
      render_rigged between two seeded poses.
+  26. edit: the ARAP editor on the serving avatar in a ViewerServer:
+     EditSession's 256 FPS controls, a seeded control picked at its pixel
+     and dragged by a seeded delta, the edited frame, optimize_weights once,
+     the counters zeroed just before and read just after: fit_rotations 3
+     times a solve, estimate_rotations, each launch held to its plain
+     version; deform_arap card vs the port on the CPU (EDIT_TOL of the
+     extent), the handles on their targets, a second drag from a cleared
+     session bitwise equal; a drag's ms and its frame's.
+  27. viewer: ViewerServer on the serving avatar on an ephemeral localhost
+     port, every endpoint (render modes, edit, pose library, playback) 200
+     through blend_cm, the rgb PNG equal to render_frame's frame quantized,
+     its ms and its overflow at the reference's window of 512; a SIBR round
+     trip; scripts/torch_viewer.py as a process on a rig written from the
+     avatar; scripts/torch_test_speed.py on that rig, plain and --ladder,
+     its FPS line beside [slice]'s serving frame.
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without CUDA
 it exits 2 and prints no result. Imports nothing of JAX or riggs_tpu.
@@ -361,9 +379,16 @@ CLI_SCHEDULE = dict(iterations_node_rendering=40, node_warm_up=10, iterations_no
                     opacity_reset_interval=30, ladder_check_every=10, skeleton_warm_up=10,
                     optimize_template_offsets_iters=20, gs_densification_iterations=15, densify_until_iter=35)
 CLI_TEST_EVERY = 30
+# [cli]'s own run carries --viewer_port, --gui_port and --detect_anomaly;
+# anomaly mode (a trace and a NaN check for every op) makes its steps ~3x
+# as long, so it runs CLI_SCHEDULE at half depth, every count and interval
+# halved, so every event still fires (PERF.md section 4), with a test
+# evaluation every CLI_RUN_TEST_EVERY
+CLI_RUN_SCHEDULE = {k: v // 2 for k, v in CLI_SCHEDULE.items()}
+CLI_RUN_TEST_EVERY = 10
 # the resume twin on [cli]'s output: stage 2 resumed from its checkpoint at
-# CLI_SCHEDULE's 40 to RESUME_ITERATIONS
-RESUME_ITERATIONS = 50
+# CLI_RUN_SCHEDULE's 20 to RESUME_ITERATIONS
+RESUME_ITERATIONS = 25
 # [flow]: [loop]'s scene and schedule with warm_up 3000 -> 10, so that
 # phase B's steps 10-39 carry the flow term (after the opacity reset at 30
 # few pixels stay solid, alpha > 0.9, and the term may fall to 0); the held
@@ -3063,7 +3088,8 @@ def io_phase(blend, scene, stage1_state, state, info, cfg):
 
 def cli_phase():
     """Phase 16: scripts/torch_run_pipeline.py --synthetic as a process of
-    its own on the card (CLI_SCHEDULE), then its rig/ loaded as
+    its own on the card (CLI_RUN_SCHEDULE) with its viewer, SIBR and anomaly
+    flags, a /render and a SIBR request served while it trains, then its rig/ loaded as
     scripts/torch_render_rig.py loads it and its test set rendered again:
     exit 0, every file scripts/run_pipeline.py writes, a finite
     numerical_res.txt equal to the reloaded rig's."""
@@ -3079,21 +3105,37 @@ def cli_phase():
     root = Path(__file__).resolve().parent
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "run"
+        viewer_port, gui_port = _free_port(), _free_port()
         cmd = [sys.executable, str(root / "scripts" / "torch_run_pipeline.py"), "--synthetic", "--model_path", str(out),
-               "--test_every", str(CLI_TEST_EVERY)]
-        for k, v in CLI_SCHEDULE.items():
+               "--test_every", str(CLI_RUN_TEST_EVERY), "--viewer_port", str(viewer_port), "--gui_port", str(gui_port),
+               "--detect_anomaly"]
+        for k, v in CLI_RUN_SCHEDULE.items():
             cmd += [f"--{k}", str(v)]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+        procs = _start([cmd])
+        probes = {}
+        threads = _pipeline_probes(gui_port, viewer_port, probes)
+        (rc, stdout, stderr), = _finish(procs, 900)
+        for th in threads:
+            th.join(timeout=5)
         wall = time.perf_counter() - t0
-        tail = [line for line in res.stdout.splitlines() if line.strip()][-4:]
-        print(f"[cli] torch_run_pipeline.py --synthetic exit {res.returncode} in {wall:.1f} s: {tail}")
-        if res.returncode != 0:
-            raise RuntimeError(f"[cli] torch_run_pipeline.py failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
-        n = CLI_SCHEDULE["iterations"]
+        tail = [line for line in stdout.splitlines() if line.strip()][-4:]
+        print(f"[cli] torch_run_pipeline.py --synthetic --viewer_port --gui_port --detect_anomaly exit {rc} in "
+              f"{wall:.1f} s: {tail}")
+        if rc != 0:
+            raise RuntimeError(f"[cli] torch_run_pipeline.py failed:\n{stdout[-3000:]}\n{stderr[-3000:]}")
+        sibr = probes.get("sibr")
+        if probes.get("viewer") != (512, 512, 3) or sibr is None or sibr[:2] != ((64, 96, 3), str(out)):
+            raise RuntimeError(f"[cli] while it trained: the live viewer's /render {probes.get('viewer')} (codes before "
+                               f"it {probes.get('viewer_codes')}), the SIBR reply {sibr}")
+        print(f"[cli] while it trained: the live viewer answered /render with a 512x512 PNG {probes['viewer_s']:.1f} s "
+              f"after the start (earlier replies {probes.get('viewer_codes', [])}: 503 before the first step), a SIBR "
+              f"request answered with a 96x64 image (mean {sibr[2]:.3f}) and the verify string; anomaly mode on "
+              f"throughout")
+        n = CLI_RUN_SCHEDULE["iterations"]
         want = ["cfg.json", "skeleton_tree.npz", "skeleton.obj", "numerical_res.txt",
                 f"checkpoints/iteration_{n}/state.npz", f"point_cloud/iteration_{n}/point_cloud.ply",
-                f"rig/checkpoints/iteration_{CLI_TEST_EVERY}/state.npz", f"rig/checkpoints/iteration_{n}/state.npz",
+                f"rig/checkpoints/iteration_{CLI_RUN_TEST_EVERY}/state.npz", f"rig/checkpoints/iteration_{n}/state.npz",
                 f"rig/point_cloud/iteration_{n}/point_cloud.ply", "rig/cfg.json"]
         missing = [w for w in want if not (out / w).exists()]
         text = (out / "numerical_res.txt").read_text() if (out / "numerical_res.txt").exists() else ""
@@ -3120,10 +3162,10 @@ def cli_phase():
 def resume_cli(rr, out, cfg, scene):
     """scripts/torch_resume_stage2.py on [cli]'s output as a process of its
     own: its stage-1 checkpoint (its node set densified and pruned) read,
-    stage 2 resumed from rig/'s checkpoint at CLI_SCHEDULE's length to
+    stage 2 resumed from rig/'s checkpoint at CLI_RUN_SCHEDULE's length to
     RESUME_ITERATIONS; exit 0, the files it writes, and its rig reloaded."""
     root = Path(__file__).resolve().parent
-    n = CLI_SCHEDULE["iterations"]
+    n = CLI_RUN_SCHEDULE["iterations"]
     for f in ("skeleton_tree.npz", "skeleton.obj", "numerical_res.txt"):
         (out / f).unlink()
     cmd = [sys.executable, str(root / "scripts" / "torch_resume_stage2.py"), "--model_path", str(out), "--iterations",
@@ -4845,12 +4887,12 @@ def _dp1_steps_one(mesh, cfg, state0, frames, bg, cap):
 MH_STEPS = 3  # dp stage-2 steps of B = 2, fed through global_batch and through shard_batch
 MH_TIMEOUT = 600
 MH_ITERS = 5  # the scaling twin's timed steps a size
-# the pipeline twin's --dp 2: CLI_SCHEDULE at half depth (every count and
-# interval halved, so every event still fires), to pay for the ranks
-# running alone before the twins; its test cadence even, since the
-# two-rank loop advances two iterations a step
-MH_CLI_SCHEDULE = {k: v // 2 for k, v in CLI_SCHEDULE.items()}
-MH_TEST_EVERY = 10
+# the pipeline twin's --dp 2: [cli]'s half depth (every count and interval
+# halved, so every event still fires), to pay for the ranks running alone
+# before the twins; its test cadence even, since the two-rank loop
+# advances two iterations a step
+MH_CLI_SCHEDULE = CLI_RUN_SCHEDULE
+MH_TEST_EVERY = CLI_RUN_TEST_EVERY
 
 
 def _multihost_rank(rank, world, port, cap, out_dir):
@@ -5133,12 +5175,13 @@ GEO_D2_ULPS = 16  # the KNN's squared distances card vs CPU: this many ulps (2^-
 
 
 class _CovCapture:
-    """Record the covariances node_warp.p2dR hands to fit_rotations."""
+    """Record the covariances a module's callers hand to fit_rotations
+    (node_warp.p2dR's by default; edit/arap_deform.py's deform_arap)."""
 
-    def __init__(self):
+    def __init__(self, module=None):
         from riggs_tpu_torch.models import node_warp
 
-        self.nw, self.covs = node_warp, []
+        self.nw, self.covs = module or node_warp, []
 
     def __enter__(self):
         self.orig = self.nw.fit_rotations
@@ -5368,6 +5411,408 @@ def anim_phase(blend, gs, skel, cam, bg, frame_train):
     return dict(launches=launches, rot=rot, frame_ms=frame_ms, warp_ms=warp_ms, geo_ms=geo_ms,
                 closure_ms=closure_ms, geo_err=geo_err, geo_limit=geo_limit, d2_err=d2_err, geo_bitwise=geo_bitwise,
                 same=same)
+
+
+# [edit]: the ARAP editor on the serving avatar, as the viewer drives it
+EDIT_CTRL = 256  # EditSession's FPS controls (the viewer's /edit/init default)
+EDIT_VIEW = (0.0, 0.3, 3.0)  # the viewer's default orbit: azimuth, elevation, radius
+EDIT_DRAG_PX = 24.0  # the seeded drag's largest screen-space step, pixels
+# deform_arap on the card against the port on the CPU for the same deformer
+# and handles: the positions within this share of the controls' extent (a
+# dense f32 LU solve chained with three rotation fits; the fits differ by
+# ~2e-6 card vs CPU, PERF.md), the handles on their targets within 1e-6 of it
+EDIT_TOL = 1e-4
+HANDLE_TOL = 1e-6
+FPS_RENDERS = 200  # scripts/torch_test_speed.py's timed renders in [viewer]
+
+
+def edit_phase(blend, gs, skel):
+    """[edit]: the serving avatar (100 000 alive of 131 072 slots, 800x800)
+    in a ViewerServer; EditSession with EDIT_CTRL FPS controls; one control,
+    seeded among those in view, picked at its projected pixel in the
+    viewer's default orbit (after the control farthest from it on screen,
+    picked as a handle that stays) and dragged by a seeded delta, the edited frame
+    rendered, and optimize_weights run once on the drag, the counters zeroed
+    just before and read just after: fit_rotations launched 3 times (one a
+    solve iteration) and estimate_rotations at least once (the energy's
+    fit), each launch held to its plain version (check_cov_fits,
+    check_rotfit), blend_cm launched. deform_arap on the card against the
+    port on the CPU for the same deformer and handles (EDIT_TOL of the
+    extent), the handles on their targets, the frame finite, the new
+    weights finite and moved; a second drag from a cleared session bitwise
+    equal. Times: a drag (pick, solve, blend of d_xyz) and the edited frame,
+    host clock around synchronized calls."""
+    import dataclasses
+
+    import torch
+
+    from riggs_tpu_torch.camera.camera import project_nodes_2d
+    from riggs_tpu_torch.edit import arap_deform as AD
+    from riggs_tpu_torch.edit.session import EditSession
+    from riggs_tpu_torch.ops import geometry as GEO
+    from riggs_tpu_torch.viz.web_viewer import ViewerServer
+
+    t0 = time.perf_counter()
+    viewer = ViewerServer(gs, skel=skel, width=SIZE, height=SIZE, device=DEVICE)
+    cam = viewer._camera(*EDIT_VIEW)
+    sess = viewer.edit = EditSession(gs.xyz, n_ctrl=EDIT_CTRL, device=DEVICE)
+    rc = project_nodes_2d(cam, sess.ctrl_rest).cpu().numpy()
+    inside = np.flatnonzero((rc.min(1) > 0) & (rc.max(1) < SIZE))
+    rng = np.random.default_rng(15)
+    target = int(rng.choice(inside))
+    # a second handle that stays put: the control in view farthest on screen
+    # (one handle alone drags the whole graph rigidly, at zero ARAP energy)
+    anchor = int(inside[np.argmax(np.hypot(*(rc[inside] - rc[target]).T))])
+    delta = rng.uniform(-EDIT_DRAG_PX, EDIT_DRAG_PX, size=2)
+    extent = float(torch.linalg.norm(sess.ctrl_rest.amax(0) - sess.ctrl_rest.amin(0)))
+    torch.cuda.synchronize()
+    print(f"[edit] set-up {time.perf_counter() - t0:.1f} s: EditSession over the {gs.capacity} slots, "
+          f"{sess.ctrl_rest.shape[0]} FPS controls ({inside.size} in view), K = {sess.deformer.nn_idx.shape[1]}; "
+          f"control {anchor} pinned, control {target} dragged by ({delta[0]:.2f}, {delta[1]:.2f}) px")
+
+    def drag():
+        picked = [sess.pick(cam, float(rc[i, 1]), float(rc[i, 0])) for i in (anchor, target)]
+        sess.drag(cam, float(delta[0]), float(delta[1]))
+        return picked
+
+    # the main path, counters zeroed just before and read just after
+    torch.cuda.synchronize()
+    blend.reset_launches()
+    GEO.reset_launches()
+    with _CovCapture(AD) as covs, _RotCapture() as rots:
+        picked = drag()
+        frame = viewer.render_frame(*EDIT_VIEW, 0.0, "edited")
+        prev, cur = sess.ctrl_rest, sess.ctrl_cur
+        tuned = AD.optimize_weights(sess.deformer, prev, cur)
+        torch.cuda.synchronize()
+    launches = {**{k: v for k, v in blend.launches.items() if v}, **dict(GEO.launches)}
+    print(f"[edit] launch counters over two picks, a drag, the edited frame and optimize_weights: {launches}")
+    if picked != [anchor, target] or launches["fit_rotations"] != 3 or launches["estimate_rotations"] < 1 \
+            or not launches.get("blend_cm"):
+        raise RuntimeError(f"[edit] picked {picked} (want {[anchor, target]}); launches {launches}: want "
+                           "fit_rotations 3 a "
+                           "solve, estimate_rotations and blend_cm")
+    _check_frame(frame, SIZE, "[edit] the edited frame")
+    idx = torch.as_tensor(np.asarray(sess.kps.get_kpt_idx(), np.int64), device=DEVICE)
+    want = torch.as_tensor(np.asarray(sess.kps.get_kpt(), np.float32), device=DEVICE)
+    handle_err = float((sess.ctrl_cur[idx] - want).abs().max())
+    moved = float((sess.ctrl_cur - sess.ctrl_rest).abs().max())
+    e0 = float(AD.arap_energy(sess.deformer, prev, cur))
+    e1 = float(AD.arap_energy(tuned, prev, cur))
+    w_moved = float((tuned.weight - sess.deformer.weight).abs().max())
+    if not (handle_err <= HANDLE_TOL * extent and bool(torch.isfinite(tuned.weight).all()) and w_moved > 0):
+        raise RuntimeError(f"[edit] handles off their targets by {handle_err:.3e} (extent {extent:.3f}), or the tuned "
+                           f"weights not finite or unmoved ({w_moved:.3e})")
+    rot_cov = check_cov_fits(covs.covs, "[edit]")
+    fits = [(s, t, type(c)(*(x.detach() for x in c))) for s, t, c in rots.fits]
+    rot_est = check_rotfit(fits, "[edit]")
+
+    # deform_arap card vs the port on the CPU, the same deformer and handles
+    cpu = dataclasses.replace(sess.deformer, **{f.name: getattr(sess.deformer, f.name).cpu()
+                                                 for f in dataclasses.fields(sess.deformer)})
+    p_card, q_card = AD.deform_arap(sess.deformer, idx, want)
+    p_cpu, q_cpu = AD.deform_arap(cpu, idx.cpu(), want.cpu())
+    pos_err = float((p_card.cpu() - p_cpu).abs().max())
+    q_err = float(torch.minimum((q_card.cpu() - q_cpu).abs().amax(-1), (q_card.cpu() + q_cpu).abs().amax(-1)).max())
+    if not pos_err <= EDIT_TOL * extent:
+        raise RuntimeError(f"[edit] deform_arap card vs CPU: max |d p| {pos_err:.3e}, the limit {EDIT_TOL} x extent "
+                           f"{extent:.3f}")
+
+    # a second drag from a cleared session: bitwise the first
+    first = (sess.ctrl_cur.clone(), sess.d_xyz.clone())
+    sess.clear()
+    drag()
+    same = _same_bits(first[0], sess.ctrl_cur) and _same_bits(first[1], sess.d_xyz)
+    if not same:
+        raise RuntimeError("[edit] a second drag from a cleared session differs from the first")
+    drag_ms = _host_ms(lambda: (sess.clear(), drag()), 5)
+    solve_ms = _host_ms(sess.solve, 5)
+    frame_ms = _host_ms(lambda: viewer.render_frame(*EDIT_VIEW, 0.0, "edited"), 5)
+    print(f"[edit] the controls moved up to {moved:.4f} (extent {extent:.3f}); handles on their targets within "
+          f"{handle_err:.2e}; deform_arap card vs CPU: max |d p| {pos_err:.3e} ({pos_err / extent:.2e} of the extent, "
+          f"limit {EDIT_TOL:.0e}), quaternions up to sign {q_err:.3e}; optimize_weights: ARAP energy {e0:.6e} -> "
+          f"{e1:.6e}, weights moved up to {w_moved:.3e}; a second drag from a cleared session bitwise equal")
+    print(f"[edit] a drag (two picks, 4 solves, 3 rotation fits, the blend of d_xyz) {drag_ms:.2f} ms, the solve alone "
+          f"{solve_ms:.2f} ms, the edited frame {frame_ms:.2f} ms ({SIZE}x{SIZE}, window 512): a drag and its frame "
+          f"{drag_ms + frame_ms:.2f} ms, host clock around synchronized calls")
+    return dict(launches=launches, cov=rot_cov, est=rot_est, drag_ms=drag_ms, solve_ms=solve_ms, frame_ms=frame_ms,
+                pos_err=pos_err, q_err=q_err, handle_err=handle_err)
+
+
+def _http_get(port, path, timeout=120):
+    """(status, body) of a GET on localhost."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _png(body, what):
+    import io
+
+    from PIL import Image
+
+    if body[:4] != b"\x89PNG":
+        raise RuntimeError(f"{what}: not a PNG")
+    return np.asarray(Image.open(io.BytesIO(body)))
+
+
+def _to_view_matrix(w2c):
+    """The SIBR client's form of a camera: w2c^T with the Y/Z columns negated."""
+    m = np.asarray(w2c, np.float32).T.copy()
+    m[:, 1:3] = -m[:, 1:3]
+    return m
+
+
+def write_rig(root, gs, skel):
+    """The serving avatar as the pipeline writes a rig: cfg.json,
+    skeleton_tree.npz, rig/ (its checkpoint at iteration 1 and PLY)."""
+    import torch
+
+    from riggs_tpu_torch.io.checkpoint import save_checkpoint, save_skeleton_tree
+    from riggs_tpu_torch.models import gaussians as G
+    from riggs_tpu_torch.train import optim as O
+    from riggs_tpu_torch.train.config import Config
+    from riggs_tpu_torch.train.stage2 import Stage2State
+
+    cfg = Config()
+    cfg.model.capacity, cfg.model.sh_degree, cfg.model.gs_with_motion_mask = CAPACITY, SH_DEGREE, True
+    cfg.model.use_skinning_weight_mlp = cfg.model.use_template_offsets = True
+    cfg.opt.skeleton_weight_knn = -1
+    state = Stage2State(gs=gs, skel=skel, opt_gs=O.adam_init(gs.params_dict()), opt_skel=O.adam_init(skel.params_dict()),
+                        stats_gs=G.init_densify_stats(gs.capacity, device=DEVICE),
+                        proj_loss=torch.ones(1, device=DEVICE), it=torch.zeros((), dtype=torch.int32, device=DEVICE))
+    cfg.save(root / "cfg.json")
+    save_skeleton_tree(root, skel.joints.cpu().numpy(), np.array(PARENTS), np.arange(len(PARENTS)), 0)
+    save_checkpoint(root / "rig", 1, state, gs=gs, cfg=cfg)
+
+
+def viewer_phase(blend, gs, skel, slice_ms):
+    """[viewer]: ViewerServer on the serving avatar (800x800) on an
+    ephemeral localhost port, the counters zeroed just before its requests
+    and read just after: /, /render in rgb, skinning and motion mode and with
+    a joint edit, /edit/init, /edit/pick at a control's pixel, /edit/drag and
+    an edited render, /pose/save twice, /pose/play and a sequence render:
+    every reply 200, every PNG decoded, the rgb PNG equal to render_frame's
+    frame quantized as the server quantizes it, blend_cm launched. The
+    viewer frame's ms (render_frame, and a /render round trip) and its
+    overflow counters at the reference's window of 512. Then a SibrServer
+    polled with a SibrClient in a thread: the reply's bytes equal to
+    encode_image of the same render. Then scripts/torch_viewer.py as a
+    process of its own on a rig directory written from the avatar, polled
+    until it answers, its /render (the default 512x512 frame) equal to this
+    process's, then stopped;
+    then scripts/torch_test_speed.py --model_path on that directory with
+    --renders 200, and with --ladder: its FPS line beside [slice]'s serving
+    frame."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from riggs_tpu_torch.camera.camera import project_nodes_2d
+    from riggs_tpu_torch.models import skeleton_warp as SW
+    from riggs_tpu_torch.render.api import render
+    from riggs_tpu_torch.viz.sibr import SibrClient, SibrServer, encode_image, quantize
+    from riggs_tpu_torch.viz.web_viewer import ViewerServer
+
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        v = ViewerServer(gs, skel=skel, width=SIZE, height=SIZE, device=DEVICE, pose_lib_path=tmp / "poses.json")
+        v.serve(port=0, blocking=False)
+        port = v.httpd.server_address[1]
+        replies = []
+
+        def get(path):
+            status, body = _http_get(port, path)
+            replies.append((path, status))
+            if status != 200:
+                raise RuntimeError(f"[viewer] GET {path}: {status} {body[:2000]!r}")
+            return body
+
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        blend.reset_launches()
+        try:
+            page = get("/")
+            pngs = {q: _png(get(f"/render?t=0.3&{q}"), q)
+                    for q in ("mode=rgb", "mode=skinning", "mode=motion", "mode=rgb&joint=4&angle=30")}
+            n_ctrl = json.loads(get(f"/edit/init?n={EDIT_CTRL}"))["n_ctrl"]
+            rc = project_nodes_2d(v._camera(*EDIT_VIEW), v.edit.ctrl_rest).cpu().numpy()
+            i = int(np.flatnonzero((rc.min(1) > 0) & (rc.max(1) < SIZE))[0])
+            picked = json.loads(get(f"/edit/pick?x={rc[i, 1]}&y={rc[i, 0]}"))["picked"]
+            get("/edit/drag?dx=9&dy=-5")
+            pngs["mode=edited"] = _png(get("/render?mode=edited"), "edited")
+            get("/pose/save?name=a&t=0.2")
+            get("/pose/save?name=b&t=0.8&joint=4&angle=30")
+            frames = json.loads(get("/pose/play?names=a,b&frames=4"))["frames"]
+            pngs["seq=2"] = _png(get("/render?seq=2"), "seq")
+            torch.cuda.synchronize()
+            launches = {k: n for k, n in blend.launches.items() if n}
+            wall = time.perf_counter() - t0
+            print(f"[viewer] {len(replies)} requests in {wall:.1f} s, every reply 200: "
+                  f"{[p.split('?')[0] for p, _ in replies]}; launch counters over them: {launches}")
+            if b"canvas" not in page or picked != i or n_ctrl != EDIT_CTRL or frames != 4 \
+                    or not launches.get("blend_cm"):
+                raise RuntimeError(f"[viewer] page {b'canvas' in page}, picked {picked} (want {i}), {n_ctrl} controls, "
+                                   f"{frames} frames, launches {launches}")
+            for q, img in pngs.items():
+                if img.shape != (SIZE, SIZE, 3):
+                    raise RuntimeError(f"[viewer] /render {q}: a {img.shape} PNG")
+            want = quantize(v.render_frame(*EDIT_VIEW, 0.3))
+            if not np.array_equal(pngs["mode=rgb"], want):
+                raise RuntimeError("[viewer] the rgb PNG is not render_frame's frame quantized")
+            frame_ms = _host_ms(lambda: v.render_frame(*EDIT_VIEW, 0.5), 10)
+            t1 = time.perf_counter()
+            for k in range(5):
+                _png(get(f"/render?t={k / 5}"), "timed")
+            http_ms = (time.perf_counter() - t1) / 5 * 1e3
+        finally:
+            v.shutdown()
+        # the frame as render_frame makes it, for its overflow counters
+        with torch.no_grad():
+            pose = SW.pose_at(skel, 0.3)
+            d = SW.deform_by_pose(skel, gs.xyz, pose["local_rotation"], pose["global_trans"], gs.motion_mask)
+            out = render(v._camera(*EDIT_VIEW), gs, torch.zeros(3, device=DEVICE), d_xyz=d["d_xyz"],
+                         d_rotation=d["d_rotation"], d_scaling=torch.zeros_like(d["d_scaling"]),
+                         active_sh_degree=gs.max_sh_degree, max_per_tile=512)
+        if not np.array_equal(quantize(out["render"]), want):
+            raise RuntimeError("[viewer] the mirrored frame differs from render_frame's")
+        overflow = {k: int(out[k]) for k in ("overflow_tiles", "overflow_rect", "max_count")}
+        print(f"[viewer] a viewer frame (pose_at + deform_by_pose + render, {SIZE}x{SIZE}, the reference's window "
+              f"512): {frame_ms:.2f} ms by the host clock around synchronized calls, a /render round trip (the frame, "
+              f"its PNG, HTTP) {http_ms:.2f} ms; overflow_tiles {overflow['overflow_tiles']}, overflow_rect "
+              f"{overflow['overflow_rect']}, the largest tile count {overflow['max_count']} (the reference viewer "
+              f"reads neither counter); [slice]'s serving frame {slice_ms:.2f} ms at its fitted window")
+
+        # SIBR: a client in a thread, the server polled as a training loop polls it
+        server = SibrServer("127.0.0.1", 0, verify="chip_smoke", device=DEVICE)
+        served, result = {}, {}
+
+        def render_fn(cam, scaling_modifier):
+            served.update(cam=cam, scale=scaling_modifier)
+            with torch.no_grad():
+                return render(cam, gs, torch.zeros(3, device=DEVICE), scaling_modifier=scaling_modifier,
+                              active_sh_degree=gs.max_sh_degree, max_per_tile=512)["render"]
+
+        def client():
+            c = SibrClient("127.0.0.1", server.port)
+            result["img"], result["verify"] = c.request(SIZE, SIZE, _to_view_matrix(v._camera(*EDIT_VIEW).w2c.cpu()),
+                                                        fovx=v.fov, fovy=v.fov, train=True)
+            c.close()
+
+        th = threading.Thread(target=client, daemon=True)
+        th.start()
+        for _ in range(600):
+            server.poll(render_fn)
+            if result:
+                break
+            time.sleep(0.05)
+        th.join(timeout=30)
+        server.close()
+        sibr_same = bool(result) and result["img"].tobytes() == encode_image(render_fn(served["cam"], served["scale"]))
+        if not sibr_same or result["verify"] != "chip_smoke":
+            raise RuntimeError(f"[viewer] SIBR: reply {bool(result)}, bytes equal {sibr_same}")
+        print(f"[viewer] SIBR round trip: a {SIZE}x{SIZE} request answered with encode_image of the same render, "
+              f"the verify string back")
+
+        # the viewer twin as a process of its own, then the FPS twin
+        t0 = time.perf_counter()
+        write_rig(tmp, gs, skel)
+        rig_s = time.perf_counter() - t0
+        vport = _free_port()
+        procs = _start([[sys.executable, str(root / "scripts" / "torch_viewer.py"), "--model_path", str(tmp), "--port",
+                         str(vport), "--device", DEVICE]])
+        try:
+            t0 = time.perf_counter()
+            while True:
+                if procs[0].poll() is not None:
+                    raise RuntimeError(f"[viewer] torch_viewer.py exited {procs[0].returncode}: "
+                                       f"{procs[0].communicate()}")
+                try:
+                    status, _ = _http_get(vport, "/", timeout=5)
+                    break
+                except OSError:
+                    if time.perf_counter() - t0 > 180:
+                        raise RuntimeError("[viewer] torch_viewer.py never answered") from None
+                    time.sleep(0.5)
+            up = time.perf_counter() - t0
+            status, body = _http_get(vport, "/render?t=0.3")
+            # the twin's viewer has the default 512 x 512 frame
+            want_twin = quantize(ViewerServer(gs, skel=skel, device=DEVICE).render_frame(*EDIT_VIEW, 0.3))
+            twin_same = status == 200 and np.array_equal(_png(body, "twin"), want_twin)
+        finally:
+            _kill(procs)
+        if not twin_same:
+            raise RuntimeError(f"[viewer] torch_viewer.py's /render: {status}, equal to this process's {twin_same}")
+        print(f"[viewer] torch_viewer.py on the rig written from the avatar ({rig_s:.1f} s): answered after {up:.1f} s, "
+              f"its /render (512x512, the default) equal to this process's frame; stopped")
+        fps = {}
+        for label, extra in (("plain windows", []), ("ladder", ["--ladder"])):
+            cmd = [sys.executable, str(root / "scripts" / "torch_test_speed.py"), "--model_path", str(tmp), "--renders",
+                   str(FPS_RENDERS), "--size", str(SIZE), "--device", DEVICE] + extra
+            res = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+            line = [ln for ln in res.stdout.splitlines() if " FPS (" in ln]
+            counted = [json.loads(ln.split(":", 1)[1]) for ln in res.stdout.splitlines() if ln.startswith("launches:")]
+            first = [ln for ln in res.stdout.splitlines() if ln.startswith("first frame")]
+            if res.returncode != 0 or not line or not counted:
+                raise RuntimeError(f"[viewer] torch_test_speed.py {extra} failed:\n{res.stdout[-3000:]}\n"
+                                   f"{res.stderr[-3000:]}")
+            fps[label] = dict(line=line[0], launches=counted[0], first=first[0] if first else "")
+            m = re.search(r": ([0-9.]+)s = ([0-9.]+) FPS", line[0])
+            fps[label]["ms"] = float(m.group(1)) / FPS_RENDERS * 1e3
+            print(f"[viewer] torch_test_speed.py --renders {FPS_RENDERS} {' '.join(extra)}: {line[0]}; {fps[label]['first']}; "
+                  f"launches {counted[0]} -> {fps[label]['ms']:.2f} ms a frame, beside [slice]'s serving frame "
+                  f"{slice_ms:.2f} ms ({1e3 / slice_ms:.1f} FPS)")
+    return dict(launches=launches, frame_ms=frame_ms, http_ms=http_ms, overflow=overflow, fps=fps)
+
+
+def _pipeline_probes(gui_port, viewer_port, out):
+    """Threads that reach the pipeline twin while it trains: a /render on
+    its live viewer (retried until it answers 200) and one SIBR request
+    (connecting until the server listens). Their outcomes land in ``out``."""
+    import threading
+
+    from riggs_tpu_torch.viz.sibr import SibrClient
+
+    def viewer():
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 600:
+            try:
+                status, body = _http_get(viewer_port, "/render?t=0.5&r=2.5", timeout=60)
+                if status == 200:
+                    out["viewer"] = _png(body, "[cli] live /render").shape
+                    out["viewer_s"] = time.perf_counter() - t0
+                    return
+                out.setdefault("viewer_codes", []).append(status)
+            except OSError:
+                pass
+            time.sleep(0.5)
+
+    def sibr():
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 600:
+            try:
+                c = SibrClient("127.0.0.1", gui_port)
+            except OSError:
+                time.sleep(0.2)
+                continue
+            view = np.eye(4, dtype=np.float32)
+            view[3, 2] = -2.5  # the client's form of a camera 2.5 in front of the origin
+            img, verify = c.request(96, 64, view, train=True)
+            c.close()
+            out["sibr"] = (img.shape, verify, float(img.mean()))
+            return
+
+    threads = [threading.Thread(target=f, daemon=True) for f in (viewer, sibr)]
+    for t in threads:
+        t.start()
+    return threads
 
 
 def main() -> int:
@@ -5623,6 +6068,16 @@ def main() -> int:
 
     lap("anim")
 
+    # 26. the ARAP editor on the serving avatar (its own counted run)
+    edit = edit_phase(blend, gs, skel)
+
+    lap("edit")
+
+    # 27. the web viewer's endpoints (their own counted run), SIBR, the viewer and FPS twins
+    viewer = viewer_phase(blend, gs, skel, frame_ms["plain windows"])
+
+    lap("viewer")
+
     def held(name, results=loop_held):
         """A loop's held steps of a kernel: error, times and bound."""
         return {label: {"max_abs_err": max(r["err"].values()) if isinstance(r["err"], dict) else r["err"],
@@ -5663,8 +6118,11 @@ def main() -> int:
             "launches_io": io_launches[name], "launches_flow": flow_launches[name], "held_flow": held(name, flow_held),
             "launches_zju": zju_launches[name], "held_zju": held(name, zju_held),
             "launches_refpoint": refpoint_launches[name],
+            "launches_fps_twin": viewer["fps"]["plain windows"]["launches"].get(name, 0),
+            "launches_fps_twin_ladder": viewer["fps"]["ladder"]["launches"].get(name, 0),
             **({"launches_phase_a": pa_launches[name], "ms_phase_a": pa_fwd[name]["ms"],
-                "launches_anim": anim["launches"].get(name, 0),
+                "launches_anim": anim["launches"].get(name, 0), "launches_edit": edit["launches"].get(name, 0),
+                "launches_viewer": viewer["launches"].get(name, 0),
                 "bound_ms_phase_a": pa_fwd[name]["bound_ms"], "plain_ms_phase_a": pa_fwd[name]["plain_ms"],
                 "held_io": {"max_abs_err": max(io_held["err"].values()), "ms": io_held["ms"],
                             "plain_ms": io_held["plain_ms"], "bound_ms": io_held["bound_ms"]},
@@ -5722,7 +6180,8 @@ def main() -> int:
     # and on the planted ones
     r = loop_rot["phase B ladder it=39"]
     rot_runs = {"stage1": stage1_rot, "phase_a": pa_rot, **{f"loop {k}": v for k, v in loop_rot.items()},
-                "flow": flow_rot, **{f"zju {k}": v for k, v in zju_rot.items()}, "hash arap_loss_with_rot": hash_rot}
+                "flow": flow_rot, **{f"zju {k}": v for k, v in zju_rot.items()}, "hash arap_loss_with_rot": hash_rot,
+                "edit optimize_weights": edit["est"]}
     per_path = lambda name: {"launches_stage1": stage1_launches[name], "launches_phase_a": pa_launches[name],
                              "launches_io": io_launches[name], "launches_flow": flow_launches[name],
                              "launches_zju": zju_launches[name], "launches_hash": hash_launches[name],
@@ -5735,7 +6194,7 @@ def main() -> int:
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"], "device_ms": r["device_ms"], "floor_ms": r["floor_ms"],
         "floor_device_ms": r["floor_device_ms"], "before_ms": r["before_ms"], "batch": r["batch"], "K": r["K"],
-        **per_path("estimate_rotations"),
+        **per_path("estimate_rotations"), "launches_edit": edit["launches"]["estimate_rotations"],
         "planted": stage1_rot["planted_edges"], "max_det_err": max(v["det_err"] for v in rot_runs.values()),
         "sweeps": {k: v["sweeps"] for k, v in rot_runs.items()},
         "held": {k: {key: v[key] for key in ("fits", "ill_posed", "err", "scaled_err", "ms", "device_ms",
@@ -5749,13 +6208,18 @@ def main() -> int:
         "name": "fit_rotations", "route": "cuda", "source": "riggs_tpu_torch/csrc/rotfit.cu",
         "replaces": "riggs_tpu/ops/geometry.py:33", "replaces_kind": "stock op in riggs_tpu (jnp.linalg.svd), C2a",
         "launches": anim["launches"]["fit_rotations"],
-        "max_abs_err": max([a["err"]] + [v["cov_err"] for v in rot_runs.values()]),
+        "max_abs_err": max([a["err"], edit["cov"]["err"]] + [v["cov_err"] for v in rot_runs.values()]),
         "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
         "library_ms": a["library_ms"], "device_ms": a["device_ms"], "batch": a["batch"], "max_det_err": a["det_err"],
-        "launches_anim": anim["launches"]["fit_rotations"], **per_path("fit_rotations"),
+        "launches_anim": anim["launches"]["fit_rotations"], "launches_edit": edit["launches"]["fit_rotations"],
+        "ms_edit": edit["cov"]["ms"], "device_ms_edit": edit["cov"]["device_ms"],
+        "plain_ms_edit": edit["cov"]["plain_ms"], "library_ms_edit": edit["cov"]["library_ms"],
+        "bound_ms_edit": edit["cov"]["bound_ms"], "batch_edit": edit["cov"]["batch"], **per_path("fit_rotations"),
         "ms_loop": r["cov_ms"], "plain_ms_loop": r["cov_plain_ms"], "bound_ms_loop": r["cov_bound_ms"],
         "library_ms_loop": r["cov_library_ms"], "device_ms_loop": r["cov_device_ms"], "batch_loop": r["batch"],
-        "planted": stage1_rot["planted"], "held": {"anim p2dR": a["err"], **{k: v["cov_err"] for k, v in rot_runs.items()}},
+        "planted": stage1_rot["planted"],
+        "held": {"anim p2dR": a["err"], "edit deform_arap": edit["cov"]["err"],
+                 **{k: v["cov_err"] for k, v in rot_runs.items()}},
     })
     # the offset entry: times on the second shard of a 2-way split of the
     # serving frame's tiles ([edges]), launches of [tileshard]'s 1 x 2 steps

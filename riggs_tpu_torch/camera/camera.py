@@ -4,6 +4,8 @@ Port of ``riggs_tpu/camera/camera.py``: the same (fx, fy, cx, cy) pinhole
 math and the reference's viewport convention
 
     pix = f * (x_view / z_view) + c - 0.5,   c = (W/2, H/2) by default.
+
+``depth2normal`` turns a depth map into view-space normals.
 """
 from __future__ import annotations
 
@@ -124,6 +126,22 @@ def project_points(cam: Camera, points: torch.Tensor) -> tuple[torch.Tensor, tor
 def camera_center(cam: Camera) -> torch.Tensor:
     """World-space camera position: -R^T t of the w2c transform."""
     return -cam.w2c[:3, :3].T @ cam.w2c[:3, 3]
+
+
+def depth2normal(cam: Camera, depth: torch.Tensor) -> torch.Tensor:
+    """Per-pixel unit normals (H, W, 3) in view space from a view-space
+    depth map (H, W): the cross product of the back-projected points'
+    differences along x and y, central inside and one-sided at the edges
+    (``torch.gradient``'s edge_order 1, as ``jnp.gradient``)."""
+    H, W = depth.shape
+    fx, fy, cx, cy = cam.intrinsics.unbind()
+    xs = (torch.arange(W, dtype=torch.float32, device=depth.device) - cx + 0.5) / fx
+    ys = (torch.arange(H, dtype=torch.float32, device=depth.device) - cy + 0.5) / fy
+    pts = torch.stack([xs[None, :] * depth, ys[:, None] * depth, depth], dim=-1)
+    (dx,) = torch.gradient(pts, dim=1)
+    (dy,) = torch.gradient(pts, dim=0)
+    n = torch.linalg.cross(dx, dy)
+    return n / torch.maximum(torch.linalg.norm(n, dim=-1, keepdim=True), constant(1e-8, n))
 
 
 def project_nodes_2d(cam: Camera, nodes: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,7 @@ import torch
 from riggs_tpu_torch.camera.camera import Camera
 from riggs_tpu_torch.data.dataset import Frame
 from riggs_tpu_torch.device import resolve_device
+from riggs_tpu_torch.edit.arap_deform import ArapDeformer
 from riggs_tpu_torch.models.deform_mlp import DeformNetworkDef
 from riggs_tpu_torch.models.gaussians import DensifyStats, Gaussians
 from riggs_tpu_torch.models.hash_encoding import HashDeformNetwork, HashGridDef
@@ -175,6 +176,14 @@ def skeleton_warp_from_numpy(
     if use_template_offsets:
         _load_mlp(skel.detail_mlp, params["detail_net"])
     return skel
+
+
+def arap_deformer_from_numpy(verts, nn_idx, weight, valid, device: str | torch.device | None = None) -> ArapDeformer:
+    """The reference's ``ArapDeformer`` leaves: (N, 3) rest positions, (N, K)
+    neighbour indices, edge weights and validity flags."""
+    dev = resolve_device(device)
+    return ArapDeformer(verts=_t(verts, dev), nn_idx=_t(nn_idx, dev, torch.int32), weight=_t(weight, dev),
+                        valid=_t(valid, dev, torch.bool))
 
 
 def camera_from_numpy(w2c, intrinsics, fid, width: int, height: int,

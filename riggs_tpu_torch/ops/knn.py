@@ -3,7 +3,8 @@
 Port of ``riggs_tpu/ops/knn.py``: ``pairwise_dist2``, ``_small_k`` (top-K
 skinning and the node blend), ``_row_k``, ``knn`` (chunked over the
 queries), ``mean_knn_dist2`` (the initial Gaussian scales) and
-``chamfer_distance`` (:97-129, the skeleton projection loss).
+``chamfer_distance`` (:97-129, the skeleton projection loss) and
+``ball_query`` (:132, the neighbours within a radius).
 """
 from __future__ import annotations
 
@@ -98,3 +99,12 @@ def chamfer_distance(
     else:
         mean_y = torch.mean(dy)
     return mean_x + mean_y
+
+
+def ball_query(x: torch.Tensor, y: torch.Tensor, radius: float, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Up to k neighbours in y of each x within ``radius`` (pytorch3d's
+    ball_query): (dist2 (N, k), idx (N, k) int32), ascending; dist2 = inf
+    and idx = -1 where no neighbour qualifies."""
+    d2, idx = knn(x, y, k)
+    ok = d2 <= radius * radius
+    return torch.where(ok, d2, torch.inf), torch.where(ok, idx, -1)

@@ -1,6 +1,8 @@
 """Real spherical harmonics (degrees 0..3) for view-dependent colour.
 
-Port of ``riggs_tpu/ops/sh.py``. The caller adds 0.5 and clamps at 0.
+Port of ``riggs_tpu/ops/sh.py``. The caller adds 0.5 and clamps at 0;
+``rgb_to_sh_dc`` and ``sh_dc_to_rgb`` map a colour to its DC coefficient
+and back.
 """
 from __future__ import annotations
 
@@ -71,3 +73,8 @@ def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 def rgb_to_sh_dc(rgb: torch.Tensor) -> torch.Tensor:
     """RGB in [0, 1] -> DC SH coefficient."""
     return (rgb - 0.5) / C0
+
+
+def sh_dc_to_rgb(sh_dc: torch.Tensor) -> torch.Tensor:
+    """DC SH coefficient -> RGB (the inverse of ``rgb_to_sh_dc``)."""
+    return sh_dc * C0 + 0.5

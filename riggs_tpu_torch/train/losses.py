@@ -1,8 +1,8 @@
 """Photometric losses and image metrics.
 
 Port of ``riggs_tpu/train/losses.py``: l1, l2, PSNR, the 11x11 Gaussian-window
-SSIM with zero ('same') padding and its variance clamp, and the 3DGS
-photometric objective. SSIM's separable blur is two banded-matrix products,
+SSIM with zero ('same') padding and its variance clamp, the 3DGS
+photometric objective and the sparsity term ``kl_divergence``. SSIM's separable blur is two banded-matrix products,
 as in the reference; the port keeps that form so that both compute the same
 zero-padded convolution in the same order. The variance clamp uses
 ``torch.maximum``, which splits a tie's gradient as ``jnp.maximum`` does
@@ -90,3 +90,12 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch
 def photometric_loss(img: torch.Tensor, gt: torch.Tensor, lambda_dssim: float = 0.2) -> torch.Tensor:
     """The 3DGS objective: (1 - l) * L1 + l * (1 - SSIM)."""
     return (1.0 - lambda_dssim) * l1_loss(img, gt) + lambda_dssim * (1.0 - ssim(img, gt))
+
+
+def kl_divergence(rho: float, rho_hat_logits: torch.Tensor) -> torch.Tensor:
+    """The sparsity KL term: the mean over columns of KL(rho || rho_hat),
+    rho_hat the column means of sigmoid(logits), both logs guarded by 1e-5."""
+    rho_hat = torch.mean(torch.sigmoid(rho_hat_logits), dim=0)
+    rho = torch.full_like(rho_hat, rho)
+    return torch.mean(rho * torch.log(rho / (rho_hat + 1e-5))
+                      + (1.0 - rho) * torch.log((1.0 - rho) / (1.0 - rho_hat + 1e-5)))

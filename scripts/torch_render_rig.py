@@ -37,11 +37,27 @@ def save_video(path: Path, frames, fps: int = 30):
         im.save(frame_dir / f"{i:05d}.png")
 
 
+def _checkpoint_frames(rig: Path) -> int:
+    """The training frames of the latest checkpoint under ``rig``: the
+    length of its projection losses (1 without a checkpoint)."""
+    import numpy as np
+
+    from riggs_tpu_torch.io.checkpoint import search_max_iteration
+
+    it = search_max_iteration(rig / "checkpoints")
+    if it is None:
+        return 1
+    with np.load(rig / "checkpoints" / f"iteration_{it}" / "state.npz") as ck:
+        return ck[".proj_loss"].shape[0] if ".proj_loss" in ck.files else 1
+
+
 def load_rig(model_path: Path, cfg, scene, device):
     """The stage-2 state of a pipeline's output: a template from the latest
     PLY, the skeleton tree and fresh nets, then the whole state from the
     latest rig checkpoint. Returns (state, its iteration), or (the template,
-    None) with the reason printed when no checkpoint fits."""
+    None) with the reason printed when no checkpoint fits. With no
+    ``scene``, the per-frame projection losses are sized from the
+    checkpoint."""
     import torch
 
     from riggs_tpu_torch.io.checkpoint import load_checkpoint, load_skeleton_tree
@@ -62,10 +78,11 @@ def load_rig(model_path: Path, cfg, scene, device):
         use_template_offsets=cfg.model.use_template_offsets, n_control_nodes=cfg.model.skeleton_gs_sample_num,
         generator=torch.Generator(device=gs.device).manual_seed(0), device=gs.device,
     )
+    n_train = len(scene.train_frames) if scene is not None else _checkpoint_frames(model_path / "rig")
     template = Stage2State(
         gs=gs, skel=skel, opt_gs=O.adam_init(gs.params_dict()), opt_skel=O.adam_init(skel.params_dict()),
         stats_gs=G.init_densify_stats(gs.capacity, device=gs.device),
-        proj_loss=torch.ones(len(scene.train_frames), device=gs.device),
+        proj_loss=torch.ones(n_train, device=gs.device),
         it=torch.zeros((), dtype=torch.int32, device=gs.device),
     )
     try:

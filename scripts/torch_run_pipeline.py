@@ -22,8 +22,18 @@ the tile ranks of a data row repeat its frames). Under torchrun, or with the
 environment ``parallel.multihost.init_distributed`` reads, this process is
 one rank of the group; otherwise it starts the N x dp_tile ranks itself, on
 this host (spawned processes on localhost, gloo when they share a card).
-Only rank 0 writes files and prints. The viewer and debugging flags raise:
-their ports are later work (ROADMAP A10).
+Only rank 0 writes files and prints.
+
+``--viewer_port P`` serves the live training state with the web viewer
+(``viz/web_viewer.py``) from a daemon thread: each
+step hands it the step's Gaussians and a copy of the node warp (stage 1) or
+skeleton (stage 2), whose parameters the next step overwrites in place.
+``--gui_port P`` speaks the SIBR network_gui protocol on ``--gui_ip``,
+polled after every step (``viz/sibr.py``; the canonical Gaussians, no
+deformation, as the reference renders them). Both follow both of stage 1's
+phases and stage 2; with ``--dp`` rank 0 alone serves. ``--detect_anomaly``
+turns on ``torch.autograd.set_detect_anomaly`` in every rank, the
+counterpart the reference names for its ``jax_debug_nans``.
 """
 import argparse
 import sys
@@ -45,22 +55,18 @@ def parse_args(argv=None):
     ap.add_argument("--synthetic_init_points", type=int, default=300, help="random init cloud size")
     ap.add_argument("--stage", choices=["1", "2", "both"], default="both")
     ap.add_argument("--device", type=str, default="cuda")
-    ap.add_argument("--viewer_port", type=int, default=0, help="serve a live training viewer (ROADMAP A10)")
+    ap.add_argument("--viewer_port", type=int, default=0, help="serve a live training viewer")
     ap.add_argument("--gui_ip", type=str, default="127.0.0.1", help="SIBR remote-viewer host")
-    ap.add_argument("--gui_port", type=int, default=0, help="the SIBR network_gui protocol (ROADMAP A10)")
+    ap.add_argument("--gui_port", type=int, default=0, help="speak the SIBR network_gui protocol on this port")
     ap.add_argument("--dp", type=int, default=0, help="frame-parallel training over this many data rows of ranks")
     ap.add_argument("--dp_tile", type=int, default=1, help="with --dp: split stage 2's frames over this many ranks each")
     ap.add_argument("--test_every", type=int, default=1000)
     ap.add_argument("--tensorboard", action="store_true")
     ap.add_argument("--resume", action="store_true", help="continue stage 2 from the latest checkpoint")
-    ap.add_argument("--detect_anomaly", action="store_true", help="fail at the first NaN (ROADMAP A10)")
+    ap.add_argument("--detect_anomaly", action="store_true",
+                    help="torch.autograd.set_detect_anomaly: fail at the op whose backward makes the first NaN")
     add_config_args(ap)
-    args = ap.parse_args(argv)
-    if args.viewer_port or args.gui_port:
-        raise NotImplementedError("--viewer_port / --gui_port: the viewers come with ROADMAP A10")
-    if args.detect_anomaly:
-        raise NotImplementedError("--detect_anomaly comes with the debugging and viewing tools (ROADMAP A10)")
-    return args
+    return ap.parse_args(argv)
 
 
 def _rank_main(rank, world, port, argv):
@@ -85,7 +91,62 @@ def spawn_ranks(argv, world: int):
     mp.start_processes(_rank_main, args=(world, port, list(argv)), nprocs=world, start_method="spawn")
 
 
+def live_callbacks(args, cfg, model_path, dev):
+    """The step callbacks of --viewer_port and --gui_port: (stage 1's, stage
+    2's, a function that stops both servers), or Nones when neither is
+    asked for. Stage 1's takes the reference's (state, it) and the port's
+    (state, it, phase)."""
+    import copy
+
+    import torch
+
+    if not (args.viewer_port or args.gui_port):
+        return None, None, lambda: None
+    from riggs_tpu_torch.render.api import render
+    from riggs_tpu_torch.viz.sibr import SibrServer
+    from riggs_tpu_torch.viz.web_viewer import ViewerServer
+
+    live = {"gs": None, "skel": None, "warp": None}
+    viewer = sibr = None
+    if args.viewer_port:
+        viewer = ViewerServer(state_fn=lambda: (live["gs"], live["skel"], live["warp"]), device=dev)
+        viewer.serve(port=args.viewer_port, blocking=False)
+    if args.gui_port:
+        sibr = SibrServer(args.gui_ip, args.gui_port, verify=str(cfg.model.source_path or model_path), device=dev)
+        print(f"SIBR network_gui listening on {args.gui_ip}:{sibr.port}", flush=True)
+
+    @torch.no_grad()
+    def sibr_render(cam, scaling_modifier):
+        gs = live["gs"]
+        return render(cam, gs, torch.zeros(3, device=gs.device), scaling_modifier=scaling_modifier,
+                      active_sh_degree=gs.max_sh_degree, max_per_tile=cfg.pipe.max_per_tile)["render"]
+
+    def hand_over(gs, skel, warp):
+        snap = dict(gs=gs, skel=skel, warp=warp)
+        if viewer is not None:
+            # copies: the next step writes the nets' parameters in place while
+            # the viewer's thread may be rendering; swapped in under its lock,
+            # so no frame mixes two states
+            snap.update(skel=copy.deepcopy(skel), warp=copy.deepcopy(warp))
+            with viewer._lock:
+                live.update(snap)
+        else:
+            live.update(snap)
+        if sibr is not None:
+            sibr.poll(sibr_render)
+
+    def close():
+        if viewer is not None:
+            viewer.shutdown()
+        if sibr is not None:
+            sibr.close()
+
+    return (lambda state, it, phase=None: hand_over(state.gs, None, state.warp),
+            lambda state, it: hand_over(state.gs, state.skel, None), close)
+
+
 def main(argv=None):
+    import torch
     import torch.distributed as dist
 
     from riggs_tpu_torch.data.scene import load_scene
@@ -114,14 +175,15 @@ def main(argv=None):
     say = print if lead else (lambda *a, **k: None)
     dev = args.device
     if mesh is not None and dev.startswith("cuda"):
-        import torch
-
         dev = f"cuda:{torch.cuda.current_device()}"
+    if args.detect_anomaly:
+        torch.autograd.set_detect_anomaly(True)
     cfg = config_from_args(args)
     model_path = Path(cfg.model.model_path or "output/run")
     if lead:
         model_path.mkdir(parents=True, exist_ok=True)
         cfg.save(model_path / "cfg.json")
+    s1_cb, s2_cb, close = live_callbacks(args, cfg, model_path, dev) if lead else (None, None, lambda: None)
 
     if args.synthetic:
         _, scene = make_scene_data(
@@ -137,9 +199,10 @@ def main(argv=None):
     t0 = time.time()
     source_path = None if args.synthetic else cfg.model.source_path
     if mesh is not None:
-        s1, _ = train_stage1_dp(scene, cfg, mesh, log_every=500, source_path=source_path, device=dev)
+        s1, _ = train_stage1_dp(scene, cfg, mesh, log_every=500, step_callback=s1_cb, source_path=source_path,
+                                device=dev)
     else:
-        s1, _ = train_stage1(scene, cfg, log_every=500, source_path=source_path, device=dev)
+        s1, _ = train_stage1(scene, cfg, log_every=500, step_callback=s1_cb, source_path=source_path, device=dev)
     say(f"stage 1 done in {time.time() - t0:.0f}s")
     if lead:
         save_checkpoint(model_path, cfg.opt.iterations, s1, gs=s1.gs, cfg=cfg)
@@ -148,10 +211,10 @@ def main(argv=None):
         t0 = time.time()
         logger = TrainLogger(model_path / "tb") if args.tensorboard and lead else None
         if mesh is not None:
-            s2, info, _ = train_stage2_dp(s1, scene, cfg, mesh, log_every=500, test_every=args.test_every,
-                                          model_path=model_path / "rig", device=dev)
+            s2, info, _ = train_stage2_dp(s1, scene, cfg, mesh, log_every=500, step_callback=s2_cb,
+                                          test_every=args.test_every, model_path=model_path / "rig", device=dev)
         else:
-            s2, info, _ = train_stage2(s1, scene, cfg, log_every=500, test_every=args.test_every,
+            s2, info, _ = train_stage2(s1, scene, cfg, log_every=500, step_callback=s2_cb, test_every=args.test_every,
                                        model_path=model_path / "rig", logger=logger, resume=args.resume, device=dev)
         if logger is not None:
             logger.close()
@@ -165,6 +228,7 @@ def main(argv=None):
                                                  max_per_tile=cfg.pipe.max_per_tile)
                 (model_path / "numerical_res.txt").write_text(format_numerical_res(rows, means))
                 print("test metrics:", means)
+    close()
     if mesh is not None:
         dist.barrier()
         dist.destroy_process_group()

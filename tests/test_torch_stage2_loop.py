@@ -366,8 +366,9 @@ def test_train_stage2_raises_for_what_is_not_ported(tmp_path):
     """train_stage2's model_path, logger and resume are ported
     (tests/test_torch_eval_io.py), and so are the sharded checkpoints and
     the pipeline's frame-parallel --dp (ROADMAP A11): the sharded pair
-    round-trips the loop's state and --dp 2 --dp_tile 2 parses. What the
-    pipeline still lacks raises, naming its item: the viewers (A10)."""
+    round-trips the loop's state and --dp 2 --dp_tile 2 parses. The viewer
+    and debugging flags (A10) parse too: the pipeline lacks nothing now
+    (tests/test_torch_cli.py runs each)."""
     import copy
 
     from riggs_tpu_torch.io import checkpoint as TC
@@ -382,5 +383,6 @@ def test_train_stage2_raises_for_what_is_not_ported(tmp_path):
     assert it == 4 and set(got) == set(want) and all(np.array_equal(got[k], want[k]) for k in want)
     args = torch_run_pipeline.parse_args(["--synthetic", "--dp", "2", "--dp_tile", "2"])
     assert (args.dp, args.dp_tile) == (2, 2)
-    with pytest.raises(NotImplementedError, match="A10"):
-        torch_run_pipeline.parse_args(["--synthetic", "--viewer_port", "8000"])
+    args = torch_run_pipeline.parse_args(["--synthetic", "--viewer_port", "8000", "--gui_port", "6009",
+                                          "--detect_anomaly"])
+    assert (args.viewer_port, args.gui_port, args.detect_anomaly) == (8000, 6009, True)
