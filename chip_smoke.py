@@ -242,12 +242,24 @@ Phases, each printed as it runs:
      extent), the handles on their targets, a second drag from a cleared
      session bitwise equal; a drag's ms and its frame's.
   27. viewer: ViewerServer on the serving avatar on an ephemeral localhost
-     port, every endpoint (render modes, edit, pose library, playback) 200
-     through blend_cm, the rgb PNG equal to render_frame's frame quantized,
-     its ms and its overflow at the reference's window of 512; a SIBR round
-     trip; scripts/torch_viewer.py as a process on a rig written from the
-     avatar; scripts/torch_test_speed.py on that rig, plain and --ladder,
-     its FPS line beside [slice]'s serving frame.
+     port, every endpoint (render modes, edit, pose library, playback) 200,
+     every frame's overflow headers 0: the reference's window of 512
+     truncates the avatar (its counters printed), and the viewer renders
+     such a frame again on its tile ladder (blend_cm, then
+     blend_permuted_gm); the viewer frame within PATH_TOL of a plain window
+     that holds it; the rgb PNG equal to render_frame's frame quantized;
+     its ms beside the truncated frame's; a SIBR round trip;
+     scripts/torch_viewer.py as a process on a rig written from the avatar;
+     scripts/torch_test_speed.py on that rig, its plain window grown and
+     --ladder, its FPS line beside [slice]'s serving frame, its timed
+     frames' overflow 0.
+  28. bench: scripts/torch_bench.py (bench.py's twin) as a process of its
+     own at its defaults (100 000 Gaussians at 800x800, the tiers and the
+     ladder), --no-ladder and --no-tiers: each run's last line bench.py's
+     four-key JSON line, its overflow assert held, the kernels it launched
+     over its timed steps non-zero; then each setting's gradient step in
+     this process, its forward and backward kernels held to their plain
+     versions on the twin's own windows and cotangents.
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without CUDA
 it exits 2 and prints no result. Imports nothing of JAX or riggs_tpu.
@@ -730,7 +742,7 @@ def check_kernels(blend, captured, tag="[kernels]", per="frame"):
                       f"active, {w['pairs']} pairs, scratch {w['scratch_bytes']} bytes, bound {w['bound_ms']:.4f} ms "
                       f"by {w['bound_term']}")
             results[name] = dict(err=err, ms=ms, plain_ms=plain_ms, launches_per_frame=len(calls),
-                                 device_ops_per_call=ops, **work)
+                                 device_ops_per_call=ops, shapes=shapes, **work)
     return results
 
 
@@ -5426,6 +5438,20 @@ HANDLE_TOL = 1e-6
 FPS_RENDERS = 200  # scripts/torch_test_speed.py's timed renders in [viewer]
 
 
+VIEW_FWD = ("blend_cm_fwd", "blend_permuted_gm_fwd")  # the forward entries a viewer frame can launch
+
+
+def _hold_view_frame(blend, capture, tag):
+    """A viewer frame's forward launches (``_Capture(blend, VIEW_FWD)``:
+    the window of 512, and the tile ladder the viewer fitted to the frame)
+    held to their plain versions at the frame's own shapes (check_kernels).
+    The ladder's launches must be there: the frames held here overflow 512."""
+    calls = {name: capture.calls[f"{name}_fwd"] for name in ("blend_cm", "blend_permuted_gm")}
+    if not calls["blend_permuted_gm"]:
+        raise RuntimeError(f"{tag}: no blend_permuted_gm launch (the viewer's ladder)")
+    return check_kernels(blend, {k: v for k, v in calls.items() if v}, tag=tag)
+
+
 def edit_phase(blend, gs, skel):
     """[edit]: the serving avatar (100 000 alive of 131 072 slots, 800x800)
     in a ViewerServer; EditSession with EDIT_CTRL FPS controls; one control,
@@ -5436,7 +5462,9 @@ def edit_phase(blend, gs, skel):
     just before and read just after: fit_rotations launched 3 times (one a
     solve iteration) and estimate_rotations at least once (the energy's
     fit), each launch held to its plain version (check_cov_fits,
-    check_rotfit), blend_cm launched. deform_arap on the card against the
+    check_rotfit), blend_cm launched, the edited frame's forward launches
+    held to their plain versions at its own shapes (_hold_view_frame), its
+    counters 0. deform_arap on the card against the
     port on the CPU for the same deformer and handles (EDIT_TOL of the
     extent), the handles on their targets, the frame finite, the new
     weights finite and moved; a second drag from a cleared session bitwise
@@ -5481,7 +5509,8 @@ def edit_phase(blend, gs, skel):
     GEO.reset_launches()
     with _CovCapture(AD) as covs, _RotCapture() as rots:
         picked = drag()
-        frame = viewer.render_frame(*EDIT_VIEW, 0.0, "edited")
+        with _Capture(blend, VIEW_FWD) as frame_calls:
+            frame = viewer.render_frame(*EDIT_VIEW, 0.0, "edited")
         prev, cur = sess.ctrl_rest, sess.ctrl_cur
         tuned = AD.optimize_weights(sess.deformer, prev, cur)
         torch.cuda.synchronize()
@@ -5493,6 +5522,9 @@ def edit_phase(blend, gs, skel):
                            "fit_rotations 3 a "
                            "solve, estimate_rotations and blend_cm")
     _check_frame(frame, SIZE, "[edit] the edited frame")
+    if viewer.frames.overflow != {"overflow_tiles": 0, "overflow_rect": 0}:
+        raise RuntimeError(f"[edit] the edited frame overflowed its windows: {viewer.frames.overflow}")
+    frame_held = _hold_view_frame(blend, frame_calls, "[edit] the edited frame")
     idx = torch.as_tensor(np.asarray(sess.kps.get_kpt_idx(), np.int64), device=DEVICE)
     want = torch.as_tensor(np.asarray(sess.kps.get_kpt(), np.float32), device=DEVICE)
     handle_err = float((sess.ctrl_cur[idx] - want).abs().max())
@@ -5533,22 +5565,33 @@ def edit_phase(blend, gs, skel):
           f"limit {EDIT_TOL:.0e}), quaternions up to sign {q_err:.3e}; optimize_weights: ARAP energy {e0:.6e} -> "
           f"{e1:.6e}, weights moved up to {w_moved:.3e}; a second drag from a cleared session bitwise equal")
     print(f"[edit] a drag (two picks, 4 solves, 3 rotation fits, the blend of d_xyz) {drag_ms:.2f} ms, the solve alone "
-          f"{solve_ms:.2f} ms, the edited frame {frame_ms:.2f} ms ({SIZE}x{SIZE}, window 512): a drag and its frame "
+          f"{solve_ms:.2f} ms, the edited frame {frame_ms:.2f} ms ({SIZE}x{SIZE}, the viewer's windows, counters 0): "
+          f"a drag and its frame "
           f"{drag_ms + frame_ms:.2f} ms, host clock around synchronized calls")
     return dict(launches=launches, cov=rot_cov, est=rot_est, drag_ms=drag_ms, solve_ms=solve_ms, frame_ms=frame_ms,
-                pos_err=pos_err, q_err=q_err, handle_err=handle_err)
+                pos_err=pos_err, q_err=q_err, handle_err=handle_err, held=frame_held)
 
 
-def _http_get(port, path, timeout=120):
-    """(status, body) of a GET on localhost."""
+def _http_get(port, path, timeout=120, headers=None):
+    """(status, body) of a GET on localhost; the reply's headers into the
+    dict ``headers`` where one is given."""
     import urllib.error
     import urllib.request
 
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as r:
+            if headers is not None:
+                headers.update(r.headers)
             return r.status, r.read()
     except urllib.error.HTTPError as e:
         return e.code, e.read()
+
+
+def _overflow_headers(what, headers):
+    """A /render reply's overflow counters, which must be 0 (C8)."""
+    got = (headers.get("X-Overflow-Tiles"), headers.get("X-Overflow-Rect"))
+    if got != ("0", "0"):
+        raise RuntimeError(f"[viewer] {what}: overflow headers (tiles, rect) {got}, want 0")
 
 
 def _png(body, what):
@@ -5597,18 +5640,26 @@ def viewer_phase(blend, gs, skel, slice_ms):
     and read just after: /, /render in rgb, skinning and motion mode and with
     a joint edit, /edit/init, /edit/pick at a control's pixel, /edit/drag and
     an edited render, /pose/save twice, /pose/play and a sequence render:
-    every reply 200, every PNG decoded, the rgb PNG equal to render_frame's
-    frame quantized as the server quantizes it, blend_cm launched. The
-    viewer frame's ms (render_frame, and a /render round trip) and its
-    overflow counters at the reference's window of 512. Then a SibrServer
-    polled with a SibrClient in a thread: the reply's bytes equal to
-    encode_image of the same render. Then scripts/torch_viewer.py as a
+    every reply 200, every PNG decoded, every /render reply's overflow
+    headers 0 (C8: the reference's window of 512 truncates the avatar, and
+    the viewer renders such a frame again on its tile ladder), the rgb PNG
+    equal to render_frame's frame quantized as the server quantizes it,
+    blend_cm (the first frame at 512) and blend_permuted_gm (its ladder)
+    launched. The viewer frame against a plain window that holds it
+    (PATH_TOL), its ladder's launches held to their plain versions at the
+    frame's own shapes (_hold_view_frame), the counters at 512 beside it;
+    the viewer frame's ms (render_frame, and a /render round trip) and a
+    render at 512 (the truncated frame the reference serves). Then a
+    SibrServer polled with a SibrClient in a thread, rendering through a
+    FrameHolder at 512 as the pipeline twin's endpoint renders: the reply's
+    bytes equal to encode_image of the same render, its counters 0. Then scripts/torch_viewer.py as a
     process of its own on a rig directory written from the avatar, polled
     until it answers, its /render (the default 512x512 frame) equal to this
     process's, then stopped;
     then scripts/torch_test_speed.py --model_path on that directory with
-    --renders 200, and with --ladder: its FPS line beside [slice]'s serving
-    frame."""
+    --renders 200 (its plain window grown from the first frame), and with
+    --ladder: its FPS line beside [slice]'s serving frame, the timed frames'
+    overflow 0."""
     import tempfile
     import threading
 
@@ -5617,8 +5668,9 @@ def viewer_phase(blend, gs, skel, slice_ms):
     from riggs_tpu_torch.camera.camera import project_nodes_2d
     from riggs_tpu_torch.models import skeleton_warp as SW
     from riggs_tpu_torch.render.api import render
+    from riggs_tpu_torch.render.ladder import ladder_rows
     from riggs_tpu_torch.viz.sibr import SibrClient, SibrServer, encode_image, quantize
-    from riggs_tpu_torch.viz.web_viewer import ViewerServer
+    from riggs_tpu_torch.viz.web_viewer import FrameHolder, ViewerServer
 
     root = Path(__file__).resolve().parent
     with tempfile.TemporaryDirectory() as tmp:
@@ -5629,10 +5681,13 @@ def viewer_phase(blend, gs, skel, slice_ms):
         replies = []
 
         def get(path):
-            status, body = _http_get(port, path)
+            headers = {}
+            status, body = _http_get(port, path, headers=headers)
             replies.append((path, status))
             if status != 200:
                 raise RuntimeError(f"[viewer] GET {path}: {status} {body[:2000]!r}")
+            if path.startswith("/render"):
+                _overflow_headers(f"GET {path}", headers)
             return body
 
         t0 = time.perf_counter()
@@ -5658,7 +5713,7 @@ def viewer_phase(blend, gs, skel, slice_ms):
             print(f"[viewer] {len(replies)} requests in {wall:.1f} s, every reply 200: "
                   f"{[p.split('?')[0] for p, _ in replies]}; launch counters over them: {launches}")
             if b"canvas" not in page or picked != i or n_ctrl != EDIT_CTRL or frames != 4 \
-                    or not launches.get("blend_cm"):
+                    or not launches.get("blend_cm") or not launches.get("blend_permuted_gm"):
                 raise RuntimeError(f"[viewer] page {b'canvas' in page}, picked {picked} (want {i}), {n_ctrl} controls, "
                                    f"{frames} frames, launches {launches}")
             for q, img in pngs.items():
@@ -5674,31 +5729,48 @@ def viewer_phase(blend, gs, skel, slice_ms):
             http_ms = (time.perf_counter() - t1) / 5 * 1e3
         finally:
             v.shutdown()
-        # the frame as render_frame makes it, for its overflow counters
+        # the frame as render_frame makes it: at the reference's window of 512
+        # (its counters), and at a plain window that holds it
         with torch.no_grad():
             pose = SW.pose_at(skel, 0.3)
             d = SW.deform_by_pose(skel, gs.xyz, pose["local_rotation"], pose["global_trans"], gs.motion_mask)
-            out = render(v._camera(*EDIT_VIEW), gs, torch.zeros(3, device=DEVICE), d_xyz=d["d_xyz"],
-                         d_rotation=d["d_rotation"], d_scaling=torch.zeros_like(d["d_scaling"]),
-                         active_sh_degree=gs.max_sh_degree, max_per_tile=512)
-        if not np.array_equal(quantize(out["render"]), want):
-            raise RuntimeError("[viewer] the mirrored frame differs from render_frame's")
-        overflow = {k: int(out[k]) for k in ("overflow_tiles", "overflow_rect", "max_count")}
-        print(f"[viewer] a viewer frame (pose_at + deform_by_pose + render, {SIZE}x{SIZE}, the reference's window "
-              f"512): {frame_ms:.2f} ms by the host clock around synchronized calls, a /render round trip (the frame, "
-              f"its PNG, HTTP) {http_ms:.2f} ms; overflow_tiles {overflow['overflow_tiles']}, overflow_rect "
-              f"{overflow['overflow_rect']}, the largest tile count {overflow['max_count']} (the reference viewer "
-              f"reads neither counter); [slice]'s serving frame {slice_ms:.2f} ms at its fitted window")
+            kw = dict(d_xyz=d["d_xyz"], d_rotation=d["d_rotation"], d_scaling=torch.zeros_like(d["d_scaling"]),
+                      active_sh_degree=gs.max_sh_degree)
+            cam_v, bg_v = v._camera(*EDIT_VIEW), torch.zeros(3, device=DEVICE)
+            out = render(cam_v, gs, bg_v, max_per_tile=512, **kw)
+            overflow = {k: int(out[k]) for k in ("overflow_tiles", "overflow_rect", "max_count")}
+            hold = max(int(-(-overflow["max_count"] // 128) * 128), 512)
+            held = render(cam_v, gs, bg_v, max_per_tile=hold, **kw)
+            with _Capture(blend, VIEW_FWD) as frame_calls:
+                got = v.render_frame(*EDIT_VIEW, 0.3)
+        err = float((got - held["render"]).abs().max())
+        if int(held["overflow"]) or v.frames.overflow != {"overflow_tiles": 0, "overflow_rect": 0} \
+                or not err <= PATH_TOL["image"]:
+            raise RuntimeError(f"[viewer] the viewer frame: counters {v.frames.overflow}, against the plain window "
+                               f"{hold} (overflow {int(held['overflow'])}) max|d| {err:.3e}, limit {PATH_TOL['image']}")
+        frame_held = _hold_view_frame(blend, frame_calls, "[viewer] the viewer frame")
+        ladder = v.frames.ladder.ladder if v.frames.ladder is not None else None
+        truncated_ms = _host_ms(lambda: render(cam_v, gs, bg_v, max_per_tile=512, **kw), 10)
+        print(f"[viewer] the reference's window of 512 truncates the frame: overflow_tiles "
+              f"{overflow['overflow_tiles']}, overflow_rect {overflow['overflow_rect']}, the largest tile count "
+              f"{overflow['max_count']}; the viewer frame on its ladder {ladder} "
+              f"({ladder_rows(ladder) if ladder else 0} rows) within {err:.3e} of the plain window {hold} "
+              f"(limit {PATH_TOL['image']}), its counters 0")
+        print(f"[viewer] a viewer frame (pose_at + deform_by_pose + render, {SIZE}x{SIZE}, on the windows that hold "
+              f"it): {frame_ms:.2f} ms by the host clock around synchronized calls, a /render round trip (the frame, "
+              f"its PNG, HTTP) {http_ms:.2f} ms; the truncated frame at 512 {truncated_ms:.2f} ms; [slice]'s serving "
+              f"frame {slice_ms:.2f} ms at its fitted window")
 
         # SIBR: a client in a thread, the server polled as a training loop polls it
         server = SibrServer("127.0.0.1", 0, verify="chip_smoke", device=DEVICE)
         served, result = {}, {}
+        sibr_frames = FrameHolder(512)  # the pipeline twin's SIBR render, at a window of 512
 
         def render_fn(cam, scaling_modifier):
             served.update(cam=cam, scale=scaling_modifier)
             with torch.no_grad():
-                return render(cam, gs, torch.zeros(3, device=DEVICE), scaling_modifier=scaling_modifier,
-                              active_sh_degree=gs.max_sh_degree, max_per_tile=512)["render"]
+                return sibr_frames(cam, gs, torch.zeros(3, device=DEVICE), scaling_modifier=scaling_modifier,
+                                   active_sh_degree=gs.max_sh_degree)
 
         def client():
             c = SibrClient("127.0.0.1", server.port)
@@ -5716,10 +5788,13 @@ def viewer_phase(blend, gs, skel, slice_ms):
         th.join(timeout=30)
         server.close()
         sibr_same = bool(result) and result["img"].tobytes() == encode_image(render_fn(served["cam"], served["scale"]))
-        if not sibr_same or result["verify"] != "chip_smoke":
-            raise RuntimeError(f"[viewer] SIBR: reply {bool(result)}, bytes equal {sibr_same}")
+        if not sibr_same or result["verify"] != "chip_smoke" \
+                or sibr_frames.overflow != {"overflow_tiles": 0, "overflow_rect": 0}:
+            raise RuntimeError(f"[viewer] SIBR: reply {bool(result)}, bytes equal {sibr_same}, counters "
+                               f"{sibr_frames.overflow}")
         print(f"[viewer] SIBR round trip: a {SIZE}x{SIZE} request answered with encode_image of the same render, "
-              f"the verify string back")
+              f"the verify string back; counters 0 on the ladder "
+              f"{sibr_frames.ladder.ladder if sibr_frames.ladder is not None else None}")
 
         # the viewer twin as a process of its own, then the FPS twin
         t0 = time.perf_counter()
@@ -5742,12 +5817,14 @@ def viewer_phase(blend, gs, skel, slice_ms):
                         raise RuntimeError("[viewer] torch_viewer.py never answered") from None
                     time.sleep(0.5)
             up = time.perf_counter() - t0
-            status, body = _http_get(vport, "/render?t=0.3")
+            twin_headers = {}
+            status, body = _http_get(vport, "/render?t=0.3", headers=twin_headers)
             # the twin's viewer has the default 512 x 512 frame
             want_twin = quantize(ViewerServer(gs, skel=skel, device=DEVICE).render_frame(*EDIT_VIEW, 0.3))
             twin_same = status == 200 and np.array_equal(_png(body, "twin"), want_twin)
         finally:
             _kill(procs)
+        _overflow_headers("torch_viewer.py's /render", twin_headers)
         if not twin_same:
             raise RuntimeError(f"[viewer] torch_viewer.py's /render: {status}, equal to this process's {twin_same}")
         print(f"[viewer] torch_viewer.py on the rig written from the avatar ({rig_s:.1f} s): answered after {up:.1f} s, "
@@ -5757,19 +5834,90 @@ def viewer_phase(blend, gs, skel, slice_ms):
             cmd = [sys.executable, str(root / "scripts" / "torch_test_speed.py"), "--model_path", str(tmp), "--renders",
                    str(FPS_RENDERS), "--size", str(SIZE), "--device", DEVICE] + extra
             res = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
-            line = [ln for ln in res.stdout.splitlines() if " FPS (" in ln]
-            counted = [json.loads(ln.split(":", 1)[1]) for ln in res.stdout.splitlines() if ln.startswith("launches:")]
-            first = [ln for ln in res.stdout.splitlines() if ln.startswith("first frame")]
-            if res.returncode != 0 or not line or not counted:
-                raise RuntimeError(f"[viewer] torch_test_speed.py {extra} failed:\n{res.stdout[-3000:]}\n"
-                                   f"{res.stderr[-3000:]}")
-            fps[label] = dict(line=line[0], launches=counted[0], first=first[0] if first else "")
+            out_lines = res.stdout.splitlines()
+            line = [ln for ln in out_lines if " FPS (" in ln]
+            counted = [json.loads(ln.split(":", 1)[1]) for ln in out_lines if ln.startswith("launches:")]
+            first = [ln for ln in out_lines if ln.startswith("first frame")]
+            window = [ln for ln in out_lines if ln.startswith("plain window")]
+            timed = [ln for ln in out_lines if ln.startswith("timed frames: overflow")]
+            if res.returncode != 0 or not line or not counted or timed != ["timed frames: overflow 0"]:
+                raise RuntimeError(f"[viewer] torch_test_speed.py {extra} failed or truncated its timed frames:\n"
+                                   f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+            fps[label] = dict(line=line[0], launches=counted[0], first=first[0] if first else "",
+                              window=window[0] if window else "")
             m = re.search(r": ([0-9.]+)s = ([0-9.]+) FPS", line[0])
             fps[label]["ms"] = float(m.group(1)) / FPS_RENDERS * 1e3
             print(f"[viewer] torch_test_speed.py --renders {FPS_RENDERS} {' '.join(extra)}: {line[0]}; {fps[label]['first']}; "
-                  f"launches {counted[0]} -> {fps[label]['ms']:.2f} ms a frame, beside [slice]'s serving frame "
-                  f"{slice_ms:.2f} ms ({1e3 / slice_ms:.1f} FPS)")
-    return dict(launches=launches, frame_ms=frame_ms, http_ms=http_ms, overflow=overflow, fps=fps)
+                  f"{fps[label]['window'] or 'no window grown'}; {timed[0]}; launches {counted[0]} -> "
+                  f"{fps[label]['ms']:.2f} ms a frame, beside [slice]'s serving frame {slice_ms:.2f} ms "
+                  f"({1e3 / slice_ms:.1f} FPS)")
+    return dict(launches=launches, frame_ms=frame_ms, http_ms=http_ms, overflow=overflow, fps=fps,
+                truncated_ms=truncated_ms, ladder=ladder, err=err, held=frame_held)
+
+
+# [bench]: scripts/torch_bench.py's three settings, and the kernels each runs
+BENCH_RUNS = (("defaults", ()), ("--no-ladder", ("--no-ladder",)), ("--no-tiers", ("--no-tiers",)))
+BENCH_KERNELS = {"defaults": ("blend_permuted_gm", "blend_permuted_gm_bwd"),
+                 "--no-ladder": ("blend_cm", "blend_cm_bwd"),
+                 "--no-tiers": ("blend_permuted_gm", "blend_permuted_gm_bwd")}
+BENCH_TIMEOUT = 600
+
+
+def bench_phase(blend):
+    """[bench]: scripts/torch_bench.py as a process of its own at its
+    defaults (bench.py's scene of 100 000 Gaussians at 800x800, the tiers,
+    the ladder), with --no-ladder and with --no-tiers: each run's last line
+    the reference's four-key JSON line (its overflow assert held, or it
+    exits non-zero), the launches of its kernels over its timed steps
+    (counted in that process, zeroed just before them) non-zero. Then each
+    setting's gradient step in this process on the twin's own scene and
+    windows: its caps truncate nothing, and its forward and backward
+    kernels are held to their plain versions on the windows and cotangents
+    the step gave them (check_kernels, check_bwd_kernels). Returns the
+    runs (pixels/s, launches) and the held kernels by setting."""
+    import torch
+
+    from riggs_tpu_torch.render.tiles import rasterize_tiled
+    from scripts import torch_bench as TB
+
+    root = Path(__file__).resolve().parent
+    runs = {}
+    for label, flags in BENCH_RUNS:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, str(root / "scripts" / "torch_bench.py"), *flags], cwd=root,
+                             capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        lines = res.stdout.strip().splitlines()
+        try:
+            last = json.loads(lines[-1])
+            launches = json.loads([ln for ln in lines if ln.startswith("launches:")][0].split(":", 1)[1])
+        except (IndexError, json.JSONDecodeError):
+            last, launches = None, {}
+        if res.returncode != 0 or not isinstance(last, dict) \
+                or set(last) != {"metric", "value", "unit", "vs_baseline"} \
+                or not all(launches.get(k) for k in BENCH_KERNELS[label]):
+            raise RuntimeError(f"[bench] torch_bench.py {label}: exit {res.returncode}, launches {launches}:\n"
+                               f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        ladder = [ln for ln in lines if ln.startswith("ladder:")]
+        runs[label] = dict(value=last["value"], vs_baseline=last["vs_baseline"], launches=launches, wall=wall,
+                           ladder=ladder[0] if ladder else "no ladder")
+        print(f"[bench] torch_bench.py {label} ({wall:.1f} s): {lines[-1]}; {runs[label]['ladder']}; launches over "
+              f"its timed steps {launches}; {[ln for ln in lines if ln.startswith('card:')]}", flush=True)
+    held = {}
+    for label, flags in BENCH_RUNS:
+        cam, inputs, bg, extra = TB.setup(TB.parse_args(list(flags)), torch.device(DEVICE))
+        with torch.no_grad():
+            chk = rasterize_tiled(cam, *inputs, bg, **extra)
+        if int(chk["overflow"]):
+            raise RuntimeError(f"[bench] {label}: the caps truncate {int(chk['overflow'])}")
+        fwd, bwd = BENCH_KERNELS[label]
+        with _Capture(blend, (f"{fwd}_fwd", bwd)) as c:
+            TB.grad_step(cam, inputs, bg, extra)
+        tag = f"[bench] {label}"
+        held[label] = dict(fwd=check_kernels(blend, {fwd: c.calls[f"{fwd}_fwd"]}, tag=tag, per="step")[fwd],
+                           bwd=check_bwd_kernels(blend, {bwd: c.calls[bwd]}, tag=tag)[bwd])
+        del c, chk, inputs
+    return dict(runs=runs, held=held)
 
 
 def _pipeline_probes(gui_port, viewer_port, out):
@@ -6078,6 +6226,28 @@ def main() -> int:
 
     lap("viewer")
 
+    # 28. bench.py's twin as a process of its own at its three settings, its kernels held
+    bench = bench_phase(blend)
+
+    lap("bench")
+
+    def bench_rows(name):
+        """A blend row's launches in [bench]'s runs and its held steps there."""
+        way = "bwd" if name.endswith("_bwd") else "fwd"
+        pick = lambda r: {"max_abs_err": max(r["err"].values()) if isinstance(r["err"], dict) else r["err"],
+                          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"]}
+        return {"launches_bench": {k: r["launches"].get(name, 0) for k, r in bench["runs"].items()},
+                "held_bench": {k: pick(h[way]) for k, h in bench["held"].items() if name in BENCH_KERNELS[k]},
+                "bench_pixels_per_s": {k: r["value"] for k, r in bench["runs"].items()}}
+
+    def view_held(phase, name):
+        """A viewer frame's launches of a kernel ([viewer]'s frame, [edit]'s
+        edited frame) held to its plain version, or None where it made none."""
+        r = phase["held"].get(name)
+        return None if r is None else {"max_abs_err": max(r["err"].values()), "ms": r["ms"],
+                                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                                       "shapes": [list(x) for x in r["shapes"]]}
+
     def held(name, results=loop_held):
         """A loop's held steps of a kernel: error, times and bound."""
         return {label: {"max_abs_err": max(r["err"].values()) if isinstance(r["err"], dict) else r["err"],
@@ -6120,9 +6290,11 @@ def main() -> int:
             "launches_refpoint": refpoint_launches[name],
             "launches_fps_twin": viewer["fps"]["plain windows"]["launches"].get(name, 0),
             "launches_fps_twin_ladder": viewer["fps"]["ladder"]["launches"].get(name, 0),
+            "launches_edit": edit["launches"].get(name, 0), "launches_viewer": viewer["launches"].get(name, 0),
+            "held_viewer": view_held(viewer, name), "held_edit": view_held(edit, name),
+            **bench_rows(name),
             **({"launches_phase_a": pa_launches[name], "ms_phase_a": pa_fwd[name]["ms"],
-                "launches_anim": anim["launches"].get(name, 0), "launches_edit": edit["launches"].get(name, 0),
-                "launches_viewer": viewer["launches"].get(name, 0),
+                "launches_anim": anim["launches"].get(name, 0),
                 "bound_ms_phase_a": pa_fwd[name]["bound_ms"], "plain_ms_phase_a": pa_fwd[name]["plain_ms"],
                 "held_io": {"max_abs_err": max(io_held["err"].values()), "ms": io_held["ms"],
                             "plain_ms": io_held["plain_ms"], "bound_ms": io_held["bound_ms"]},
@@ -6144,7 +6316,7 @@ def main() -> int:
             "held_loop": held(name), "launches_pipeline": pipe_launches[name], "held_pipeline": held(name, pipe_held),
             "launches_io": io_launches[name], "launches_flow": flow_launches[name], "held_flow": held(name, flow_held),
             "launches_zju": zju_launches[name], "held_zju": held(name, zju_held),
-            "launches_refpoint": refpoint_launches[name],
+            "launches_refpoint": refpoint_launches[name], **bench_rows(name),
             **({"launches_phase_a": pa_launches[name], "ms_phase_a": pa_bwd[name]["ms"],
                 "bound_ms_phase_a": pa_bwd[name]["bound_ms"], "plain_ms_phase_a": pa_bwd[name]["plain_ms"],
                 **side_rows(name, "bwd")}

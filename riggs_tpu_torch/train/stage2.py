@@ -344,13 +344,48 @@ def window_ceiling(device: torch.device, n_tiles: int) -> int:
     return max(free // 2 // per_chunk, 1) * 128
 
 
+def grow_window(max_per_tile: int, max_count, device: torch.device, n_tiles: int) -> int:
+    """The next plain window of a frame whose largest tile holds
+    ``max_count`` Gaussians: the count rounded up to 128 rows and at least
+    twice ``max_per_tile``, up to ``MAX_PER_TILE_LIMIT`` as the reference
+    grows it; past that limit the count itself, up to ``window_ceiling``.
+    ``max_per_tile`` itself when it cannot grow."""
+    need = -(-int(max_count) // 128) * 128
+    if need <= MAX_PER_TILE_LIMIT:
+        nxt = min(max(need, max_per_tile * 2), MAX_PER_TILE_LIMIT)
+    else:
+        # the reference stops at its limit; the card's memory allows more
+        nxt = max(min(need, window_ceiling(device, n_tiles)), MAX_PER_TILE_LIMIT)
+    return max(nxt, max_per_tile)
+
+
+def escalate_rect(of_t: int, of_r: int, tiles_grown: bool, max_tiles_per_gaussian: int, tiers=None,
+                  what: str = "eval_image"):
+    """The rest of one escalation step of a frame that overflowed, once its
+    tile overflow is answered (``tiles_grown``: its window or ladder grew):
+    a rect overflow drops the tiers, then quadruples the rect cap up to
+    ``MAX_TILES_LIMIT``. Returns the next (max_tiles_per_gaussian, tiers),
+    or None, with a warning that ``what`` is returned truncated, when
+    nothing grew."""
+    escalated = tiles_grown
+    if of_r > 0:
+        if tiers is not None:
+            tiers, escalated = None, True
+        elif max_tiles_per_gaussian < MAX_TILES_LIMIT:
+            max_tiles_per_gaussian, escalated = min(max_tiles_per_gaussian * 4, MAX_TILES_LIMIT), True
+    if escalated:
+        return max_tiles_per_gaussian, tiers
+    warnings.warn(f"{what} hit capacity limits (overflow_tiles={of_t}, overflow_rect={of_r}); "
+                  "returning truncated render")
+    return None
+
+
 def eval_image(gs, skel, cam, t, bg, max_per_tile=512, max_tiles_per_gaussian=16,
                tile_ladder=None, tiers=None):
     """Held-out render, re-rendered with the offending cap raised until
     nothing is truncated: a truncating ladder is dropped; tile overflow jumps
-    the window to the observed max count (up to ``MAX_PER_TILE_LIMIT`` as
-    the reference does, past it to ``window_ceiling``); rect overflow drops
-    the tiers, then quadruples the rect cap."""
+    the window to the observed max count (``grow_window``); rect overflow
+    drops the tiers, then quadruples the rect cap (``escalate_rect``)."""
     while True:
         img, of_t, of_r, max_count = _eval_image(
             gs, skel, cam, t, bg, max_per_tile, max_tiles_per_gaussian,
@@ -362,31 +397,14 @@ def eval_image(gs, skel, cam, t, bg, max_per_tile=512, max_tiles_per_gaussian=16
         if tile_ladder is not None:
             tile_ladder = None
             continue
-        escalated = False
+        grown = False
         if of_t > 0:
-            need = -(-int(max_count) // 128) * 128
-            if need <= MAX_PER_TILE_LIMIT:
-                nxt = min(max(need, max_per_tile * 2), MAX_PER_TILE_LIMIT)
-            else:
-                # the reference stops at its limit; the card's memory allows more
-                n_tiles = -(-cam.width // TILE) * -(-cam.height // TILE)
-                nxt = max(min(need, window_ceiling(gs.device, n_tiles)), MAX_PER_TILE_LIMIT)
-            if nxt > max_per_tile:
-                max_per_tile = nxt
-                escalated = True
-        if of_r > 0:
-            if tiers is not None:
-                tiers = None
-                escalated = True
-            elif max_tiles_per_gaussian < MAX_TILES_LIMIT:
-                max_tiles_per_gaussian = min(max_tiles_per_gaussian * 4, MAX_TILES_LIMIT)
-                escalated = True
-        if not escalated:
-            warnings.warn(
-                f"eval_image hit capacity limits (overflow_tiles={of_t}, "
-                f"overflow_rect={of_r}); returning truncated render"
-            )
+            nxt = grow_window(max_per_tile, max_count, gs.device, -(-cam.width // TILE) * -(-cam.height // TILE))
+            grown, max_per_tile = nxt > max_per_tile, nxt
+        caps = escalate_rect(of_t, of_r, grown, max_tiles_per_gaussian, tiers)
+        if caps is None:
             return img
+        max_tiles_per_gaussian, tiers = caps
 
 
 # ---------------------------------------------------------------------------

@@ -22,12 +22,21 @@ Endpoints beyond ``/`` and ``/render``:
         the edited cloud renders with  /render?...&mode=edited
 
 Every frame renders through ``render/api.py:render`` at the reference's
-fixed window (``max_per_tile=512``; its overflow counters are not read, as
-the reference does not), posed by ``skeleton_warp.pose_at`` /
+fixed window (``max_per_tile=512``) wherever that window holds it, and is
+then the reference's frame. The reference reads no overflow counter and
+serves a frame whose window overflows truncated; here such a frame renders
+again on a tile ladder fitted to its own tile counts, which the viewer keeps
+for later frames (``FrameHolder``, which the pipeline twin's SIBR endpoint
+renders through too, at its training window). Posed by ``skeleton_warp.pose_at`` /
 ``deform_by_pose`` (a stage-2 model) or ``node_warp.warp_forward`` (a
 stage-1 model), coloured by ``eval/synthesis.py:skinning_colors`` in the
 skinning mode. The model lives on ``device`` (the card unless given); a
 frame is quantized there and read once.
+
+Each ``/render`` reply carries the frame's overflow counters in its
+``X-Overflow-Tiles`` and ``X-Overflow-Rect`` headers: 0 unless no window
+up to ``train/stage2.py:window_ceiling`` holds the frame, which is then
+served truncated with a warning.
 
 Errors: a request whose parameters are missing or malformed, or that needs
 ``/edit/init`` first, gets 400; any other failure (a render, a kernel, a
@@ -64,7 +73,12 @@ from riggs_tpu_torch.eval.synthesis import skinning_colors
 from riggs_tpu_torch.models import node_warp as NW
 from riggs_tpu_torch.models import skeleton_warp as SW
 from riggs_tpu_torch.render.api import render
+from riggs_tpu_torch.render.binning import TILE
+from riggs_tpu_torch.render.ladder import LadderPolicy
+from riggs_tpu_torch.train.stage2 import escalate_rect, window_ceiling
 from riggs_tpu_torch.viz.sibr import quantize
+
+VIEW_WINDOW = 512  # the reference viewer's fixed max_per_tile
 
 _PAGE = """<!DOCTYPE html>
 <html><head><title>riggs_tpu viewer</title><style>
@@ -163,6 +177,51 @@ def _view(q: dict) -> tuple[float, float, float]:
     return _arg(q, "az", float, 0.0), _arg(q, "el", float, 0.3), _arg(q, "r", float, 3.0)
 
 
+class FrameHolder:
+    """``render``'s frame at a fixed window wherever that window holds it.
+    A frame it does not hold renders again on a tile ladder fitted to its
+    own tile counts (the binner counts them before truncation). The ladder
+    stays for later frames, which render on it first. A frame that
+    overflows it refits it, as ``LadderPolicy`` does in the loops; a frame
+    whose largest tile fits the window drops it. A rect overflow raises the
+    rect cap (``escalate_rect``). The caps stop at ``window_ceiling`` and
+    ``MAX_TILES_LIMIT``; a frame they do not hold is returned truncated,
+    with a warning. The counters are read once a render, into
+    ``overflow``."""
+
+    def __init__(self, window: int):
+        self.window = window
+        self.ladder = None  # the LadderPolicy of frames ``window`` does not hold
+        self.overflow = {"overflow_tiles": 0, "overflow_rect": 0}  # the last frame's counters
+
+    def __call__(self, cam, gs, bg, **kw) -> torch.Tensor:
+        n_tiles = -(-cam.width // TILE) * -(-cam.height // TILE)
+        max_tiles = 16
+        while True:
+            out = render(cam, gs, bg, max_per_tile=self.window, max_tiles_per_gaussian=max_tiles,
+                         tile_ladder=None if self.ladder is None else self.ladder.ladder, **kw)
+            of_t, of_r, max_count = torch.stack(
+                [out[k].to(torch.int64) for k in ("overflow_tiles", "overflow_rect", "max_count")]).tolist()
+            if self.ladder is not None and max_count <= self.window:
+                self.ladder = None  # the window holds this frame: its single render
+                continue
+            if of_t == 0 and of_r == 0:
+                break
+            grown = False
+            if of_t > 0:
+                if self.ladder is None:
+                    self.ladder = LadderPolicy(n_probe=1, max_cap=window_ceiling(gs.device, n_tiles))
+                old = self.ladder.ladder
+                self.ladder.observe(out["tile_counts"].cpu().numpy(), of_t)
+                grown = self.ladder.ladder != old
+            caps = escalate_rect(of_t, of_r, grown, max_tiles, what="a viewer frame")
+            if caps is None:
+                break
+            max_tiles = caps[0]
+        self.overflow = {"overflow_tiles": of_t, "overflow_rect": of_r}
+        return out["render"]
+
+
 class ViewerServer:
     def __init__(self, gs=None, skel=None, warp=None, width: int = 512, height: int = 512, fov: float = 0.9,
                  state_fn=None, pose_lib_path=None, device: str | torch.device | None = None):
@@ -184,6 +243,7 @@ class ViewerServer:
         self._seq = None  # (rotations (F, J, 4), translations (F, 3)) playback, on the device
         self._pose_override = None  # (local_rotation, global_trans) from /retarget, on the device
         self.httpd = None  # the HTTP server once serve() runs
+        self.frames = FrameHolder(VIEW_WINDOW)  # renders every frame; its ladder and last counters
 
     @property
     def _state(self):
@@ -235,15 +295,14 @@ class ViewerServer:
 
     @torch.no_grad()
     def render_frame(self, az, el, radius, t, mode="rgb", joint=-1, angle=0.0, seq=-1) -> torch.Tensor:
-        """The (H, W, 3) float frame on the model's device."""
+        """The (H, W, 3) float frame on the model's device (``FrameHolder``)."""
         gs, skel, warp = self._state
         if gs is None:
             raise NoModel("no model to render yet")
         cam = self._camera(az, el, radius)
         bg = torch.zeros(3, device=gs.device)
-        kwargs = dict(active_sh_degree=gs.max_sh_degree, max_per_tile=512)
         if mode == "edited" and self.edit is not None:
-            return render(cam, gs, bg, d_xyz=self.edit.d_xyz, **kwargs)["render"]
+            return self.frames(cam, gs, bg, d_xyz=self.edit.d_xyz, active_sh_degree=gs.max_sh_degree)
         if skel is not None:
             rot, trans = self.current_pose(az, el, radius, t, joint, angle, seq)
             d = SW.deform_by_pose(skel, gs.xyz, rot, trans, gs.motion_mask)
@@ -255,12 +314,10 @@ class ViewerServer:
                                            d_scaling=torch.zeros_like(d["d_scaling"]))
         if mode == "skinning" and d is not None and skel is not None:
             colors = skinning_colors(d["nn_idx"], d["nn_weight"], skel.net.n_joints)
-            out = render(cam, gs, bg, override_color=colors, **common, max_per_tile=512)
-        elif mode == "motion":
-            out = render(cam, gs, bg, render_motion=True, **common, max_per_tile=512)
-        else:
-            out = render(cam, gs, bg, **common, **kwargs)
-        return out["render"]
+            return self.frames(cam, gs, bg, override_color=colors, **common)
+        if mode == "motion":
+            return self.frames(cam, gs, bg, render_motion=True, **common)
+        return self.frames(cam, gs, bg, active_sh_degree=gs.max_sh_degree, **common)
 
     # ---- editing / pose API ---------------------------------------------
     def handle_api(self, path: str, q: dict):
@@ -346,10 +403,12 @@ class ViewerServer:
             def log_message(self, *a):
                 pass
 
-            def _reply(self, code: int, ctype: str | None, body: bytes = b""):
+            def _reply(self, code: int, ctype: str | None, body: bytes = b"", headers: dict | None = None):
                 self.send_response(code)
                 if ctype is not None:
                     self.send_header("Content-Type", ctype)
+                for k, v in (headers or {}).items():
+                    self.send_header(k, str(v))
                 self.end_headers()
                 self.wfile.write(body)
 
@@ -359,10 +418,13 @@ class ViewerServer:
                 if u.path == "/":
                     self._reply(200, "text/html", _PAGE.encode())
                     return
+                headers = None
                 try:
                     with viewer._lock:
                         if u.path == "/render":
                             body, ctype = viewer.render_png(q), "image/png"
+                            headers = {"X-Overflow-Tiles": viewer.frames.overflow["overflow_tiles"],
+                                       "X-Overflow-Rect": viewer.frames.overflow["overflow_rect"]}
                         else:
                             out = viewer.handle_api(u.path, q)
                             if out is None:
@@ -377,7 +439,7 @@ class ViewerServer:
                     traceback.print_exc(file=sys.stderr)
                     self._reply(500, "application/json", json.dumps({"error": repr(e)}).encode())
                     return
-                self._reply(200, ctype, body)
+                self._reply(200, ctype, body, headers)
 
         server = ThreadingHTTPServer(("0.0.0.0", port), Handler)
         self.httpd = server

@@ -30,7 +30,8 @@ step hands it the step's Gaussians and a copy of the node warp (stage 1) or
 skeleton (stage 2), whose parameters the next step overwrites in place.
 ``--gui_port P`` speaks the SIBR network_gui protocol on ``--gui_ip``,
 polled after every step (``viz/sibr.py``; the canonical Gaussians, no
-deformation, as the reference renders them). Both follow both of stage 1's
+deformation, as the reference renders them, at the training window where
+it holds the frame, else on the viewer's ladder: ``FrameHolder``). Both follow both of stage 1's
 phases and stage 2; with ``--dp`` rank 0 alone serves. ``--detect_anomaly``
 turns on ``torch.autograd.set_detect_anomaly`` in every rank, the
 counterpart the reference names for its ``jax_debug_nans``.
@@ -102,9 +103,8 @@ def live_callbacks(args, cfg, model_path, dev):
 
     if not (args.viewer_port or args.gui_port):
         return None, None, lambda: None
-    from riggs_tpu_torch.render.api import render
     from riggs_tpu_torch.viz.sibr import SibrServer
-    from riggs_tpu_torch.viz.web_viewer import ViewerServer
+    from riggs_tpu_torch.viz.web_viewer import FrameHolder, ViewerServer
 
     live = {"gs": None, "skel": None, "warp": None}
     viewer = sibr = None
@@ -115,11 +115,13 @@ def live_callbacks(args, cfg, model_path, dev):
         sibr = SibrServer(args.gui_ip, args.gui_port, verify=str(cfg.model.source_path or model_path), device=dev)
         print(f"SIBR network_gui listening on {args.gui_ip}:{sibr.port}", flush=True)
 
+    sibr_frames = FrameHolder(cfg.pipe.max_per_tile)  # the training window where it holds the frame
+
     @torch.no_grad()
     def sibr_render(cam, scaling_modifier):
         gs = live["gs"]
-        return render(cam, gs, torch.zeros(3, device=gs.device), scaling_modifier=scaling_modifier,
-                      active_sh_degree=gs.max_sh_degree, max_per_tile=cfg.pipe.max_per_tile)["render"]
+        return sibr_frames(cam, gs, torch.zeros(3, device=gs.device), scaling_modifier=scaling_modifier,
+                           active_sh_degree=gs.max_sh_degree)
 
     def hand_over(gs, skel, warp):
         snap = dict(gs=gs, skel=skel, warp=warp)

@@ -12,15 +12,22 @@ A frame is ``skeleton_forward`` then ``render`` at an orbit camera (radius
 A rig loads as scripts/test_speed.py loads it: the latest
 rig/point_cloud/ PLY and the skeleton tree with fresh nets (seed 0).
 ``--synthetic`` is scripts/torch_scaling_bench.py's tiny scene. ``--ladder``
-renders 8 poses first and fits the tile ladder to their counts. The timed
-loop reads nothing from the card until its final synchronize, then prints
-the reference's line; the first frame's overflow counters are printed
-before it and the blend kernels' launches over the run after it.
+renders 8 poses first and fits the tile ladder to their counts. Without it
+the frames render on plain windows of ``render``'s default 1024 rows, the
+reference's; where the first frame overflows them, the window grows by
+``eval_image``'s rule (``train/stage2.py:grow_window``) to hold the largest
+tile of the timed poses, rendered once before the timed loop, and the
+window is printed. The timed loop reads nothing from the card until its
+final synchronize, then prints the reference's line; the first frame's
+overflow counters are printed before it, and after it the timed frames'
+overflow summed on the card (a warning if it is not 0) and the blend
+kernels' launches over the run.
 """
 import argparse
 import json
 import sys
 import time
+import warnings
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -55,7 +62,9 @@ def main(argv=None):
     from riggs_tpu_torch.models import skeleton_warp as SW
     from riggs_tpu_torch.render import blend
     from riggs_tpu_torch.render.api import render
+    from riggs_tpu_torch.render.binning import TILE
     from riggs_tpu_torch.render.ladder import make_tile_ladder
+    from riggs_tpu_torch.train.stage2 import grow_window
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--model_path", default=None)
@@ -94,17 +103,31 @@ def main(argv=None):
 
     first = frame(0.0, **extra)
     print(f"first frame: overflow_tiles {int(first['overflow_tiles'])}, overflow_rect {int(first['overflow_rect'])}")
+    if not args.ladder and int(first["overflow_tiles"]):
+        # the timed poses' largest tile, gathered on the card and read once:
+        # the first frame's alone leaves other poses truncated
+        peak = first["max_count"]
+        for i in range(args.renders):
+            peak = torch.maximum(peak, frame(i / args.renders, **extra)["max_count"])
+        extra["max_per_tile"] = grow_window(1024, peak, dev, -(-args.size // TILE) ** 2)
+        first = frame(0.0, **extra)
+        print(f"plain window {extra['max_per_tile']} (the timed poses' largest tile {int(peak)}): "
+              f"overflow_tiles {int(first['overflow_tiles'])}, overflow_rect {int(first['overflow_rect'])}")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
     t0 = time.perf_counter()
     for i in range(args.renders):
-        frame(i / args.renders, **extra)
+        overflow += frame(i / args.renders, **extra)["overflow"]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     fps = args.renders / dt
     print(f"{args.renders} renders at {args.size}x{args.size}: {dt:.2f}s = {fps:.1f} FPS "
           f"({args.size * args.size * fps / 1e6:.1f} Mpix/s)")
+    print(f"timed frames: overflow {int(overflow)}")
+    if int(overflow):
+        warnings.warn(f"the timed frames truncated {int(overflow)} Gaussians")
     print(f"launches: {json.dumps({k: n for k, n in blend.launches.items() if n})}")
 
 

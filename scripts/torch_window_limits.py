@@ -4,6 +4,7 @@ and C7).
 
     python3 scripts/torch_window_limits.py eval [twin flags]   # C6: the refpoint twin's default prefix
     python3 scripts/torch_window_limits.py rect   # C7: chip_smoke.py's [zju] stage 1, two rect caps
+    python3 scripts/torch_window_limits.py rect --scale 5 --seed 1   # a schedule 5x as long, another seed
 
 ``eval`` runs ``scripts/torch_run_refpoint.py`` at its default prefix
 (output under ``.refpoint/limits``) with every held-out evaluation done
@@ -23,7 +24,11 @@ and the giant tier's cap raised to ``GIANT_CAP`` (the training steps'
 it prints the steps whose rect overflowed and by how much,
 the loss and PSNR at the ends of each phase, the held-out PSNR of the two
 test views (``render_test_set_stage1``) and the ms per phase-B step.
+``--scale N`` multiplies every count of ``[zju]``'s schedule (40 + 40
+steps) by N; ``--seed S`` seeds the initial state and the loop (0 unless
+given).
 """
+import argparse
 import sys
 import time
 import warnings
@@ -63,7 +68,7 @@ def eval_both_ways(argv):
     return refpoint.main(["--out", str(ROOT / ".refpoint" / "limits"), *argv])
 
 
-def rect_caps():
+def rect_caps(argv=()):
     import copy
     import dataclasses
     import tempfile
@@ -80,13 +85,21 @@ def rect_caps():
     from riggs_tpu_torch.render.api import render, tier_kwargs
     from riggs_tpu_torch.train import stage1 as S1
 
+    ap = argparse.ArgumentParser(prog="torch_window_limits.py rect")
+    ap.add_argument("--scale", type=int, default=1, help="[zju]'s schedule, every count times this")
+    ap.add_argument("--seed", type=int, default=0, help="the seed of the initial state and of the loop")
+    args = ap.parse_args(argv)
+    schedule = {k: v * args.scale for k, v in smoke.ZJU_SCHEDULE.items()}
     cuda_build.build_all({blend.LIB_STEM: blend.CSRC, geometry.LIB_STEM: geometry.CSRC})
     gs, skel, _, _ = smoke.build_avatar(0, smoke.N_ALIVE, smoke.CAPACITY, smoke.SIZE, smoke.DEVICE)
     with tempfile.TemporaryDirectory() as tmp:
         scene = load_scene(smoke.write_zju_subject(Path(tmp), gs, skel), device=smoke.DEVICE)
     del gs, skel
     cfg = smoke._zju_config(1024)
-    state0 = S1.init_stage1(scene, cfg, generator=torch.Generator(device=smoke.DEVICE).manual_seed(0),
+    for k, v in schedule.items():
+        setattr(cfg.pipe if k == "ladder_check_every" else cfg.opt, k, v)
+    print(f"[rect] schedule {schedule}, seed {args.seed}", flush=True)
+    state0 = S1.init_stage1(scene, cfg, generator=torch.Generator(device=smoke.DEVICE).manual_seed(args.seed),
                             device=smoke.DEVICE)
     with torch.no_grad():
         counts = [int(render(f.cam, state0.gs, torch.zeros(3, device=smoke.DEVICE), max_per_tile=16384)["max_count"])
@@ -107,8 +120,9 @@ def rect_caps():
             ts.setdefault(phase, []).append(time.perf_counter())
 
         t0 = time.perf_counter()
-        state, hist = S1.train_stage1(scene, c, seed=0, log_every=smoke.ZJU_SCHEDULE["iterations"] - 1,
-                                      state=copy.deepcopy(state0), events=events, step_callback=clock, device=smoke.DEVICE)
+        state, hist = S1.train_stage1(scene, c, seed=args.seed, log_every=schedule["iterations"] - 1,
+                                      state=copy.deepcopy(state0), events=events, step_callback=clock,
+                                      device=smoke.DEVICE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         rect = [(e["it"], e["rect"]) for e in events if e["event"] == "overflow" and e["rect"]]
@@ -131,5 +145,5 @@ if __name__ == "__main__":
     if what == "eval":
         sys.exit(eval_both_ways(sys.argv[2:]))
     if what == "rect":
-        sys.exit(rect_caps())
-    sys.exit("usage: torch_window_limits.py eval | rect")
+        sys.exit(rect_caps(sys.argv[2:]))
+    sys.exit("usage: torch_window_limits.py eval [twin flags] | rect [--scale N] [--seed S]")

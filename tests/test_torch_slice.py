@@ -270,7 +270,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 CLI_TWINS = ("torch_run_pipeline", "torch_render_rig", "torch_metrics", "torch_render_stage1", "torch_run_zju",
              "torch_resume_stage2", "torch_run_refpoint", "torch_scaling_bench", "torch_multihost_smoke",
-             "torch_viewer", "torch_test_speed", "torch_run_synthesis", "torch_process_data", "torch_capture_tools")
+             "torch_viewer", "torch_test_speed", "torch_run_synthesis", "torch_process_data", "torch_capture_tools",
+             "torch_bench")
 # the one source that may name cv2: the capture twin decodes video with
 # OpenCV inside its frames command, as the card has no imageio
 CV2_SOURCES = ("torch_capture_tools.py",)

@@ -429,3 +429,169 @@ def test_fps_twin_prints_the_reference_line(source, rig_dir, capsys):
     assert re.search(r"^2 renders at 48x48: [0-9.]+s = [0-9.]+ FPS \([0-9.]+ Mpix/s\)$", out, re.M), out
     assert ("ladder: (" in out) == (source != "synthetic")
     assert "first frame: overflow_tiles 0, overflow_rect 0" in out
+
+
+PILE = 700  # splats piled at the origin: more than the viewer's window of 512 in each tile they touch
+
+
+def _piled_params(n_pile=PILE, n_spread=100, seed=5):
+    """SH-0 Gaussians: ``n_pile`` faint splats piled at the origin, where
+    a viewer at any orbit looks, and ``n_spread`` spread over the frame;
+    opacity 0.005, so that the pile stays far from saturating and a
+    truncated window changes the frame."""
+    rng = np.random.default_rng(seed)
+    n = n_pile + n_spread
+    xyz = np.concatenate([rng.normal(scale=0.03, size=(n_pile, 3)), rng.normal(scale=0.5, size=(n_spread, 3))])
+    return {"xyz": xyz.astype(np.float32), "f_dc": rng.normal(scale=0.5, size=(n, 1, 3)).astype(np.float32),
+            "f_rest": np.zeros((n, 0, 3), np.float32), "scaling": np.full((n, 3), np.log(0.1), np.float32),
+            "rotation": np.tile(np.float32([1, 0, 0, 0]), (n, 1)),
+            "opacity": np.full((n, 1), np.log(0.005 / 0.995), np.float32), "feature": np.zeros((n, 0), np.float32)}
+
+
+@pytest.fixture(scope="module")
+def piled(tmp_path_factory):
+    """The piled model in both packages, each in a 64 x 64 viewer."""
+    from riggs_tpu.models.gaussians import Gaussians as JGaussians
+
+    tmp = tmp_path_factory.mktemp("piled")
+    p = _piled_params()
+    alive = np.ones(len(p["xyz"]), bool)
+    jgs = JGaussians(xyz=jnp.asarray(p["xyz"]), features_dc=jnp.asarray(p["f_dc"]),
+                     features_rest=jnp.asarray(p["f_rest"]), scaling=jnp.asarray(p["scaling"]),
+                     rotation=jnp.asarray(p["rotation"]), opacity=jnp.asarray(p["opacity"]),
+                     feature=jnp.asarray(p["feature"]), alive=jnp.asarray(alive), max_sh_degree=0, isotropic=False,
+                     with_motion_mask=False)
+    tgs = convert.gaussians_from_numpy(p, alive, 0, with_motion_mask=False, device="cpu")
+    jv = JV.ViewerServer(jgs, width=64, height=64, pose_lib_path=tmp / "j.json")
+    tv = TV.ViewerServer(tgs, width=64, height=64, pose_lib_path=tmp / "t.json", device="cpu")
+    return jv, tv, p
+
+
+def _direct(tv, view, **kw):
+    """The port's render of the viewer's static model at ``view``."""
+    from riggs_tpu_torch.render.api import render
+
+    with torch.no_grad():
+        return render(tv._camera(*view), tv.gs, torch.zeros(3), active_sh_degree=0, **kw)
+
+
+def test_render_frame_holds_an_overflowing_frame(piled):
+    """C8: the reference viewer's window of 512 truncates the piled frame;
+    the port's frame is the render at a window that holds it (2e-5), its
+    counters 0 in the /render reply's headers too, on the tile ladder the
+    viewer keeps; a later frame on that ladder holds as well."""
+    from riggs_tpu.render import api as JR
+
+    jv, tv, _ = piled
+    view = (0.0, 0.3, 3.0)
+    ref = JR.render(jv._camera(*view), jv.gs, jnp.zeros(3), active_sh_degree=0, max_per_tile=512)
+    assert int(ref["overflow_tiles"]) > 0 and int(ref["max_count"]) > 512
+    held = _direct(tv, view, max_per_tile=1024)
+    assert int(held["overflow"]) == 0
+    truncated = np.asarray(jv.render_frame(*view, 0.0))
+    assert float(np.abs(truncated - held["render"].numpy()).max()) > 1e-2  # truncation shows in the frame
+    tv.frames.ladder = None
+    frame = tv.render_frame(*view, 0.0)
+    assert tv.frames.overflow == {"overflow_tiles": 0, "overflow_rect": 0} and tv.frames.ladder is not None
+    np.testing.assert_allclose(frame.numpy(), held["render"].numpy(), rtol=0, atol=2e-5)
+    fitted = tv.frames.ladder.ladder
+    tv.serve(port=0, blocking=False)
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{tv.httpd.server_address[1]}/render?az=0.5", timeout=60) as r:
+            body, headers = r.read(), r.headers
+    finally:
+        tv.shutdown()
+    assert (headers["X-Overflow-Tiles"], headers["X-Overflow-Rect"]) == ("0", "0") and tv.frames.ladder.ladder == fitted
+    np.testing.assert_array_equal(_png(body), TSi.quantize(_direct(tv, (0.5, 0.3, 3.0), max_per_tile=1024)["render"]))
+
+
+@pytest.mark.parametrize("window", [256, 1024])
+def test_frame_holder_at_the_sibr_window(piled, window):
+    """The pipeline twin's SIBR endpoint renders through a FrameHolder at
+    its training window: at 256 the piled frame overflows and is held on a
+    ladder (2e-5 of a window that holds it); at 1024, which holds it, it is
+    bitwise the single render at 1024. The counters are 0 both ways."""
+    _, tv, _ = piled
+    view = (0.0, 0.3, 3.0)
+    want = _direct(tv, view, max_per_tile=1024)["render"]
+    frames = TV.FrameHolder(window)
+    with torch.no_grad():
+        got = frames(tv._camera(*view), tv.gs, torch.zeros(3), active_sh_degree=0)
+    assert frames.overflow == {"overflow_tiles": 0, "overflow_rect": 0}
+    assert (frames.ladder is None) == (window == 1024)
+    if window == 1024:
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5)
+
+
+def test_render_frame_keeps_the_reference_frame_where_512_holds(viewers, piled):
+    """Where the window of 512 holds, the frame is bitwise the single render
+    at 512 (test_render_frame_matches holds it to the reference viewer's):
+    on the tiny scene, and on a model that fits after one that did not,
+    which drops the ladder."""
+    from riggs_tpu_torch.models import skeleton_warp as TSW
+    from riggs_tpu_torch.render.api import render
+
+    _, tv, _ = viewers
+    got = tv.render_frame(0.4, 0.3, 3.0, 0.3)
+    d = TSW.pose_at(tv.skel, 0.3)
+    d = TSW.deform_by_pose(tv.skel, tv.gs.xyz, d["local_rotation"], d["global_trans"], tv.gs.motion_mask)
+    with torch.no_grad():
+        want = render(tv._camera(0.4, 0.3, 3.0), tv.gs, torch.zeros(3), d_xyz=d["d_xyz"], d_rotation=d["d_rotation"],
+                      d_scaling=torch.zeros_like(d["d_scaling"]), active_sh_degree=tv.gs.max_sh_degree,
+                      max_per_tile=512)["render"]
+    assert tv.frames.ladder is None and tv.frames.overflow == {"overflow_tiles": 0, "overflow_rect": 0}
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+    _, pv, p = piled
+    view = (0.0, 0.3, 3.0)
+    pv.render_frame(*view, 0.0)
+    assert pv.frames.ladder is not None
+    alive = np.arange(len(p["xyz"])) >= PILE  # the spread splats alone
+    thin = convert.gaussians_from_numpy(p, alive, 0, with_motion_mask=False, device="cpu")
+    saved = pv._static
+    pv._static = (thin, None, None)
+    try:
+        got = pv.render_frame(*view, 0.0)
+    finally:
+        pv._static = saved
+    assert pv.frames.ladder is None and pv.frames.overflow == {"overflow_tiles": 0, "overflow_rect": 0}
+    with torch.no_grad():
+        want = render(pv._camera(*view), thin, torch.zeros(3), active_sh_degree=0, max_per_tile=512)["render"]
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_render_frame_past_the_ceiling_warns_and_says_so(piled, monkeypatch):
+    """A frame that no window up to window_ceiling holds is served
+    truncated, with a warning and its counters."""
+    _, tv, _ = piled
+    monkeypatch.setattr(TV, "window_ceiling", lambda device, n_tiles: 256)
+    monkeypatch.setattr(tv.frames, "ladder", None)
+    with pytest.warns(UserWarning, match="capacity limits"):
+        tv.render_frame(0.0, 0.3, 3.0, 0.0)
+    assert tv.frames.overflow["overflow_tiles"] > 0
+
+
+@pytest.mark.parametrize("ladder", [False, True], ids=["plain", "ladder"])
+def test_fps_twin_holds_an_overflowing_rig(ladder, rig_dir, monkeypatch, capsys):
+    """C8: a rig whose window of 1024 overflows (1200 splats piled at the
+    origin): the plain window grows to the timed poses' largest tile
+    before the timed loop, and the timed frames' overflow reads 0, plain
+    and on the ladder."""
+    from scripts import torch_test_speed
+
+    skel = rig_dir[1].skel
+    p = _piled_params(n_pile=1200, n_spread=50)
+    gs = convert.gaussians_from_numpy(p, np.ones(1250, bool), 0, with_motion_mask=False, device="cpu")
+    monkeypatch.setattr(torch_test_speed, "load_model", lambda model_path, device: (gs, skel))
+    torch_test_speed.main(["--model_path", "piled", "--renders", "2", "--size", "48", "--device", "cpu"]
+                          + (["--ladder"] if ladder else []))
+    out = capsys.readouterr().out
+    assert re.search(r"^2 renders at 48x48: [0-9.]+s = [0-9.]+ FPS", out, re.M), out
+    assert "timed frames: overflow 0\n" in out
+    if ladder:
+        assert "ladder: (" in out and "plain window" not in out
+    else:
+        assert re.search(r"^first frame: overflow_tiles [1-9]", out, re.M), out
+        assert "plain window 2048 (the timed poses' largest tile 12" in out and "overflow_tiles 0, overflow_rect 0\n" in out
