@@ -830,7 +830,7 @@ def profile_frames(gs, skel, cam, bg, cap, kw, label, frame_ms, n=5):
         for i in range(n):
             _eval_image(gs, skel, cam, i / n, bg, max_per_tile=cap, **kw)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_ops(prof.key_averages())
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     if busy <= 0:
         raise RuntimeError("the profiler saw no device time")
@@ -992,11 +992,10 @@ def _device_ms(fn, n=10):
             fn()
         torch.cuda.synchronize()
     times = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            m = re.search(r"\w+(<[^>]*>)?(?=\()", e.key)  # the kernel's name and template arguments
-            key = m.group(0) if m else e.key[:30]
-            times[key] = times.get(key, 0.0) + e.self_device_time_total / 1e3 / n
+    for e in _device_ops(prof.key_averages()):
+        m = re.search(r"\w+(<[^>]*>)?(?=\()", e.key)  # the kernel's name and template arguments
+        key = m.group(0) if m else e.key[:30]
+        times[key] = times.get(key, 0.0) + e.self_device_time_total / 1e3 / n
     text = ", ".join(f"{k} {v:.4f}" for k, v in sorted(times.items(), key=lambda kv: -kv[1])) or "not measured"
     return text, len(times)
 
@@ -1390,11 +1389,22 @@ def _host_ms(fn, reps):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def _device_ops(events):
+    """The device's operations among profiler events: the CUDA events but
+    the device-side copies of host ranges (the port's ``riggs.*`` spans)."""
+    import torch
+
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and not e.key.startswith("riggs.")]
+
+
 def profile_steps(step, gs, skel, frame, pre_d_xyz, pre_d_joints, bg, kw, label, step_ms, n=3):
     """Device busy time and idle share per training step (torch.profiler),
-    and the step's three parts as stage2_step names them (record_function
-    ranges): their host time under the profiler and the device time of the
-    kernels launched inside them."""
+    and the step's three parts by the port's spans (``riggs_tpu_torch.trace``):
+    the backward (``riggs.backward.grad``), the update (``riggs.optim.adam``)
+    and the forward (``riggs.entry.stage2_step`` less those two), their host
+    time under the profiler and the device time of the kernels launched
+    inside them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1406,19 +1416,23 @@ def profile_steps(step, gs, skel, frame, pre_d_xyz, pre_d_joints, bg, kw, label,
             st, _ = step(st, frame, UID, bg, pre_d_xyz, pre_d_joints, it=TRAIN_ITS[-1], **kw)
         torch.cuda.synchronize()
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("stage2_step.")]  # a range's device-side copy is no kernel
+    kernels = _device_ops(events)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     if busy <= 0:
         raise RuntimeError("the profiler saw no device time")
-    parts = {k: max((e for e in events if e.key == f"stage2_step.{k}"), key=lambda e: e.cpu_time_total, default=None)
-             for k in ("forward", "backward", "update")}
-    if any(e is None or e.cpu_time_total <= 0 for e in parts.values()):
-        raise RuntimeError(f"the profile lacks a range of stage2_step: {parts}")
+    spans = {k: max((e for e in events if e.key == name and e.device_type != torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.cpu_time_total, default=None)
+             for k, name in (("entry", "riggs.entry.stage2_step"), ("backward", "riggs.backward.grad"),
+                             ("update", "riggs.optim.adam"))}
+    if any(e is None or e.cpu_time_total <= 0 for e in spans.values()):
+        raise RuntimeError(f"the profile lacks a span of stage2_step: {spans}")
+    ms = {k: e.cpu_time_total / 1e3 / n for k, e in spans.items()}
+    parts = {"forward": ms["entry"] - ms["backward"] - ms["update"], "backward": ms["backward"],
+             "update": ms["update"]}
     # host time only: the backward's kernels are launched from autograd's
-    # device thread, outside the range as the profiler attributes them
-    print(f"[train] {label}: step parts by host time under the profiler (stage2_step's ranges): "
-          + ", ".join(f"{k} {e.cpu_time_total / 1e3 / n:.2f} ms" for k, e in parts.items()))
+    # device thread, outside the span as the profiler attributes them
+    print(f"[train] {label}: step parts by host time under the profiler (stage2_step's spans): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items()))
     groups = {}
     for e in kernels:
         k = e.key
@@ -1632,9 +1646,7 @@ def _by_kind(prof, n):
     import torch
 
     groups = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in _device_ops(prof.key_averages()):
         k = e.key.lower()
         g = ("gemm" if "gemm" in k else "blend fwd" if "blend_fwd" in k else "blend bwd" if "blend_bwd" in k
              else "sort" if "sort" in k else "scatter/index" if "index" in k or "scatter" in k else "other")
@@ -1865,7 +1877,7 @@ def profile_stage1(one, label, step_ms, n=3, tag="[stage1]", it=STAGE1_ITS[-1]):
         for _ in range(n):
             one()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_ops(prof.key_averages())
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     if busy <= 0:
         raise RuntimeError("the profiler saw no device time")
@@ -2549,8 +2561,7 @@ def _profile_busy(fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    busy = sum(e.self_device_time_total for e in _device_ops(prof.key_averages())) / 1e3 / n
     if busy <= 0:
         raise RuntimeError("the profiler saw no device time")
     return busy
@@ -2599,8 +2610,7 @@ class _LoopProbe:
         elif it == start + 4:
             torch.cuda.synchronize()
             self.prof.stop()
-            self.busy[phase] = sum(e.self_device_time_total for e in self.prof.key_averages()
-                                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 5
+            self.busy[phase] = sum(e.self_device_time_total for e in _device_ops(self.prof.key_averages())) / 1e3 / 5
             del self.prof
 
     def ms(self, phase, since=0):

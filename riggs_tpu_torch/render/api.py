@@ -18,6 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from riggs_tpu_torch import trace
 from riggs_tpu_torch.camera.camera import Camera, camera_center, project_points
 from riggs_tpu_torch.device import constant
 from riggs_tpu_torch.models.gaussians import Gaussians
@@ -60,53 +61,54 @@ def render(
     tile_ladder: tuple | None = None,
     tile_shard_mesh=None,
 ) -> dict[str, Any]:
-    means3d = gs.xyz + d_xyz
-    if scale_const is not None:
-        opacity = torch.ones_like(gs.get_opacity)
-    else:
-        opacity = gs.get_opacity if d_opacity is None else gs.get_opacity + d_opacity
-
-    scales = gs.get_scaling + d_scaling
-    rotations = quat_normalize(gs.rotation + d_rotation)
-    if d_rotation_bias is not None:
-        rotations = quat_multiply(d_rotation_bias, rotations)
-
-    if render_motion:
-        mm = gs.motion_mask
-        colors = torch.cat([mm, torch.zeros_like(mm), 1.0 - mm], dim=-1)
-    elif override_color is not None:
-        colors = override_color
-    else:
-        feats = gs.get_features
-        if d_color is not None:
-            feats = torch.cat([feats[:, :1] + d_color[:, None], feats[:, 1:]], dim=1)
-        dirs = means3d - camera_center(cam)
-        # torch.maximum, not clamp: a tie splits its gradient as jnp.maximum's does
-        dirs = dirs / torch.maximum(torch.linalg.norm(dirs, dim=-1, keepdim=True), constant(1e-8, dirs))
-        if int(active_sh_degree) == 0:
-            # C0 * dc + 0.5 rounded once, as the reference's compiled render
-            # evaluates it (a fused multiply-add; the float64 product of two
-            # float32 values is exact): a black SH-0 splat (dc = -0.5 / C0,
-            # the node Gaussians' initial colour) comes out at -7.4e-9 and
-            # stays clamped; a rounded product and sum give exactly 0, a tie
-            # of the clamp whose half gradient would train its colour
-            colors = (feats[:, 0, :].to(torch.float64) * C0_F32 + 0.5).to(torch.float32)
+    with trace.span("riggs.render_prep.setup"):
+        means3d = gs.xyz + d_xyz
+        if scale_const is not None:
+            opacity = torch.ones_like(gs.get_opacity)
         else:
-            colors = eval_sh(int(active_sh_degree), feats, dirs) + 0.5
-        colors = torch.maximum(colors, constant(0.0, dirs))
+            opacity = gs.get_opacity if d_opacity is None else gs.get_opacity + d_opacity
 
-    # after the colours, as the reference orders it: the SH view direction
-    # still carries a gradient to the means under detach_xyz
-    if detach_xyz:
-        means3d = means3d.detach()
-    if detach_rot:
-        rotations = rotations.detach()
-    if detach_scale:
-        scales = scales.detach()
-    if detach_opacity:
-        opacity = opacity.detach()
-    if scale_const is not None:
-        scales = scale_const * torch.ones_like(scales)
+        scales = gs.get_scaling + d_scaling
+        rotations = quat_normalize(gs.rotation + d_rotation)
+        if d_rotation_bias is not None:
+            rotations = quat_multiply(d_rotation_bias, rotations)
+
+        if render_motion:
+            mm = gs.motion_mask
+            colors = torch.cat([mm, torch.zeros_like(mm), 1.0 - mm], dim=-1)
+        elif override_color is not None:
+            colors = override_color
+        else:
+            feats = gs.get_features
+            if d_color is not None:
+                feats = torch.cat([feats[:, :1] + d_color[:, None], feats[:, 1:]], dim=1)
+            dirs = means3d - camera_center(cam)
+            # torch.maximum, not clamp: a tie splits its gradient as jnp.maximum's does
+            dirs = dirs / torch.maximum(torch.linalg.norm(dirs, dim=-1, keepdim=True), constant(1e-8, dirs))
+            if int(active_sh_degree) == 0:
+                # C0 * dc + 0.5 rounded once, as the reference's compiled render
+                # evaluates it (a fused multiply-add; the float64 product of two
+                # float32 values is exact): a black SH-0 splat (dc = -0.5 / C0,
+                # the node Gaussians' initial colour) comes out at -7.4e-9 and
+                # stays clamped; a rounded product and sum give exactly 0, a tie
+                # of the clamp whose half gradient would train its colour
+                colors = (feats[:, 0, :].to(torch.float64) * C0_F32 + 0.5).to(torch.float32)
+            else:
+                colors = eval_sh(int(active_sh_degree), feats, dirs) + 0.5
+            colors = torch.maximum(colors, constant(0.0, dirs))
+
+        # after the colours, as the reference orders it: the SH view direction
+        # still carries a gradient to the means under detach_xyz
+        if detach_xyz:
+            means3d = means3d.detach()
+        if detach_rot:
+            rotations = rotations.detach()
+        if detach_scale:
+            scales = scales.detach()
+        if detach_opacity:
+            opacity = opacity.detach()
+        if scale_const is not None:
+            scales = scale_const * torch.ones_like(scales)
 
     if rasterizer == "tiled":
         kwargs = dict(max_per_tile=max_per_tile, max_tiles_per_gaussian=max_tiles_per_gaussian)

@@ -70,7 +70,7 @@ from pathlib import Path
 
 import torch
 
-from riggs_tpu_torch import cuda_build
+from riggs_tpu_torch import cuda_build, trace
 
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
@@ -586,9 +586,10 @@ class BlendFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, _dtentry):
-        g, tentry, *index = ctx.saved_tensors
-        # dout arrives strided from the untile transposes
-        dg = ctx.bwd(g, *index, tentry, dout.contiguous(), ctx.tiles_x)
+        with trace.span("riggs.blend.bwd"):
+            g, tentry, *index = ctx.saved_tensors
+            # dout arrives strided from the untile transposes
+            dg = ctx.bwd(g, *index, tentry, dout.contiguous(), ctx.tiles_x)
         return (dg, None, None, None) + (None,) * len(index)
 
 
@@ -596,7 +597,8 @@ def blend_cm(g: torch.Tensor, counts: torch.Tensor, tiles_x: int):
     """Channel-major blend of plain windows. g: (T, 16, MAX) f32, counts:
     (T,) int32 hit counts (chunk predication). Returns (out, tentry);
     differentiable in g."""
-    return BlendFn.apply(g, blend_cm_fwd, blend_cm_bwd, tiles_x, counts)
+    with trace.span("riggs.blend.fwd"):
+        return BlendFn.apply(g, blend_cm_fwd, blend_cm_bwd, tiles_x, counts)
 
 
 class _ShardedBlend(torch.autograd.Function):
@@ -616,10 +618,11 @@ class _ShardedBlend(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        g_l, c_l, tentry = ctx.saved_tensors
-        dout_l = dout[ctx.lo:ctx.lo + ctx.per].contiguous()
-        dg_l = blend_cm_bwd(g_l, c_l, tentry, dout_l, ctx.tiles_x, ctx.lo, counter="blend_cm_offset_bwd")
-        return ctx.mesh.gather_tiles(dg_l), None, None, None
+        with trace.span("riggs.blend.bwd"):
+            g_l, c_l, tentry = ctx.saved_tensors
+            dout_l = dout[ctx.lo:ctx.lo + ctx.per].contiguous()
+            dg_l = blend_cm_bwd(g_l, c_l, tentry, dout_l, ctx.tiles_x, ctx.lo, counter="blend_cm_offset_bwd")
+            return ctx.mesh.gather_tiles(dg_l), None, None, None
 
 
 def sharded_blend(mesh, gp: torch.Tensor, counts: torch.Tensor, tiles_x: int) -> torch.Tensor:
@@ -640,19 +643,21 @@ def sharded_blend(mesh, gp: torch.Tensor, counts: torch.Tensor, tiles_x: int) ->
     tile group. ``torch.distributed.nn.functional.all_gather`` is not used:
     its backward sums the cotangents over the ranks, which would scale the
     gradient of a loss every rank computes alike by the group's size."""
-    T = gp.shape[0]
-    pad_t = (-T) % mesh.shape["tile"]
-    if pad_t:
-        gp = torch.nn.functional.pad(gp, (0, 0, 0, 0, 0, pad_t))
-        counts = torch.nn.functional.pad(counts, (0, pad_t))
-    return _ShardedBlend.apply(gp, counts, tiles_x, mesh)[:T]
+    with trace.span("riggs.blend.fwd"):
+        T = gp.shape[0]
+        pad_t = (-T) % mesh.shape["tile"]
+        if pad_t:
+            gp = torch.nn.functional.pad(gp, (0, 0, 0, 0, 0, pad_t))
+            counts = torch.nn.functional.pad(counts, (0, pad_t))
+        return _ShardedBlend.apply(gp, counts, tiles_x, mesh)[:T]
 
 
 def blend_permuted_gm(g: torch.Tensor, counts: torch.Tensor, tids: torch.Tensor, tiles_x: int):
     """Gaussian-major blend of laddered windows. g: (T, MAX, 10) f32, counts:
     (T,) int32 (rows past the count are masked), tids: (T,) int32 real tile
     id per row. Returns (out, tentry); differentiable in g."""
-    return BlendFn.apply(g, blend_permuted_gm_fwd, blend_permuted_gm_bwd, tiles_x, counts, tids)
+    with trace.span("riggs.blend.fwd"):
+        return BlendFn.apply(g, blend_permuted_gm_fwd, blend_permuted_gm_bwd, tiles_x, counts, tids)
 
 
 def blend_runs(g_runs: torch.Tensor, counts: torch.Tensor, sblk: torch.Tensor, chunks: int, tiles_x: int):
@@ -661,4 +666,5 @@ def blend_runs(g_runs: torch.Tensor, counts: torch.Tensor, sblk: torch.Tensor, c
     int32 first block of each tile's run. Returns (out, tentry (T, chunks,
     1024)); differentiable in g_runs."""
     fwd = lambda g, c, s, tx: blend_runs_fwd(g, c, s, chunks, tx)
-    return BlendFn.apply(g_runs, fwd, blend_runs_bwd, tiles_x, counts, sblk)
+    with trace.span("riggs.blend.fwd"):
+        return BlendFn.apply(g_runs, fwd, blend_runs_bwd, tiles_x, counts, sblk)

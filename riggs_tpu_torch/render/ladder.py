@@ -1,9 +1,10 @@
 """Host-side tile-ladder construction from observed per-tile hit counts.
 
 A copy of ``riggs_tpu/render/ladder.py:make_tile_ladder``, ``ladder_rows``
-and ``LadderPolicy`` (numpy only; the port keeps its own copy rather than
-import the JAX package). The laddered renderer gives count-sorted tiles
-rank-dependent window capacities, shrinking the window gather from
+and ``LadderPolicy`` (numpy on the host; the port keeps its own copy rather
+than import the JAX package; a fit is the span
+``riggs.render_prep.ladder_fit``). The laddered renderer gives count-sorted
+tiles rank-dependent window capacities, shrinking the window gather from
 T * max(count) rows to about the area under the sorted-count curve. Bucket
 truncation is counted in ``overflow_tiles``, so a stale ladder is detected.
 ``LadderPolicy`` fits and refits a ladder from the training steps' own
@@ -14,6 +15,8 @@ from __future__ import annotations
 from itertools import combinations
 
 import numpy as np
+
+from riggs_tpu_torch import trace
 
 CHUNK = 128  # window caps are multiples of the blend kernel chunk
 
@@ -150,7 +153,8 @@ class LadderPolicy:
         return False
 
     def _fit(self):
-        self.ladder = make_tile_ladder(
-            self.env, n_buckets=self.n_buckets, margin=self.margin,
-            min_cap=self.min_cap, max_cap=self.max_cap, quantize=self.quantize,
-        )
+        with trace.span("riggs.render_prep.ladder_fit"):
+            self.ladder = make_tile_ladder(
+                self.env, n_buckets=self.n_buckets, margin=self.margin,
+                min_cap=self.min_cap, max_cap=self.max_cap, quantize=self.quantize,
+            )

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from riggs_tpu_torch import trace
 from riggs_tpu_torch.camera.camera import Camera
 from riggs_tpu_torch.render import blend as _blend
 from riggs_tpu_torch.render.binning import (
@@ -183,122 +184,125 @@ def rasterize_tiled(
     if tile_ladder is not None and binning != "sort":
         raise ValueError("tile_ladder requires binning='sort'")
 
-    if cov3d is None:
-        cov3d = build_cov3d_packed(scales, rotations, scale_modifier)
-    max_per_tile = _round_up(max_per_tile)
-    proj = project_gaussians(cam, means3d, cov3d, alive, mean2d_bias)
-    op_masked = torch.where(proj.mask, opacity, 0.0)
-    if binning == "sort":
-        bins = bin_gaussians_sorted(
-            proj, cam.width, cam.height, max_per_tile=max_per_tile,
-            max_tiles_per_gaussian=max_tiles_per_gaussian,
-            opacity=op_masked.detach(), giant_cap=giant_cap, giant_side=giant_side,
-            mid_cap=mid_cap, mid_side=mid_side,
-        )
-    elif binning == "runs":
-        bins = bin_gaussians_runs(
-            proj, cam.width, cam.height, max_per_tile=max_per_tile,
-            max_tiles_per_gaussian=max_tiles_per_gaussian, max_instances=max_instances,
-        )
-    elif binning == "compact":
-        bins = bin_gaussians_compact(proj, cam.width, cam.height, max_per_tile=max_per_tile,
-                                     max_instances=max_instances)
-    elif binning == "sort2":
-        bins = bin_gaussians_sorted2(proj, cam.width, cam.height, max_per_tile=max_per_tile,
-                                     max_tiles_per_gaussian=max_tiles_per_gaussian)
-    else:
-        bins = bin_gaussians(proj, cam.width, cam.height, max_per_tile=max_per_tile)
-
-    # one packed row per Gaussian: [mean2d, conic, opacity, rgb, depth]
-    packed = torch.cat(
-        [proj.mean2d, proj.conic, op_masked[:, None], colors, proj.depth[:, None]], dim=-1
-    )  # (N, 10)
-    T = bins.tiles_x * bins.tiles_y
-    if tile_ladder is not None:
-        if sum(n for n, _ in tile_ladder) != T:
-            raise ValueError(f"tile_ladder bucket sizes must sum to the tile count {T}: {tile_ladder}")
-        ordr = torch.argsort(-bins.count, stable=True)
-        inv = torch.argsort(ordr)
-        cap_max = max(_round_up(cap) for _, cap in tile_ladder)
-        gid_pad = torch.nn.functional.pad(bins.gid_sorted, (0, cap_max))
-        outs = []
-        ladder_overflow = torch.zeros((), dtype=torch.int64, device=packed.device)
-        r0 = 0
-        for nb, cap in tile_ladder:
-            tids_b = ordr[r0 : r0 + nb]
-            counts_b = bins.count[tids_b]
-            r0 += nb
-            if cap == 0:
-                # empty-tile bucket: background only; any count is truncation
-                outs.append(torch.zeros((nb, 8, TILE * TILE), dtype=torch.float32, device=packed.device))
-                ladder_overflow += torch.sum(counts_b)
-                continue
-            cap = _round_up(cap)
-            win = _extract_windows(gid_pad, bins.starts[tids_b], cap)
-            valid = torch.arange(cap, device=win.device)[None, :] < torch.clamp(counts_b, max=cap)[:, None]
-            g_b = _gather_windows(packed, win, valid)  # (nb, cap, 10)
-            out_b, _ = _blend.blend_permuted_gm(
-                g_b, torch.clamp(counts_b, max=cap).to(torch.int32),
-                tids_b.to(torch.int32), bins.tiles_x,
+    with trace.span("riggs.render_prep.setup"):
+        if cov3d is None:
+            cov3d = build_cov3d_packed(scales, rotations, scale_modifier)
+        max_per_tile = _round_up(max_per_tile)
+        proj = project_gaussians(cam, means3d, cov3d, alive, mean2d_bias)
+        op_masked = torch.where(proj.mask, opacity, 0.0)
+    with trace.span("riggs.render_prep.bin"):
+        if binning == "sort":
+            bins = bin_gaussians_sorted(
+                proj, cam.width, cam.height, max_per_tile=max_per_tile,
+                max_tiles_per_gaussian=max_tiles_per_gaussian,
+                opacity=op_masked.detach(), giant_cap=giant_cap, giant_side=giant_side,
+                mid_cap=mid_cap, mid_side=mid_side,
             )
-            outs.append(out_b)
-            ladder_overflow += torch.sum(torch.clamp(counts_b - cap, min=0))
-        out = torch.cat(outs, dim=0)[inv]  # (T, 8, P) back in tile order
-        overflow_tiles = ladder_overflow
-    else:
-        counts = torch.clamp(bins.count, max=max_per_tile).to(torch.int32)
-        overflow_tiles = torch.sum(torch.clamp(bins.count - max_per_tile, min=0))
-        if bins.runs is not None:
-            # one row per aligned slot; the sentinel slots (id N) are zero rows
-            attrs = _gather_windows(packed, bins.runs.gid, bins.runs.gid < packed.shape[0])  # (M2, 10)
-            g_runs = torch.nn.functional.pad(attrs, (0, _blend.PACK_ROWS - attrs.shape[-1])).t().contiguous()
-            out, _ = _blend.blend_runs(g_runs, counts, bins.runs.sblk, max_per_tile // G_CHUNK, bins.tiles_x)
-        elif bins.compact is not None or bins.grid is not None:
-            if bins.compact is not None:
-                g = gather_instances(packed, bins.idx, bins.compact)
-            else:
-                side = max(int(np.ceil(np.sqrt(max_tiles_per_gaussian))), 1)
-                g = gather_grid(packed, bins.grid, side * side)
-            # invalid slots read row 0; their opacity is masked, as the reference masks it
-            g = torch.cat([g[..., :5], torch.where(bins.valid, g[..., 5], 0.0)[..., None], g[..., 6:]], dim=-1)
-            gp = torch.nn.functional.pad(g, (0, _blend.PACK_ROWS - g.shape[-1])).transpose(1, 2).contiguous()
-            out = _blend_plain_windows(gp, counts, bins.tiles_x, tile_shard_mesh)
+        elif binning == "runs":
+            bins = bin_gaussians_runs(
+                proj, cam.width, cam.height, max_per_tile=max_per_tile,
+                max_tiles_per_gaussian=max_tiles_per_gaussian, max_instances=max_instances,
+            )
+        elif binning == "compact":
+            bins = bin_gaussians_compact(proj, cam.width, cam.height, max_per_tile=max_per_tile,
+                                         max_instances=max_instances)
+        elif binning == "sort2":
+            bins = bin_gaussians_sorted2(proj, cam.width, cam.height, max_per_tile=max_per_tile,
+                                         max_tiles_per_gaussian=max_tiles_per_gaussian)
         else:
-            # invalid slots are all zero, their opacity included: the
-            # reference's opacity mask (tiles.py:402) is the gather's zeros here
-            g = _gather_windows(packed, bins.idx, bins.valid)  # (T, MAX, 10)
-            gp = torch.nn.functional.pad(g, (0, _blend.PACK_ROWS - g.shape[-1]))
-            gp = gp.transpose(1, 2).contiguous()  # (T, 16, MAX)
-            out = _blend_plain_windows(gp, counts, bins.tiles_x, tile_shard_mesh)
+            bins = bin_gaussians(proj, cam.width, cam.height, max_per_tile=max_per_tile)
 
-    rgb = out[:, 0:3, :].transpose(1, 2)  # (T, P, 3)
-    dep = out[:, 3, :]
-    acc = out[:, 4, :]
+    with trace.span("riggs.render_prep.windows"):
+        # one packed row per Gaussian: [mean2d, conic, opacity, rgb, depth]
+        packed = torch.cat(
+            [proj.mean2d, proj.conic, op_masked[:, None], colors, proj.depth[:, None]], dim=-1
+        )  # (N, 10)
+        T = bins.tiles_x * bins.tiles_y
+        if tile_ladder is not None:
+            if sum(n for n, _ in tile_ladder) != T:
+                raise ValueError(f"tile_ladder bucket sizes must sum to the tile count {T}: {tile_ladder}")
+            ordr = torch.argsort(-bins.count, stable=True)
+            inv = torch.argsort(ordr)
+            cap_max = max(_round_up(cap) for _, cap in tile_ladder)
+            gid_pad = torch.nn.functional.pad(bins.gid_sorted, (0, cap_max))
+            outs = []
+            ladder_overflow = torch.zeros((), dtype=torch.int64, device=packed.device)
+            r0 = 0
+            for nb, cap in tile_ladder:
+                tids_b = ordr[r0 : r0 + nb]
+                counts_b = bins.count[tids_b]
+                r0 += nb
+                if cap == 0:
+                    # empty-tile bucket: background only; any count is truncation
+                    outs.append(torch.zeros((nb, 8, TILE * TILE), dtype=torch.float32, device=packed.device))
+                    ladder_overflow += torch.sum(counts_b)
+                    continue
+                cap = _round_up(cap)
+                win = _extract_windows(gid_pad, bins.starts[tids_b], cap)
+                valid = torch.arange(cap, device=win.device)[None, :] < torch.clamp(counts_b, max=cap)[:, None]
+                g_b = _gather_windows(packed, win, valid)  # (nb, cap, 10)
+                out_b, _ = _blend.blend_permuted_gm(
+                    g_b, torch.clamp(counts_b, max=cap).to(torch.int32),
+                    tids_b.to(torch.int32), bins.tiles_x,
+                )
+                outs.append(out_b)
+                ladder_overflow += torch.sum(torch.clamp(counts_b - cap, min=0))
+            out = torch.cat(outs, dim=0)[inv]  # (T, 8, P) back in tile order
+            overflow_tiles = ladder_overflow
+        else:
+            counts = torch.clamp(bins.count, max=max_per_tile).to(torch.int32)
+            overflow_tiles = torch.sum(torch.clamp(bins.count - max_per_tile, min=0))
+            if bins.runs is not None:
+                # one row per aligned slot; the sentinel slots (id N) are zero rows
+                attrs = _gather_windows(packed, bins.runs.gid, bins.runs.gid < packed.shape[0])  # (M2, 10)
+                g_runs = torch.nn.functional.pad(attrs, (0, _blend.PACK_ROWS - attrs.shape[-1])).t().contiguous()
+                out, _ = _blend.blend_runs(g_runs, counts, bins.runs.sblk, max_per_tile // G_CHUNK, bins.tiles_x)
+            elif bins.compact is not None or bins.grid is not None:
+                if bins.compact is not None:
+                    g = gather_instances(packed, bins.idx, bins.compact)
+                else:
+                    side = max(int(np.ceil(np.sqrt(max_tiles_per_gaussian))), 1)
+                    g = gather_grid(packed, bins.grid, side * side)
+                # invalid slots read row 0; their opacity is masked, as the reference masks it
+                g = torch.cat([g[..., :5], torch.where(bins.valid, g[..., 5], 0.0)[..., None], g[..., 6:]], dim=-1)
+                gp = torch.nn.functional.pad(g, (0, _blend.PACK_ROWS - g.shape[-1])).transpose(1, 2).contiguous()
+                out = _blend_plain_windows(gp, counts, bins.tiles_x, tile_shard_mesh)
+            else:
+                # invalid slots are all zero, their opacity included: the
+                # reference's opacity mask (tiles.py:402) is the gather's zeros here
+                g = _gather_windows(packed, bins.idx, bins.valid)  # (T, MAX, 10)
+                gp = torch.nn.functional.pad(g, (0, _blend.PACK_ROWS - g.shape[-1]))
+                gp = gp.transpose(1, 2).contiguous()  # (T, 16, MAX)
+                out = _blend_plain_windows(gp, counts, bins.tiles_x, tile_shard_mesh)
 
-    H, W = cam.height, cam.width
-    Hp, Wp = bins.tiles_y * TILE, bins.tiles_x * TILE
+        rgb = out[:, 0:3, :].transpose(1, 2)  # (T, P, 3)
+        dep = out[:, 3, :]
+        acc = out[:, 4, :]
 
-    def untile(a):
-        c = a.shape[-1] if a.dim() == 3 else 1
-        a = a.reshape(bins.tiles_y, bins.tiles_x, TILE, TILE, c)
-        return a.permute(0, 2, 1, 3, 4).reshape(Hp, Wp, c)[:H, :W]
+        H, W = cam.height, cam.width
+        Hp, Wp = bins.tiles_y * TILE, bins.tiles_x * TILE
 
-    image = untile(rgb) + (1.0 - untile(acc[..., None])) * bg
-    overflow_rect = bins.overflow
-    overflow_tiles = overflow_tiles.to(torch.int32)
-    overflow_budget = bins.overflow_budget
-    if overflow_budget is None:
-        overflow_budget = torch.zeros((), dtype=torch.int32, device=overflow_rect.device)
-    return dict(
-        image=image,
-        depth=untile(dep[..., None])[..., 0],
-        alpha=untile(acc[..., None])[..., 0],
-        radii=proj.radius,
-        proj=proj,
-        overflow=overflow_tiles + overflow_rect + overflow_budget,
-        overflow_tiles=overflow_tiles,
-        overflow_rect=overflow_rect,
-        overflow_budget=overflow_budget,
-        max_count=torch.max(bins.count),
-        tile_counts=bins.count,  # (T,) true hit counts: the ladder's probe input
-    )
+        def untile(a):
+            c = a.shape[-1] if a.dim() == 3 else 1
+            a = a.reshape(bins.tiles_y, bins.tiles_x, TILE, TILE, c)
+            return a.permute(0, 2, 1, 3, 4).reshape(Hp, Wp, c)[:H, :W]
+
+        image = untile(rgb) + (1.0 - untile(acc[..., None])) * bg
+        overflow_rect = bins.overflow
+        overflow_tiles = overflow_tiles.to(torch.int32)
+        overflow_budget = bins.overflow_budget
+        if overflow_budget is None:
+            overflow_budget = torch.zeros((), dtype=torch.int32, device=overflow_rect.device)
+        return dict(
+            image=image,
+            depth=untile(dep[..., None])[..., 0],
+            alpha=untile(acc[..., None])[..., 0],
+            radii=proj.radius,
+            proj=proj,
+            overflow=overflow_tiles + overflow_rect + overflow_budget,
+            overflow_tiles=overflow_tiles,
+            overflow_rect=overflow_rect,
+            overflow_budget=overflow_budget,
+            max_count=torch.max(bins.count),
+            tile_counts=bins.count,  # (T,) true hit counts: the ladder's probe input
+        )

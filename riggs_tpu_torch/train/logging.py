@@ -1,48 +1,32 @@
-"""Observability: per-step timing, profiler traces, TensorBoard scalars, eval reports.
+"""Observability: profiler traces, TensorBoard scalars, eval reports.
 
-Port of ``riggs_tpu/train/logging.py``: ``StepTimer`` (host clock with an
-EMA), ``profile_trace`` (a ``torch.profiler`` scope that writes a Chrome
-trace into ``log_dir``, where the reference starts ``jax.profiler``),
-``TrainLogger`` (a TensorBoard writer from ``torch.utils.tensorboard`` or
-``tensorboardX``, and a no-op when neither imports) and
-``evaluation_report``.
+Port of ``riggs_tpu/train/logging.py``: ``profile_trace`` (a
+``torch.profiler`` scope that writes a Chrome trace into ``log_dir``, where
+the reference starts ``jax.profiler``; the port's spans and counters,
+``riggs_tpu_torch.trace``, are on inside it), ``TrainLogger`` (a
+TensorBoard writer from ``torch.utils.tensorboard`` or ``tensorboardX``, and
+a no-op when neither imports) and ``evaluation_report``.
 """
 from __future__ import annotations
 
 import contextlib
-import time
+import json
 from pathlib import Path
 from typing import Callable
 
 import numpy as np
 import torch
 
+from riggs_tpu_torch import trace
 from riggs_tpu_torch.eval.metrics import evaluate_image
-
-
-class StepTimer:
-    """Host-clock per-step timing with an EMA. On the card, time only what
-    ends in a synchronize: the clock otherwise measures the enqueue."""
-
-    def __init__(self, ema: float = 0.9):
-        self.ema = ema
-        self.avg_ms: float | None = None
-        self._t0 = 0.0
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = (time.perf_counter() - self._t0) * 1000.0
-        self.avg_ms = dt if self.avg_ms is None else self.ema * self.avg_ms + (1 - self.ema) * dt
-        return False
 
 
 @contextlib.contextmanager
 def profile_trace(log_dir: str | Path, enabled: bool = True):
     """A ``torch.profiler`` scope over the host and, when there is one, the
-    card; on exit its Chrome trace is written to ``log_dir/trace.json``."""
+    card. The counters of ``riggs_tpu_torch.trace`` start from 0; on exit
+    the Chrome trace (the spans among the host's ranges) is written to
+    ``log_dir/trace.json`` and the counters to ``log_dir/counters.json``."""
     if not enabled:
         yield
         return
@@ -50,6 +34,7 @@ def profile_trace(log_dir: str | Path, enabled: bool = True):
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
     prof = profile(activities=acts)
+    trace.reset()
     prof.start()
     try:
         yield
@@ -57,6 +42,7 @@ def profile_trace(log_dir: str | Path, enabled: bool = True):
         prof.stop()
         Path(log_dir).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+        (Path(log_dir) / "counters.json").write_text(json.dumps(trace.counters(), sort_keys=True))
 
 
 class TrainLogger:

@@ -50,6 +50,7 @@ import math
 import numpy as np
 import torch
 
+from riggs_tpu_torch import trace
 from riggs_tpu_torch.camera.camera import project_nodes_2d
 from riggs_tpu_torch.data.dataset import Frame, SceneData
 from riggs_tpu_torch.data.flow import FlowStore
@@ -201,8 +202,9 @@ def stage1_frame_loss(
     (loss, (render output, aux losses))."""
     gs = state.gs.replace_params(params["gs"])
     warp = state.warp.replace_params(params["warp"])
-    d = NW.warp_forward(warp, gs.xyz.detach(), frame.fid, gs.feature, gs.motion_mask,
-                        local_frame=warp.net.local_frame)
+    with trace.span("riggs.deform.nodes"):
+        d = NW.warp_forward(warp, gs.xyz.detach(), frame.fid, gs.feature, gs.motion_mask,
+                            local_frame=warp.net.local_frame)
     d_xyz, d_rot = d["d_xyz"], d["d_rotation"]
     if warm:
         d_xyz, d_rot = d_xyz.detach(), d_rot.detach()
@@ -214,22 +216,26 @@ def stage1_frame_loss(
         active_sh_degree=active_sh, mean2d_bias=mean2d_bias, max_per_tile=max_per_tile,
         tile_ladder=tile_ladder, **tier_kwargs(tiers),
     )
-    loss = L.photometric_loss(out["render"], frame.image, lambda_dssim)
+    with trace.span("riggs.loss.photometric"):
+        loss = L.photometric_loss(out["render"], frame.image, lambda_dssim)
     aux = {"img_loss": loss}
-    aux["arap"] = NW.arap_loss(warp, arap_t)
-    loss = loss + lambda_arap * aux["arap"]
+    with trace.span("riggs.loss.regularizers"):
+        aux["arap"] = NW.arap_loss(warp, arap_t)
+        loss = loss + lambda_arap * aux["arap"]
     if use_flow_loss and frame.flow is not None:
-        d2 = NW.warp_forward(warp, gs.xyz.detach(), frame.flow_partner_fid, gs.feature, gs.motion_mask,
-                             local_frame=warp.net.local_frame)
+        with trace.span("riggs.deform.nodes"):
+            d2 = NW.warp_forward(warp, gs.xyz.detach(), frame.flow_partner_fid, gs.feature, gs.motion_mask,
+                                 local_frame=warp.net.local_frame)
         fout = render_flow(frame.cam, frame.cam, gs, d_xyz, d2["d_xyz"], d_rot, max_per_tile=max_per_tile)
-        gt_flow_ndc = frame.flow / constant((float(frame.cam.width), float(frame.cam.height)), frame.flow) * 2.0
-        pair_w = torch.clamp(torch.cos(torch.abs(frame.fid - frame.flow_partner_fid) * math.pi / 2.0), 0.2, 1.0)
-        solid = fout["alpha"] > 0.9
-        # down-weight the pixels the photometric render explains poorly
-        l1w = torch.cos(torch.mean(torch.abs(out["render"].detach() - frame.image), dim=-1) * math.pi / 2.0)
-        m = (solid & (frame.flow_mask > 0)).to(torch.float32) * pair_w * l1w
-        flow_l1 = L.l1_loss(m[..., None] * gt_flow_ndc, m[..., None] * fout["render"][..., :2])
-        loss = loss + lambda_flow * flow_l1
+        with trace.span("riggs.loss.regularizers"):
+            gt_flow_ndc = frame.flow / constant((float(frame.cam.width), float(frame.cam.height)), frame.flow) * 2.0
+            pair_w = torch.clamp(torch.cos(torch.abs(frame.fid - frame.flow_partner_fid) * math.pi / 2.0), 0.2, 1.0)
+            solid = fout["alpha"] > 0.9
+            # down-weight the pixels the photometric render explains poorly
+            l1w = torch.cos(torch.mean(torch.abs(out["render"].detach() - frame.image), dim=-1) * math.pi / 2.0)
+            m = (solid & (frame.flow_mask > 0)).to(torch.float32) * pair_w * l1w
+            flow_l1 = L.l1_loss(m[..., None] * gt_flow_ndc, m[..., None] * fout["render"][..., :2])
+            loss = loss + lambda_flow * flow_l1
         aux["flow"] = flow_l1
         out = dict(out, flow_overflow_tiles=fout["overflow_tiles"], flow_overflow_rect=fout["overflow_rect"])
     if use_motion_loss and frame.alpha_mask is not None:
@@ -240,11 +246,13 @@ def stage1_frame_loss(
             detach_xyz=True, detach_rot=True, detach_scale=True, detach_opacity=True,
             max_per_tile=max_per_tile, **tier_kwargs(tiers),
         )
-        loss = loss + lambda_motion * L.l1_loss(mout["render"][..., 0], frame.alpha_mask)
+        with trace.span("riggs.loss.regularizers"):
+            loss = loss + lambda_motion * L.l1_loss(mout["render"][..., 0], frame.alpha_mask)
     if frame.thinned is not None:
-        proj = project_nodes_2d(frame.cam, d["d_nodes"])
-        cd = chamfer_distance(proj, frame.thinned, y_mask=frame.thinned_mask, norm=1)
-        loss = loss + lambda_chamfer * float(use_chamfer) * cd
+        with trace.span("riggs.loss.regularizers"):
+            proj = project_nodes_2d(frame.cam, d["d_nodes"])
+            cd = chamfer_distance(proj, frame.thinned, y_mask=frame.thinned_mask, norm=1)
+            loss = loss + lambda_chamfer * float(use_chamfer) * cd
         aux["chamfer"] = cd
     return loss, (out, aux)
 
@@ -274,39 +282,41 @@ def phase_b_step(
     """One phase-B step: value and gradient of ``stage1_frame_loss`` in the
     Gaussians, the warp and ``mean2d_bias``; Adam on both; the
     densification statistics. Returns (new state, metrics)."""
-    gs_p = {k: v.detach().requires_grad_(True) for k, v in state.gs.params_dict().items()}
-    params = {"gs": gs_p, "warp": state.warp.params_dict()}
-    m2b = torch.zeros_like(state.gs.xyz[:, :2], requires_grad=True)
-    loss, (out, aux) = stage1_frame_loss(
-        params, state, frame, bg, m2b, arap_t, lambda_arap, lambda_motion, lambda_flow, lambda_chamfer,
-        warm=warm, active_sh=active_sh, use_chamfer=use_chamfer, use_motion_loss=use_motion_loss,
-        use_flow_loss=use_flow_loss, lambda_dssim=lambda_dssim, max_per_tile=max_per_tile,
-        isotropic=isotropic, tile_ladder=tile_ladder, tiers=tiers,
-    )
-    gp, gm2b = O.grad_tree(loss, (params, m2b))
-    with torch.no_grad():
-        new_gs_p, opt_gs = O.adam_update(gp["gs"], state.opt_gs, gs_p, lrs_gs)
-        new_warp_p, opt_warp = O.adam_update(gp["warp"], state.opt_warp, params["warp"], lrs_warp)
-        stats = G.add_densification_stats(
-            state.stats_gs, gm2b, out["radii"], out["visibility_filter"], frame.cam.width, frame.cam.height,
+    with trace.span("riggs.entry.phase_b_step"):
+        gs_p = {k: v.detach().requires_grad_(True) for k, v in state.gs.params_dict().items()}
+        params = {"gs": gs_p, "warp": state.warp.params_dict()}
+        m2b = torch.zeros_like(state.gs.xyz[:, :2], requires_grad=True)
+        loss, (out, aux) = stage1_frame_loss(
+            params, state, frame, bg, m2b, arap_t, lambda_arap, lambda_motion, lambda_flow, lambda_chamfer,
+            warm=warm, active_sh=active_sh, use_chamfer=use_chamfer, use_motion_loss=use_motion_loss,
+            use_flow_loss=use_flow_loss, lambda_dssim=lambda_dssim, max_per_tile=max_per_tile,
+            isotropic=isotropic, tile_ladder=tile_ladder, tiers=tiers,
         )
-        metrics = {"loss": loss.detach(), "psnr": L.psnr(out["render"], frame.image), "n_gs": state.gs.num_alive}
-        metrics.update({k: v.detach() for k, v in aux.items() if k != "img_loss"})
-    new_state = dataclasses.replace(
-        state,
-        gs=state.gs.replace_params(new_gs_p),
-        warp=state.warp.replace_params(new_warp_p),
-        opt_gs=opt_gs,
-        opt_warp=opt_warp,
-        stats_gs=stats,
-    )
-    # ladder policy inputs: true per-tile hit counts and the truncation counters
-    metrics["overflow_tiles"] = out["overflow_tiles"]
-    metrics["overflow_rect"] = out["overflow_rect"]
-    metrics["tile_counts"] = out["tile_counts"]
-    for k in ("flow_overflow_tiles", "flow_overflow_rect"):
-        if k in out:
-            metrics[k] = out[k]
+        with trace.span("riggs.backward.grad"):
+            gp, gm2b = O.grad_tree(loss, (params, m2b))
+        with trace.span("riggs.optim.adam"), torch.no_grad():
+            new_gs_p, opt_gs = O.adam_update(gp["gs"], state.opt_gs, gs_p, lrs_gs)
+            new_warp_p, opt_warp = O.adam_update(gp["warp"], state.opt_warp, params["warp"], lrs_warp)
+            stats = G.add_densification_stats(
+                state.stats_gs, gm2b, out["radii"], out["visibility_filter"], frame.cam.width, frame.cam.height,
+            )
+            metrics = {"loss": loss.detach(), "psnr": L.psnr(out["render"], frame.image), "n_gs": state.gs.num_alive}
+            metrics.update({k: v.detach() for k, v in aux.items() if k != "img_loss"})
+            new_state = dataclasses.replace(
+                state,
+                gs=state.gs.replace_params(new_gs_p),
+                warp=state.warp.replace_params(new_warp_p),
+                opt_gs=opt_gs,
+                opt_warp=opt_warp,
+                stats_gs=stats,
+            )
+        # ladder policy inputs: true per-tile hit counts and the truncation counters
+        metrics["overflow_tiles"] = out["overflow_tiles"]
+        metrics["overflow_rect"] = out["overflow_rect"]
+        metrics["tile_counts"] = out["tile_counts"]
+        for k in ("flow_overflow_tiles", "flow_overflow_rect"):
+            if k in out:
+                metrics[k] = out[k]
     return new_state, metrics
 
 

@@ -43,8 +43,8 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from riggs_tpu_torch import trace
 from riggs_tpu_torch.camera.camera import project_nodes_2d
 from riggs_tpu_torch.data.dataset import Frame, SceneData
 from riggs_tpu_torch.device import constant, resolve_device, static_index
@@ -133,33 +133,35 @@ def stage2_frame_loss(
     deformation))."""
     gs = state.gs.replace_params(params["gs"])
     skel = state.skel.replace_params(params["skel"])
-    d = SW.skeleton_forward(
-        skel, gs.xyz.detach(), frame.fid, gs.motion_mask,
-        enable_template_offsets=enable_to, enable_skinning_mlp=enable_sm,
-    )
+    with trace.span("riggs.deform.skeleton"):
+        d = SW.skeleton_forward(
+            skel, gs.xyz.detach(), frame.fid, gs.motion_mask,
+            enable_template_offsets=enable_to, enable_skinning_mlp=enable_sm,
+        )
     d_xyz, d_rot = d["d_xyz"], d["d_rotation"]
     d_scaling = torch.zeros_like(d["d_scaling"])
     if isotropic:
         d_rot = torch.zeros_like(d_rot)
-    loss = torch.zeros((), device=gs.device)
-    aux = {}
-    if state.skel.net.use_template_offsets:
-        # a disabled detail net gives exactly zero offsets, so the term vanishes
-        to_loss = torch.mean(d["template_offsets"] ** 2)
-        loss = loss + lambda_template_offsets * to_loss
-        aux["template_offsets_loss"] = to_loss
-    if frame.thinned is not None:
-        pts = sample_skeleton_points(d["d_nodes"], state.skel.net.parents)
-        proj = project_nodes_2d(frame.cam, pts)
-        cd = chamfer_distance(proj, frame.thinned, y_mask=frame.thinned_mask, norm=1)
-        # robust per-frame weight from the running loss buffer
-        sigma = _median(state.proj_loss) / 2.0
-        w = torch.exp(-state.proj_loss[uid] ** 2 / (2.0 * sigma**2))
-        loss = loss + lambda_chamfer * float(use_chamfer) * w * cd
-        aux["chamfer"] = cd
-    # template-fixed pose loss (identity local rotation on the template frame)
-    tf_loss = torch.mean((d["local_rotation"] - constant(SW.ROT_BIAS, d["local_rotation"])) ** 2)
-    loss = loss + lambda_template_fixed * tf_loss
+    with trace.span("riggs.loss.regularizers"):
+        loss = torch.zeros((), device=gs.device)
+        aux = {}
+        if state.skel.net.use_template_offsets:
+            # a disabled detail net gives exactly zero offsets, so the term vanishes
+            to_loss = torch.mean(d["template_offsets"] ** 2)
+            loss = loss + lambda_template_offsets * to_loss
+            aux["template_offsets_loss"] = to_loss
+        if frame.thinned is not None:
+            pts = sample_skeleton_points(d["d_nodes"], state.skel.net.parents)
+            proj = project_nodes_2d(frame.cam, pts)
+            cd = chamfer_distance(proj, frame.thinned, y_mask=frame.thinned_mask, norm=1)
+            # robust per-frame weight from the running loss buffer
+            sigma = _median(state.proj_loss) / 2.0
+            w = torch.exp(-state.proj_loss[uid] ** 2 / (2.0 * sigma**2))
+            loss = loss + lambda_chamfer * float(use_chamfer) * w * cd
+            aux["chamfer"] = cd
+        # template-fixed pose loss (identity local rotation on the template frame)
+        tf_loss = torch.mean((d["local_rotation"] - constant(SW.ROT_BIAS, d["local_rotation"])) ** 2)
+        loss = loss + lambda_template_fixed * tf_loss
 
     out = render(
         frame.cam, gs, bg,
@@ -170,12 +172,14 @@ def stage2_frame_loss(
     # warmup distils toward the precomputed stage-1 deformation, the main
     # phase trains photometric (both terms are computed, one weighted 0)
     w_warm = float(warm)
-    aux["d_xyz_loss"] = L.l2_loss(d_xyz, pre_d_xyz)
-    aux["d_node_loss"] = L.l2_loss(d["d_nodes"], pre_d_joints)
-    img_loss = L.photometric_loss(out["render"], frame.image, lambda_dssim)
-    aux["img_loss"] = img_loss
-    loss = loss + w_warm * (aux["d_xyz_loss"] + aux["d_node_loss"])
-    loss = loss + (1.0 - w_warm) * lambda_rendering * img_loss
+    with trace.span("riggs.loss.regularizers"):
+        aux["d_xyz_loss"] = L.l2_loss(d_xyz, pre_d_xyz)
+        aux["d_node_loss"] = L.l2_loss(d["d_nodes"], pre_d_joints)
+        loss = loss + w_warm * (aux["d_xyz_loss"] + aux["d_node_loss"])
+    with trace.span("riggs.loss.photometric"):
+        img_loss = L.photometric_loss(out["render"], frame.image, lambda_dssim)
+        aux["img_loss"] = img_loss
+        loss = loss + (1.0 - w_warm) * lambda_rendering * img_loss
     return loss, (out, aux, d)
 
 
@@ -208,11 +212,10 @@ def stage2_step(
     and on the Gaussians outside warmup (in warmup their parameters and
     moments stay as they are); the densification statistics; the frame's
     chamfer in ``proj_loss``. Returns (new state, metrics)."""
-    gs_p = {k: v.detach().requires_grad_(True) for k, v in state.gs.params_dict().items()}
-    params = {"gs": gs_p, "skel": state.skel.params_dict()}
-    m2b = torch.zeros_like(state.gs.xyz[:, :2], requires_grad=True)
-    # the three parts of a step, named for the profiler (chip_smoke.py reads them)
-    with record_function("stage2_step.forward"):
+    with trace.span("riggs.entry.stage2_step"):
+        gs_p = {k: v.detach().requires_grad_(True) for k, v in state.gs.params_dict().items()}
+        params = {"gs": gs_p, "skel": state.skel.params_dict()}
+        m2b = torch.zeros_like(state.gs.xyz[:, :2], requires_grad=True)
         loss, (out, aux, d) = stage2_frame_loss(
             params, state, frame, uid, bg, m2b, pre_d_xyz, pre_d_joints,
             lambda_template_offsets, lambda_template_fixed,
@@ -221,38 +224,38 @@ def stage2_step(
             use_chamfer=use_chamfer, lambda_dssim=lambda_dssim, max_per_tile=max_per_tile,
             isotropic=isotropic, tile_ladder=tile_ladder, tiers=tiers,
         )
-    with record_function("stage2_step.backward"):
-        gp, gm2b = O.grad_tree(loss, (params, m2b))
-    with record_function("stage2_step.update"), torch.no_grad():
-        new_skel_p, opt_skel = O.adam_update(gp["skel"], state.opt_skel, params["skel"], lrs_skel)
-        if warm:
-            gs, opt_gs = state.gs, state.opt_gs
-        else:
-            new_gs_p, opt_gs = O.adam_update(gp["gs"], state.opt_gs, gs_p, lrs_gs)
-            gs = state.gs.replace_params(new_gs_p)
-        stats = G.add_densification_stats(
-            state.stats_gs, gm2b, out["radii"], out["visibility_filter"],
-            frame.cam.width, frame.cam.height,
-        )
-        proj_loss = state.proj_loss
-        if "chamfer" in aux:
-            proj_loss = proj_loss.clone()
-            proj_loss[uid] = aux["chamfer"]
-        metrics = {"loss": loss.detach(), "psnr": L.psnr(out["render"], frame.image), "n_gs": state.gs.num_alive}
-        metrics.update({k: v.detach() for k, v in aux.items()})
-    new_state = Stage2State(
-        gs=gs,
-        skel=state.skel.replace_params(new_skel_p),
-        opt_gs=opt_gs,
-        opt_skel=opt_skel,
-        stats_gs=stats,
-        proj_loss=proj_loss,
-        it=state.it + 1,
-    )
-    # ladder policy inputs: true per-tile hit counts and truncation counters
-    metrics["overflow_tiles"] = out["overflow_tiles"]
-    metrics["overflow_rect"] = out["overflow_rect"]
-    metrics["tile_counts"] = out["tile_counts"]
+        with trace.span("riggs.backward.grad"):
+            gp, gm2b = O.grad_tree(loss, (params, m2b))
+        with trace.span("riggs.optim.adam"), torch.no_grad():
+            new_skel_p, opt_skel = O.adam_update(gp["skel"], state.opt_skel, params["skel"], lrs_skel)
+            if warm:
+                gs, opt_gs = state.gs, state.opt_gs
+            else:
+                new_gs_p, opt_gs = O.adam_update(gp["gs"], state.opt_gs, gs_p, lrs_gs)
+                gs = state.gs.replace_params(new_gs_p)
+            stats = G.add_densification_stats(
+                state.stats_gs, gm2b, out["radii"], out["visibility_filter"],
+                frame.cam.width, frame.cam.height,
+            )
+            proj_loss = state.proj_loss
+            if "chamfer" in aux:
+                proj_loss = proj_loss.clone()
+                proj_loss[uid] = aux["chamfer"]
+            metrics = {"loss": loss.detach(), "psnr": L.psnr(out["render"], frame.image), "n_gs": state.gs.num_alive}
+            metrics.update({k: v.detach() for k, v in aux.items()})
+            new_state = Stage2State(
+                gs=gs,
+                skel=state.skel.replace_params(new_skel_p),
+                opt_gs=opt_gs,
+                opt_skel=opt_skel,
+                stats_gs=stats,
+                proj_loss=proj_loss,
+                it=state.it + 1,
+            )
+        # ladder policy inputs: true per-tile hit counts and truncation counters
+        metrics["overflow_tiles"] = out["overflow_tiles"]
+        metrics["overflow_rect"] = out["overflow_rect"]
+        metrics["tile_counts"] = out["tile_counts"]
     return new_state, metrics
 
 

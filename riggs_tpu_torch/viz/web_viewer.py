@@ -65,6 +65,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+from riggs_tpu_torch import trace
 from riggs_tpu_torch.camera.camera import Camera, make_camera
 from riggs_tpu_torch.device import resolve_device
 from riggs_tpu_torch.edit.pose_edit import PoseLibrary, retarget_pose, rotate_joint
@@ -187,7 +188,9 @@ class FrameHolder:
     rect cap (``escalate_rect``). The caps stop at ``window_ceiling`` and
     ``MAX_TILES_LIMIT``; a frame they do not hold is returned truncated,
     with a warning. The counters are read once a render, into
-    ``overflow``."""
+    ``overflow``. Under the profiler each render counts in
+    ``frame_renders`` and each copy to the host in ``host_reads``
+    (``riggs_tpu_torch.trace``)."""
 
     def __init__(self, window: int):
         self.window = window
@@ -200,6 +203,8 @@ class FrameHolder:
         while True:
             out = render(cam, gs, bg, max_per_tile=self.window, max_tiles_per_gaussian=max_tiles,
                          tile_ladder=None if self.ladder is None else self.ladder.ladder, **kw)
+            trace.count("frame_renders")
+            trace.count("host_reads")
             of_t, of_r, max_count = torch.stack(
                 [out[k].to(torch.int64) for k in ("overflow_tiles", "overflow_rect", "max_count")]).tolist()
             if self.ladder is not None and max_count <= self.window:
@@ -212,6 +217,7 @@ class FrameHolder:
                 if self.ladder is None:
                     self.ladder = LadderPolicy(n_probe=1, max_cap=window_ceiling(gs.device, n_tiles))
                 old = self.ladder.ladder
+                trace.count("host_reads")
                 self.ladder.observe(out["tile_counts"].cpu().numpy(), of_t)
                 grown = self.ladder.ladder != old
             caps = escalate_rect(of_t, of_r, grown, max_tiles, what="a viewer frame")
@@ -296,28 +302,31 @@ class ViewerServer:
     @torch.no_grad()
     def render_frame(self, az, el, radius, t, mode="rgb", joint=-1, angle=0.0, seq=-1) -> torch.Tensor:
         """The (H, W, 3) float frame on the model's device (``FrameHolder``)."""
-        gs, skel, warp = self._state
-        if gs is None:
-            raise NoModel("no model to render yet")
-        cam = self._camera(az, el, radius)
-        bg = torch.zeros(3, device=gs.device)
-        if mode == "edited" and self.edit is not None:
-            return self.frames(cam, gs, bg, d_xyz=self.edit.d_xyz, active_sh_degree=gs.max_sh_degree)
-        if skel is not None:
-            rot, trans = self.current_pose(az, el, radius, t, joint, angle, seq)
-            d = SW.deform_by_pose(skel, gs.xyz, rot, trans, gs.motion_mask)
-        elif warp is not None:
-            d = NW.warp_forward(warp, gs.xyz, float(t), gs.feature, gs.motion_mask)
-        else:
-            d = None
-        common = {} if d is None else dict(d_xyz=d["d_xyz"], d_rotation=d["d_rotation"],
-                                           d_scaling=torch.zeros_like(d["d_scaling"]))
-        if mode == "skinning" and d is not None and skel is not None:
-            colors = skinning_colors(d["nn_idx"], d["nn_weight"], skel.net.n_joints)
-            return self.frames(cam, gs, bg, override_color=colors, **common)
-        if mode == "motion":
-            return self.frames(cam, gs, bg, render_motion=True, **common)
-        return self.frames(cam, gs, bg, active_sh_degree=gs.max_sh_degree, **common)
+        with trace.span("riggs.entry.frame"):
+            gs, skel, warp = self._state
+            if gs is None:
+                raise NoModel("no model to render yet")
+            cam = self._camera(az, el, radius)
+            bg = torch.zeros(3, device=gs.device)
+            if mode == "edited" and self.edit is not None:
+                return self.frames(cam, gs, bg, d_xyz=self.edit.d_xyz, active_sh_degree=gs.max_sh_degree)
+            if skel is not None:
+                with trace.span("riggs.deform.skeleton"):
+                    rot, trans = self.current_pose(az, el, radius, t, joint, angle, seq)
+                    d = SW.deform_by_pose(skel, gs.xyz, rot, trans, gs.motion_mask)
+            elif warp is not None:
+                with trace.span("riggs.deform.nodes"):
+                    d = NW.warp_forward(warp, gs.xyz, float(t), gs.feature, gs.motion_mask)
+            else:
+                d = None
+            common = {} if d is None else dict(d_xyz=d["d_xyz"], d_rotation=d["d_rotation"],
+                                               d_scaling=torch.zeros_like(d["d_scaling"]))
+            if mode == "skinning" and d is not None and skel is not None:
+                colors = skinning_colors(d["nn_idx"], d["nn_weight"], skel.net.n_joints)
+                return self.frames(cam, gs, bg, override_color=colors, **common)
+            if mode == "motion":
+                return self.frames(cam, gs, bg, render_motion=True, **common)
+            return self.frames(cam, gs, bg, active_sh_degree=gs.max_sh_degree, **common)
 
     # ---- editing / pose API ---------------------------------------------
     def handle_api(self, path: str, q: dict):
