@@ -1481,7 +1481,7 @@ def train_phase(blend, gs, skel, cam, bg, cap, ladder):
             leaves = tree_leaves(st.gs.params_dict()) + tree_leaves(st.skel.params_dict())
             if not all(bool(torch.isfinite(v).all()) for v in leaves) or int(st.it) != it + TRAIN_STEPS:
                 raise RuntimeError(f"[train] it={it} {label}: non-finite parameters or wrong it")
-            if it < cfg.opt.skeleton_warm_up and st.gs.xyz is not gs.xyz:
+            if it < cfg.opt.skeleton_warm_up and not torch.equal(st.gs.xyz, gs.xyz):
                 raise RuntimeError("[train] the Gaussians moved in warmup")
             print(f"[train] it={it} {label}: {TRAIN_STEPS} steps, loss {float(m['loss']):.5f} img {float(m['img_loss']):.5f} "
                   f"psnr {float(m['psnr']):.2f} d_xyz {float(m['d_xyz_loss']):.3e} chamfer {float(m['chamfer']):.2f}")
@@ -1519,7 +1519,10 @@ def train_phase(blend, gs, skel, cam, bg, cap, ladder):
         fwd_captured[fname.removesuffix("_fwd")] = c.calls[fname]
     fres = check_kernels(blend, fwd_captured, tag="[train]", per="step")
     bres = check_bwd_kernels(blend, captured)
-    del captured, fwd_captured
+    # the held arguments keep that step's autograd graph, and with it the
+    # skeleton parameters' gradient accumulators made on the default stream,
+    # alive: the step's CUDA graph is captured below
+    del captured, fwd_captured, c
 
     # step time: the whole make_stage2_auto step by host clock around
     # synchronized steps; then the profile, with the step's parts
@@ -1530,12 +1533,75 @@ def train_phase(blend, gs, skel, cam, bg, cap, ladder):
             nonlocal st
             st, _ = step(st, frame, UID, bg, pre_d_xyz, pre_d_joints, it=TRAIN_ITS[-1], **kw)
 
-        full_step()  # warm-up
+        for _ in range(4):  # warm-up: the step's key is captured as a CUDA graph on its fourth call
+            full_step()
         full = _host_ms(full_step, 5)
-        print(f"[train] {label}: step {full:.2f} ms (host clock, synchronized, it={int(st.it)}, {SIZE}x{SIZE})")
-        profile_steps(step, gs, skel, frame, pre_d_xyz, pre_d_joints, bg, kw, label, full)
+        g = step.graphs
+        print(f"[train] {label}: step {full:.2f} ms (host clock, synchronized, it={int(st.it)}, {SIZE}x{SIZE}; "
+              f"a replayed CUDA graph: {g.captures} captures, {g.replays} replays, {g.eager} eager calls so far)")
+        st = replay_vs_eager(step, cfg, st, frame, pre_d_xyz, pre_d_joints, bg, kw, label)
+        # the spans are the eager step's: a fresh step runs its first calls eagerly
+        profile_steps(make_stage2_auto(cfg, template_idx=0), gs, skel, frame, pre_d_xyz, pre_d_joints, bg, kw,
+                      label, full)
         sync_audit(f"make_stage2_auto ({label}, it={TRAIN_ITS[-1]})", full_step)
     return launches, fres, bres, frame
+
+
+def replay_vs_eager(step, cfg, st, frame, pre_d_xyz, pre_d_joints, bg, kw, label):
+    """From one state at full width, a replay of ``step``'s graph and two
+    first (eager) calls of fresh make_stage2_auto steps: every metric and
+    every state leaf of the replay equal the eager step's bit for bit, or,
+    where two eager steps differ too (atomics reorder sums), within the s2
+    cell's limits (each metric's and each leaf's max |d| over its max |value|;
+    portbench/limits/s2-dnerf800.train.json). Returns the replay's state."""
+    import torch
+
+    from riggs_tpu_torch.io.checkpoint import state_leaves
+    from riggs_tpu_torch.train.stage2 import make_stage2_auto
+
+    limits = json.loads((Path(__file__).resolve().parent / "portbench" / "limits" /
+                         "s2-dnerf800.train.json").read_text())["limits"]
+    args = (frame, UID, bg, pre_d_xyz, pre_d_joints)
+    starts = [copy.deepcopy(st), copy.deepcopy(st)]
+    replays = step.graphs.replays
+    st, m = step(st, *args, it=TRAIN_ITS[-1], **kw)
+    if step.graphs.replays != replays + 1:
+        raise RuntimeError(f"[train] {label}: the step did not replay its graph")
+    runs = []
+    for s0 in starts:
+        eager = make_stage2_auto(cfg, template_idx=0)
+        runs.append(eager(s0, *args, it=TRAIN_ITS[-1], **kw))
+        if eager.graphs.eager != 1:
+            raise RuntimeError(f"[train] {label}: a fresh step's first call was not eager")
+    torch.cuda.synchronize()
+
+    def gaps(a, b):
+        """(bitwise, the worst gap of a metric and of a state leaf) of two
+        steps' results."""
+        (sa, ma), (sb, mb) = a, b
+        la, lb = state_leaves(sa), state_leaves(sb)
+        pairs = [("metrics", k, ma[k], mb[k]) for k in mb] + [("state", k, la[k][0], lb[k][0]) for k in lb]
+        same, worst = True, {"metrics": 0.0, "state": 0.0}
+        for group, name, x, y in pairs:
+            x, y = x.detach(), y.detach()
+            if torch.equal(x, y):
+                continue
+            same = False
+            if not y.is_floating_point():
+                raise RuntimeError(f"[train] {label}: {name} differs: {x} / {y}")
+            scale = float(y.abs().max())
+            err = float((x.double() - y.double()).abs().max())
+            worst[group] = max(worst[group], err / scale if scale else err)
+        return same, worst
+
+    rep_same, rep_gap = gaps((st, m), runs[0])
+    eager_same, eager_gap = gaps(runs[1], runs[0])
+    print(f"[train] {label}: a replay at {SIZE}x{SIZE}, {CAPACITY} slots against the eager step: bitwise "
+          f"{rep_same}, worst gaps {rep_gap}; two eager steps bitwise {eager_same}, worst gaps {eager_gap}")
+    if not rep_same and (eager_same or rep_gap["metrics"] > limits["loss"] or rep_gap["state"] > limits["change"]):
+        raise RuntimeError(f"[train] {label}: the replay differs from the eager step: {rep_gap} (two eager steps "
+                           f"{eager_gap}; limits loss {limits['loss']}, change {limits['change']})")
+    return st
 
 
 def _turns(fa, fb, reps):
@@ -2746,10 +2812,13 @@ class _PipelineProbe(_LoopProbe):
         self.S2, self.real_auto = S2, S2.make_stage2_auto
 
         def auto(*a, **k):
-            step = self.real_auto(*a, **k)
+            step = self.step = self.real_auto(*a, **k)
 
             def run(*sa, it, **sk):
-                state, metrics = step(*sa, it=it, **sk)
+                # a held step's blend calls are caught in Python: a step of
+                # its own runs it eagerly (the loop's may replay a graph)
+                held = ("W" if it < self.warm_up else "M", it) in self.held_keys
+                state, metrics = (self.real_auto(*a, **k) if held else step)(*sa, it=it, **sk)
                 if it in self.keep:
                     self.metrics[it] = metrics
                 return state, metrics
@@ -2859,6 +2928,15 @@ def pipeline_phase(blend, scene, cap, stage1_state):
               f"{mean:.2f} with the events), device busy {busy:.2f} ms per step over steps "
               f"{PIPE_PROFILE_FROM[p]}-{PIPE_PROFILE_FROM[p] + 4} (idle share {1 - busy / med:.3f})")
     print(f"[pipeline] train_stage2 {wall:.1f} s with init_stage2; launch counters: {launches}")
+    g = probe.step.graphs
+    pool = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if g.pool is not None and tuple(seg.get("segment_pool_id", ())) == tuple(g.pool))
+    print(f"[pipeline] the step's CUDA graphs over {o.iterations_stage2} steps: {g.eager} eager calls, "
+          f"{g.captures} captures, {g.replays} replays (a share of {g.replays / o.iterations_stage2:.3f}; the "
+          f"{len(PIPE_HELD)} held steps ran a step of their own), {len(g.graphs)} graphs kept of {len(g.seen)} keys; "
+          f"the graphs' pool {pool / 2**20:.1f} MiB, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    if len(g.graphs) > 4:
+        raise RuntimeError(f"[pipeline] {len(g.graphs)} graphs kept")
     kinds = {e["event"] for e in events}
     for want in ("fps reset", "gs densify", "ladder fit", "test"):
         if want not in kinds:

@@ -43,73 +43,31 @@ import torch.distributed as dist
 
 from riggs_tpu_torch.device import resolve_device
 from riggs_tpu_torch.io.ply import save_gaussians_ply
+from riggs_tpu_torch.models import gaussians as G
 from riggs_tpu_torch.parallel.mesh import LocalRows, Mesh
 from riggs_tpu_torch.train import optim as O
 from riggs_tpu_torch.train.stage1 import Stage1State, init_stage1
-from riggs_tpu_torch.train.stage2 import Stage2State
-
-_GS_FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity", "feature", "alive")
-_STATS_FIELDS = ("xyz_gradient_accum", "denom", "max_radii2d")
-
-
-def _tree(tree, key: str, out: dict):
-    """A params_dict-form tree's leaves under their reference keys; the
-    ``w`` of a ``{"w", "b"}`` pair is an ``nn.Linear`` weight, stored
-    transposed."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            if isinstance(v, torch.Tensor):
-                out[f"{key}['{k}']"] = (v, k == "w" and set(tree) == {"w", "b"})
-            else:
-                _tree(v, f"{key}['{k}']", out)
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            _tree(v, f"{key}[{i}]", out)
-    else:
-        raise TypeError(f"{key}: unexpected {type(tree).__name__} in a parameter tree")
-
-
-def _fields(obj, names, key: str, out: dict):
-    for name in names:
-        out[f"{key}.{name}"] = (getattr(obj, name), False)
-
-
-def _adam(opt, key: str, out: dict):
-    _tree(opt.mu, f"{key}.mu", out)
-    _tree(opt.nu, f"{key}.nu", out)
-    out[f"{key}.count"] = (opt.count, False)
+from riggs_tpu_torch.train.stage2 import Stage2State, stage2_leaves
 
 
 def state_leaves(state: Stage1State | Stage2State) -> dict[str, tuple[torch.Tensor, bool]]:
     """Every leaf of a training state: reference key -> (the state's own
     tensor, whether it is stored transposed). Absent MLPs (no skinning MLP,
     no template offsets) have no leaves, as ``None`` has none in JAX."""
-    out: dict = {}
     if isinstance(state, Stage2State):
-        _fields(state.gs, _GS_FIELDS, ".gs", out)
-        skel = state.skel
-        _fields(skel, ("joints", "node_radius_log"), ".skel", out)
-        for name in ("pose_mlp", "weight_mlp", "detail_mlp"):
-            if getattr(skel, name) is not None:
-                _tree(getattr(skel, name).params_dict(), f".skel.{name}", out)
-        _fields(skel, ("control_nodes",), ".skel", out)
-        _adam(state.opt_gs, ".opt_gs", out)
-        _adam(state.opt_skel, ".opt_skel", out)
-        _fields(state.stats_gs, _STATS_FIELDS, ".stats_gs", out)
-        _fields(state, ("proj_loss", "it"), "", out)
-    elif isinstance(state, Stage1State):
-        _fields(state.gs, _GS_FIELDS, ".gs", out)
-        _fields(state.node_gs, _GS_FIELDS, ".node_gs", out)
-        _fields(state.warp, ("nodes", "node_radius_log", "node_weight_logit"), ".warp", out)
-        _tree(state.warp.mlp.params_dict(), ".warp.mlp", out)
-        for name in ("opt_gs", "opt_node", "opt_warp"):
-            _adam(getattr(state, name), f".{name}", out)
-        _fields(state.stats_gs, _STATS_FIELDS, ".stats_gs", out)
-        _fields(state.stats_node, _STATS_FIELDS, ".stats_node", out)
-        _fields(state, ("it",), "", out)
-    else:
+        return stage2_leaves(state)
+    if not isinstance(state, Stage1State):
         raise TypeError(f"no checkpoint layout for {type(state).__name__}")
-    return out
+    out: dict = {}
+    O.named_fields(state.gs, G.Gaussians.TENSORS, ".gs", out)
+    O.named_fields(state.node_gs, G.Gaussians.TENSORS, ".node_gs", out)
+    O.named_fields(state.warp, ("nodes", "node_radius_log", "node_weight_logit"), ".warp", out)
+    O.named_leaves(state.warp.mlp.params_dict(), ".warp.mlp", out)
+    for name in ("opt_gs", "opt_node", "opt_warp"):
+        O.adam_leaves(getattr(state, name), f".{name}", out)
+    O.named_fields(state.stats_gs, G.DensifyStats.TENSORS, ".stats_gs", out)
+    O.named_fields(state.stats_node, G.DensifyStats.TENSORS, ".stats_node", out)
+    return O.named_fields(state, ("it",), "", out)
 
 
 def state_to_numpy(state: Stage1State | Stage2State) -> dict[str, np.ndarray]:

@@ -46,6 +46,9 @@ class Gaussians:
     # every splat shares the mean log-scale (node Gaussians)
     shared_scale: bool = False
 
+    # the fields that hold tensors: a state's leaves
+    TENSORS = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity", "feature", "alive")
+
     @property
     def capacity(self) -> int:
         return self.xyz.shape[0]
@@ -288,6 +291,8 @@ class DensifyStats:
     xyz_gradient_accum: torch.Tensor  # (C,)
     denom: torch.Tensor  # (C,)
     max_radii2d: torch.Tensor  # (C,)
+
+    TENSORS = ("xyz_gradient_accum", "denom", "max_radii2d")
 
 
 def init_densify_stats(capacity: int, device: str | torch.device | None = None) -> DensifyStats:

@@ -11,7 +11,9 @@ Spans are named ``riggs.<layer>.<part>``; readers map the second component
 to a layer:
 
   entry        ``riggs.entry.stage2_step``, ``.phase_b_step``, ``.frame``:
-               the whole entry (its own glue is what its children leave)
+               the whole entry (its own glue is what its children leave);
+               ``riggs.entry.stage2_auto``: ``make_stage2_auto``'s step
+               around it, whose replays of a CUDA graph enter no other span
   deform       ``riggs.deform.skeleton``, ``.nodes``: the deformation model
   render_prep  ``riggs.render_prep.setup`` (colours, SH, cov3d, projection),
                ``.bin`` (the binner), ``.windows`` (packing, ladder buckets,
@@ -26,7 +28,10 @@ to a layer:
 ``count(name, n)`` adds to an in-process counter, again only while a
 profiler session records, so the counters cover the traced window:
 ``host_reads`` (every copy from the device to the host that an entry
-makes) and ``frame_renders`` (every render ``FrameHolder`` makes).
+makes), ``frame_renders`` (every render ``FrameHolder`` makes), and
+``step_graph_replays`` and ``step_graph_captures`` (the CUDA graphs of a
+training step that ``train/step_graph.py`` replays and records; it records
+none while a profiler records, so a traced window counts only replays).
 ``counters()`` reads them and ``reset()`` clears them.
 """
 from __future__ import annotations

@@ -33,6 +33,33 @@ def tree_leaves(tree: Any) -> list:
     return out
 
 
+def named_leaves(tree: Any, key: str, out: dict) -> dict:
+    """Add a ``params_dict``-form tree's leaves to ``out`` under the keys
+    ``jax.tree_util.keystr`` gives them (``key['layers'][0]['w']``): key ->
+    (leaf, whether it is stored transposed: the ``w`` of a ``{"w", "b"}``
+    pair is an ``nn.Linear`` weight). Returns ``out``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                out[f"{key}['{k}']"] = (v, k == "w" and set(tree) == {"w", "b"})
+            else:
+                named_leaves(v, f"{key}['{k}']", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            named_leaves(v, f"{key}[{i}]", out)
+    else:
+        raise TypeError(f"{key}: unexpected {type(tree).__name__} in a parameter tree")
+    return out
+
+
+def named_fields(obj: Any, names, key: str, out: dict) -> dict:
+    """``named_leaves`` of the tensor fields ``names`` of ``obj``
+    (``key.name``)."""
+    for name in names:
+        out[f"{key}.{name}"] = (getattr(obj, name), False)
+    return out
+
+
 def grad_tree(loss: torch.Tensor, tree: Any) -> Any:
     """d loss / d every leaf of ``tree`` (``jax.grad``'s output tree), zeros
     where a leaf does not reach the loss."""
@@ -57,6 +84,14 @@ class AdamState:
     mu: Any
     nu: Any
     count: torch.Tensor  # () int32
+
+
+def adam_leaves(opt: AdamState, key: str, out: dict) -> dict:
+    """``named_leaves`` of an Adam state (``key.mu...``, ``key.nu...``,
+    ``key.count``)."""
+    named_leaves(opt.mu, f"{key}.mu", out)
+    named_leaves(opt.nu, f"{key}.nu", out)
+    return named_fields(opt, ("count",), key, out)
 
 
 def adam_init(params: Any) -> AdamState:

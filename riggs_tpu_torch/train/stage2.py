@@ -22,8 +22,12 @@ keeps an optional MLP out of the graph, where the reference keeps it in at
 weight 0; both give its parameters a zero gradient.
 
 The skeleton's parameters are its ``nn.Module``'s own and are updated in
-place (``SkeletonWarp.replace_params``): a step consumes the state it is
-given, whose ``skel`` the returned state shares.
+place (``SkeletonWarp.replace_params``): ``stage2_step`` consumes the state
+it is given, whose ``skel`` the returned state shares. ``make_stage2_auto``'s
+step consumes the whole state: it runs ``stage2_step`` on buffers of its own
+(``train/step_graph.py``), copies in a state whose tensors are not those
+buffers, and returns a state whose every tensor is one of them, overwritten
+in place by its next call. On the card it replays the step as a CUDA graph.
 
 ``eval_image`` always ends. The reference loops forever on a persistent
 ``overflow_rect`` while ``tiers`` is set (the tiers tuple overrides the
@@ -36,6 +40,7 @@ is returned, with a warning.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import warnings
@@ -66,6 +71,7 @@ from riggs_tpu_torch.train.config import Config
 from riggs_tpu_torch.train.sampling import FrameSampler
 from riggs_tpu_torch.train.stage1 import _overflow
 from riggs_tpu_torch.train.static import SplitDraws, TrainState, densify_step
+from riggs_tpu_torch.train.step_graph import Packed, StepGraphs, copy_all, copy_in, layout
 
 MAX_PER_TILE_LIMIT = 8192
 MAX_TILES_LIMIT = 1024
@@ -82,6 +88,25 @@ class Stage2State:
     it: torch.Tensor  # () int32 iteration counter; stage2_step increments it
 
 
+def stage2_leaves(state: Stage2State) -> dict[str, tuple[torch.Tensor, bool]]:
+    """Every tensor of a stage-2 state under the key ``jax.tree_util.keystr``
+    gives it in ``riggs_tpu`` (the checkpoints' table, ``io/checkpoint.py``):
+    key -> (the state's own tensor, whether it is stored transposed). Absent
+    MLPs have no leaves."""
+    out: dict = {}
+    O.named_fields(state.gs, G.Gaussians.TENSORS, ".gs", out)
+    skel = state.skel
+    O.named_fields(skel, ("joints", "node_radius_log"), ".skel", out)
+    for name in ("pose_mlp", "weight_mlp", "detail_mlp"):
+        if getattr(skel, name) is not None:
+            O.named_leaves(getattr(skel, name).params_dict(), f".skel.{name}", out)
+    O.named_fields(skel, ("control_nodes",), ".skel", out)
+    O.adam_leaves(state.opt_gs, ".opt_gs", out)
+    O.adam_leaves(state.opt_skel, ".opt_skel", out)
+    O.named_fields(state.stats_gs, G.DensifyStats.TENSORS, ".stats_gs", out)
+    return O.named_fields(state, ("proj_loss", "it"), "", out)
+
+
 def sample_skeleton_points(joints: torch.Tensor, parents, samples_per_bone: int = 8) -> torch.Tensor:
     """``samples_per_bone`` points along every bone (parent to child joint)
     for the 2D-projection chamfer."""
@@ -90,6 +115,13 @@ def sample_skeleton_points(joints: torch.Tensor, parents, samples_per_bone: int 
     t = torch.linspace(0.0, 1.0, samples_per_bone, device=joints.device)[:, None, None]
     pts = (1.0 - t) * a[None] + t * b[None]
     return pts.reshape(-1, 3)
+
+
+def _row(t: torch.Tensor, uid: int | torch.Tensor) -> torch.Tensor:
+    """``t[uid]`` for a host ``uid`` or a one-element int64 index on the
+    device (an ``index_select``: a 0-dim device index in ``[]`` may be read
+    back to the host)."""
+    return t.index_select(0, uid)[0] if isinstance(uid, torch.Tensor) else t[uid]
 
 
 def _median(x: torch.Tensor) -> torch.Tensor:
@@ -104,7 +136,7 @@ def stage2_frame_loss(
     params: dict,
     state: Stage2State,
     frame: Frame,
-    uid: int,
+    uid: int | torch.Tensor,
     bg: torch.Tensor,
     mean2d_bias: torch.Tensor,
     pre_d_xyz: torch.Tensor,
@@ -156,7 +188,7 @@ def stage2_frame_loss(
             cd = chamfer_distance(proj, frame.thinned, y_mask=frame.thinned_mask, norm=1)
             # robust per-frame weight from the running loss buffer
             sigma = _median(state.proj_loss) / 2.0
-            w = torch.exp(-state.proj_loss[uid] ** 2 / (2.0 * sigma**2))
+            w = torch.exp(-_row(state.proj_loss, uid) ** 2 / (2.0 * sigma**2))
             loss = loss + lambda_chamfer * float(use_chamfer) * w * cd
             aux["chamfer"] = cd
         # template-fixed pose loss (identity local rotation on the template frame)
@@ -186,7 +218,7 @@ def stage2_frame_loss(
 def stage2_step(
     state: Stage2State,
     frame: Frame,
-    uid: int,
+    uid: int | torch.Tensor,
     bg: torch.Tensor,
     lrs_gs: dict,
     lrs_skel: Any,
@@ -211,7 +243,9 @@ def stage2_step(
     Gaussians, the skeleton and ``mean2d_bias``; Adam on the skeleton always
     and on the Gaussians outside warmup (in warmup their parameters and
     moments stay as they are); the densification statistics; the frame's
-    chamfer in ``proj_loss``. Returns (new state, metrics)."""
+    chamfer in ``proj_loss``. ``uid`` may be a one-element int64 index on
+    the device, and a learning rate a 0-dim float32 tensor there. Returns
+    (new state, metrics)."""
     with trace.span("riggs.entry.stage2_step"):
         gs_p = {k: v.detach().requires_grad_(True) for k, v in state.gs.params_dict().items()}
         params = {"gs": gs_p, "skel": state.skel.params_dict()}
@@ -240,7 +274,10 @@ def stage2_step(
             proj_loss = state.proj_loss
             if "chamfer" in aux:
                 proj_loss = proj_loss.clone()
-                proj_loss[uid] = aux["chamfer"]
+                if isinstance(uid, torch.Tensor):
+                    proj_loss.index_put_((uid,), aux["chamfer"].reshape(1))
+                else:
+                    proj_loss[uid] = aux["chamfer"]
             metrics = {"loss": loss.detach(), "psnr": L.psnr(out["render"], frame.image), "n_gs": state.gs.num_alive}
             metrics.update({k: v.detach() for k, v in aux.items()})
             new_state = Stage2State(
@@ -281,35 +318,154 @@ def stage2_flags(cfg: Config, it: int, uid: int, template_idx: int) -> dict:
     )
 
 
+def _signature(state: Stage2State, leaves: dict) -> tuple:
+    """What a state's buffers are made for: its static fields and every
+    leaf's key, shape, dtype and device, by key (the order of a tree's dict
+    is not part of it)."""
+    g = state.gs
+    return ((g.device, g.max_sh_degree, g.isotropic, g.with_motion_mask, g.shared_scale, state.skel.net)
+            + tuple(sorted((k, tuple(t.shape), t.dtype, t.device) for k, (t, _) in leaves.items())))
+
+
+class _AutoBuffers:
+    """The static buffers of ``make_stage2_auto``'s step: a stage-2 state of
+    its own (``state``, a deep copy of the state it was made from; the step
+    returns this object) and the step's inputs: a frame of each layout, the
+    background, the frame's index and the two learning rates that change
+    with ``it``; and the packed metrics of each key."""
+
+    def __init__(self, state: Stage2State, leaves: dict):
+        self.signature = _signature(state, leaves)
+        self.device = dev = state.gs.device
+        self.state = copy.deepcopy(state)
+        self.bufs = {k: t for k, (t, _) in stage2_leaves(self.state).items()}
+        self.uid = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.lr_xyz = torch.zeros((), dtype=torch.float32, device=dev)
+        self.lr_skel = torch.zeros((), dtype=torch.float32, device=dev)
+        self.frames: dict = {}
+        self.bgs: dict = {}
+        self.packs: dict = {}
+
+    @torch.no_grad()
+    def load(self, state: Stage2State, leaves: dict) -> None:
+        """Copy in each leaf of ``state`` that is not its buffer, then point
+        every tensor that was assigned over the own state's (``train_stage2``'s
+        FPS reset assigns ``control_nodes``) at its buffer."""
+        self._copy(leaves)
+        own = leaves if state is self.state else stage2_leaves(self.state)
+        for k, (t, _) in own.items():
+            if t.data_ptr() != self.bufs[k].data_ptr():
+                t.set_(self.bufs[k])
+
+    @torch.no_grad()
+    def keep(self, new: Stage2State) -> None:
+        """Write a step's new state into the buffers (inside a graph, its
+        last nodes)."""
+        self._copy(stage2_leaves(new))
+
+    def _copy(self, leaves: dict) -> None:
+        copy_all([self.bufs[k] for k in leaves], [t for t, _ in leaves.values()])
+
+    def frame(self, fr: Frame) -> tuple[Frame, tuple]:
+        """The static frame of ``fr``'s layout with ``fr`` copied in, and
+        the layout."""
+        cam = fr.cam
+        parts = (cam.w2c, cam.intrinsics, cam.fid, fr.image, fr.alpha_mask, fr.thinned, fr.thinned_mask)
+        key = (cam.width, cam.height, cam.znear, cam.zfar) + tuple(
+            None if t is None else (tuple(t.shape), t.dtype) for t in parts)
+        st = self.frames.get(key)
+        if st is None:
+            w2c, intr, fid, image, alpha, thinned, thinned_mask = (
+                None if t is None else torch.empty(t.shape, dtype=t.dtype, device=self.device) for t in parts)
+            st = self.frames[key] = Frame(cam=dataclasses.replace(cam, w2c=w2c, intrinsics=intr, fid=fid),
+                                          image=image, alpha_mask=alpha, thinned=thinned, thinned_mask=thinned_mask)
+        for buf, src in zip((st.cam.w2c, st.cam.intrinsics, st.cam.fid, st.image, st.alpha_mask, st.thinned,
+                             st.thinned_mask), parts):
+            if src is not None:
+                copy_in(buf, src)
+        return st, key
+
+    def bg(self, bg: torch.Tensor) -> tuple[torch.Tensor, tuple]:
+        key = (tuple(bg.shape), bg.dtype)
+        buf = self.bgs.get(key)
+        if buf is None:
+            buf = self.bgs[key] = torch.empty(bg.shape, dtype=bg.dtype, device=self.device)
+        copy_in(buf, bg)
+        return buf, key
+
+
 def make_stage2_auto(cfg: Config, template_idx: int):
     """The stage-2 step with every schedule derived from the host iteration
     ``it`` (the caller owns the count; the step still increments the device
-    ``state.it``): the learning rates and the flags of ``stage2_flags``."""
+    ``state.it``): the learning rates and the flags of ``stage2_flags``.
+
+    The step runs ``stage2_step`` on static buffers (``_AutoBuffers``): the
+    frame, the background, the frame's index (a device int64 index) and the
+    rates of ``xyz`` and of the skeleton (device float32 scalars) are copied
+    in, and so is the state where its tensors are not the buffers; the new
+    state is written back into them and the metrics come out as one copy of
+    their packed buffer. On the card it runs through ``StepGraphs``
+    (``step.graphs``): captured as one CUDA graph after the eager calls of
+    its key, then replayed. The key holds everything the graph bakes in:
+    the capacity, the frame's layout (H x W, the padded thinned length), the
+    background's, the identity of ``pre_d_xyz_all`` and ``pre_d_joints_all``
+    (read in place at the index), every keyword and flag of the step (the
+    ladder, ``max_per_tile``, the tiers, the template frame's lambdas) and
+    the device; the state's layout belongs to the buffers, whose graphs are
+    dropped with them."""
     o = cfg.opt
     gs_lr = S.expon_lr_f32(o.position_lr_init, o.position_lr_final,
                            lr_delay_mult=o.position_lr_delay_mult, max_steps=o.position_lr_max_steps)
     skel_lr = S.expon_lr_f32(o.deform_mlp_lr_init, o.deform_mlp_lr_final,
                              lr_delay_mult=o.deform_mlp_lr_delay_mult, max_steps=o.deform_mlp_lr_max_steps)
+    graphs = StepGraphs()
+    held: list = [None]  # the step's _AutoBuffers
+
+    def buffers(state) -> _AutoBuffers:
+        sb, leaves = held[0], stage2_leaves(state)
+        if sb is None or _signature(state, leaves) != sb.signature:
+            graphs.clear()
+            held[0] = _AutoBuffers(state, leaves)
+        else:
+            sb.load(state, leaves)
+        return held[0]
 
     def step(state, frame, uid, bg, pre_d_xyz_all, pre_d_joints_all, *, it: int, use_chamfer=True,
              lambda_dssim=0.2, max_per_tile=1024, isotropic=False, tile_ladder=None):
-        flags = stage2_flags(cfg, it, uid, template_idx)
-        lrs_gs = {
-            "xyz": gs_lr(it),
-            "f_dc": o.feature_lr,
-            "f_rest": o.feature_lr / 20.0,
-            "opacity": o.opacity_lr,
-            "scaling": o.scaling_lr,
-            "rotation": o.rotation_lr,
-            "feature": o.feature_lr,
-        }
-        lr_s = 5e-4 if flags["warm"] else skel_lr(max(it - o.skeleton_warm_up, 0))
-        return stage2_step(
-            state, frame, uid, bg, lrs_gs, lr_s, pre_d_xyz_all[uid], pre_d_joints_all[uid],
-            use_chamfer=use_chamfer, lambda_dssim=lambda_dssim, max_per_tile=max_per_tile,
-            isotropic=isotropic, tile_ladder=tile_ladder, **flags,
-        )
+        with trace.span("riggs.entry.stage2_auto"):
+            flags = stage2_flags(cfg, it, uid, template_idx)
+            sb = buffers(state)
+            fr, fr_key = sb.frame(frame)
+            bg_buf, bg_key = sb.bg(bg)
+            sb.uid.fill_(int(uid))
+            sb.lr_xyz.fill_(gs_lr(it))
+            sb.lr_skel.fill_(5e-4 if flags["warm"] else skel_lr(max(it - o.skeleton_warm_up, 0)))
+            lrs_gs = {
+                "xyz": sb.lr_xyz,
+                "f_dc": o.feature_lr,
+                "f_rest": o.feature_lr / 20.0,
+                "opacity": o.opacity_lr,
+                "scaling": o.scaling_lr,
+                "rotation": o.rotation_lr,
+                "feature": o.feature_lr,
+            }
+            kw = dict(use_chamfer=use_chamfer, lambda_dssim=lambda_dssim, max_per_tile=max_per_tile,
+                      isotropic=isotropic, tile_ladder=tile_ladder, **flags)
+            key = (sb.device, state.gs.capacity, fr_key, bg_key, layout(pre_d_xyz_all), layout(pre_d_joints_all),
+                   tuple(sorted(kw.items())))
 
+            def body():
+                new, metrics = stage2_step(sb.state, fr, sb.uid, bg_buf, lrs_gs, sb.lr_skel,
+                                           _row(pre_d_xyz_all, sb.uid), _row(pre_d_joints_all, sb.uid), **kw)
+                sb.keep(new)
+                if key not in sb.packs:
+                    sb.packs[key] = Packed(metrics, sb.device)
+                sb.packs[key].write(metrics)
+
+            graphs.run(key, body, sb.device)
+            return sb.state, sb.packs[key].read()
+
+    step.graphs = graphs
     return step
 
 

@@ -50,8 +50,8 @@ def worker(tree: Path) -> dict:
     from riggs_tpu_torch.train.stage2 import _eval_image, make_stage2_auto
 
     def measure(fn):
-        fn()
-        fn()
+        for _ in range(4):  # the training steps replay a CUDA graph from their fourth call
+            fn()
         ms = smoke._host_ms(fn, 20)
         busy = smoke._profile_busy(fn, 5)
         sites = smoke.count_syncs(fn)[0]

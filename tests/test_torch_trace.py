@@ -113,8 +113,11 @@ def _nested_under(spans, entry):
 def test_stage2_step_records_its_layers_under_its_entry(stage2):
     stage2()  # the constants' caches filled outside the profile
     _, spans, counts = _traced(stage2)
-    assert {n for n, _, _ in spans} == TRAIN | {"riggs.entry.stage2_step", "riggs.deform.skeleton"}
-    assert _nested_under(spans, "riggs.entry.stage2_step")
+    assert {n for n, _, _ in spans} == TRAIN | {"riggs.entry.stage2_auto", "riggs.entry.stage2_step",
+                                                "riggs.deform.skeleton"}
+    # make_stage2_auto's own span around stage2_step's, every layer inside that
+    assert _nested_under(spans, "riggs.entry.stage2_auto")
+    assert _nested_under([sp for sp in spans if sp[0] != "riggs.entry.stage2_auto"], "riggs.entry.stage2_step")
     # a blend forward and backward for each bucket of the ladder that holds tiles
     assert sum(n == "riggs.blend.fwd" for n, _, _ in spans) == sum(n == "riggs.blend.bwd" for n, _, _ in spans) >= 1
     _, _, again = _traced(stage2)
