@@ -74,8 +74,8 @@ Phases, each printed as it runs:
      back beside an empty kernel's, the plain version's, the stock chain's
      with torch.linalg.svd and the chain it replaced), then on
      planted fits and planted edge sets against the choices csrc/rotfit.cu
-     documents; step time, busy time and idle share; the node warp timed
-     alone;
+     documents; step time (a replayed CUDA graph), busy time and idle
+     share; the node warp timed alone;
   9. sync: each auto step (make_stage2_auto and make_phase_b_auto on both
      window paths, make_phase_a_auto) and the serving frame's render, one
      call each under torch.cuda.set_sync_debug_mode("error") (any
@@ -1902,7 +1902,10 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
     rres = check_rotfit(rc.fits, "[stage1]")
     rres["planted"] = check_rotfit_planted("[stage1]")
     rres["planted_edges"] = check_estimate_planted("[stage1]")
-    del captured, fwd_captured, rc
+    # the held arguments keep that step's autograd graph, and with it the
+    # warp parameters' gradient accumulators made on the default stream,
+    # alive: the step's CUDA graph is captured below
+    del captured, fwd_captured, rc, c
 
     # step time and the device's share of it
     for label, kw in paths:
@@ -1912,8 +1915,12 @@ def stage1_phase(blend, gs, cam, bg, frame_train):
             nonlocal st
             st, _ = step(st, fr, bg, NW.arap_sample_times(gen, device=DEVICE), it=STAGE1_ITS[-1], **flags, **kw)
 
-        one()  # warm-up
+        for _ in range(4):  # warm-up: the step's key is captured as a CUDA graph by its fourth call
+            one()
         ms = _host_ms(one, 5)
+        g = step.graphs
+        print(f"[stage1] {label}: a replayed CUDA graph: {g.captures} captures, {g.replays} replays, {g.eager} eager "
+              "calls so far")
         profile_stage1(one, label, ms)
         sync_audit(f"make_phase_b_auto ({label}, it={STAGE1_ITS[-1]})", one)
 
@@ -2639,7 +2646,13 @@ class _LoopProbe:
     steps [start, start + 5) of each phase (``profile_from``: phase ->
     start), and keeps the blend wrappers' arguments and the ARAP fit's
     covariances of the ``held`` steps ((phase, it) -> label; every other
-    step's are dropped at its end)."""
+    step's are dropped at its end). While it is entered, each
+    make_phase_b_auto step runs a held phase-B step as a step of its own
+    (eager: the loop's may replay a CUDA graph, whose launches Python does
+    not see) and keeps every phase-B step's metrics (``b_metrics``);
+    ``replays`` counts the loop's replayed phase-B steps, ``unseen`` those
+    that ran no Python (a capture records its step in Python, then replays
+    it)."""
 
     def __init__(self, blend, held=LOOP_HELD, profile_from=None):
         self.capture = _Capture(blend, ("blend_cm_fwd", "blend_cm_bwd", "blend_permuted_gm_fwd",
@@ -2648,15 +2661,41 @@ class _LoopProbe:
         self.held_keys, self.profile_from = held, profile_from or {"A": PROFILE_FROM, "B": PROFILE_FROM}
         self.stamps = {p: [] for p in self.profile_from}
         self.busy, self.held, self.held_rot = {}, {}, {}
+        self.b_steps, self.b_metrics = [], []
 
     def __enter__(self):
+        from riggs_tpu_torch.train import stage1 as S1
+
         self.capture.__enter__()
         self.rot.__enter__()
+        self.S1, self.real_b = S1, S1.make_phase_b_auto
+
+        def auto(*a, **k):
+            step = self.real_b(*a, **k)
+            self.b_steps.append(step)
+
+            def run(*sa, it, **sk):
+                own = ("B", it) in self.held_keys
+                state, metrics = (self.real_b(*a, **k) if own else step)(*sa, it=it, **sk)
+                self.b_metrics.append(metrics)
+                return state, metrics
+            return run
+
+        S1.make_phase_b_auto = auto
         return self
 
     def __exit__(self, *exc):
+        self.S1.make_phase_b_auto = self.real_b
         self.rot.__exit__(*exc)
         self.capture.__exit__(*exc)
+
+    @property
+    def replays(self):
+        return sum(step.graphs.replays for step in self.b_steps)
+
+    @property
+    def unseen(self):
+        return self.replays - sum(step.graphs.captures for step in self.b_steps)
 
     def __call__(self, state, it, phase):
         import torch
@@ -2780,9 +2819,12 @@ def loop_phase(blend, scene, cap):
     for name in ("blend_cm", "blend_cm_bwd", "blend_permuted_gm", "blend_permuted_gm_bwd", "estimate_rotations"):
         if launches[name] <= 0:
             raise RuntimeError(f"the loop never launched {name}")
+    # a replayed phase-B step launches its rotation fit from the graph, unseen by the counter
     n_steps = sum(len(v) for v in probe.stamps.values())
-    if launches["estimate_rotations"] != n_steps or launches["fit_rotations"]:
-        raise RuntimeError(f"[loop] not one fused rotation fit a step over {n_steps} steps: {launches}")
+    if launches["estimate_rotations"] != n_steps - probe.unseen or launches["fit_rotations"]:
+        raise RuntimeError(f"[loop] not one fused rotation fit a step over {n_steps} steps, {probe.unseen} of "
+                           f"them replays that ran no Python: {launches}")
+    print(f"[loop] phase B: {probe.replays} of {len(probe.stamps['B'])} steps replayed a CUDA graph")
     print(f"[loop] {state.warp.node_num} nodes, {int(state.gs.num_alive)} Gaussians of {state.gs.capacity}, "
           f"every parameter finite; refits {final['refits']}, ladder {final['ladder']}")
     if sorted(probe.held) != sorted(LOOP_HELD):
@@ -3363,28 +3405,18 @@ def flow_phase(blend, scene, cap, gs, skel, loop_b_ms):
             setattr(cfg.pipe if k == "ladder_check_every" else cfg.opt, k, v)
         cfg.opt.warm_up = FLOW_WARM_UP
         cfg.pipe.max_per_tile = cap
-        terms, events = [], []
-        real_step = S1.phase_b_step
-
-        def recording(*a, **k):
-            st, m = real_step(*a, **k)
-            terms.append((m["flow"], m["flow_overflow_tiles"], m["flow_overflow_rect"]))
-            return st, m
-
+        events = []
         torch.cuda.synchronize()
         blend.reset_launches()
         GEO.reset_launches()
-        S1.phase_b_step = recording
         t0 = time.perf_counter()
-        try:
-            with _LoopProbe(blend, held=FLOW_HELD) as probe:
-                state, _ = S1.train_stage1(flow_scene, cfg, seed=0, events=events, step_callback=probe,
-                                           source_path=tmp, device=DEVICE)
-            torch.cuda.synchronize()
-        finally:
-            S1.phase_b_step = real_step
+        with _LoopProbe(blend, held=FLOW_HELD) as probe:
+            state, _ = S1.train_stage1(flow_scene, cfg, seed=0, events=events, step_callback=probe,
+                                       source_path=tmp, device=DEVICE)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(blend.launches, **GEO.launches)
+        terms = [(m["flow"], m["flow_overflow_tiles"], m["flow_overflow_rect"]) for m in probe.b_metrics]
         drew = [e for e in events if e["event"] == "flow"]
         flow_l1 = [float(t[0]) for t in terms]
         of = [(int(t[1]), int(t[2])) for t in terms]
@@ -3450,7 +3482,8 @@ def flow_phase(blend, scene, cap, gs, skel, loop_b_ms):
         # the flow term's cost: the same step with and without it, in turns
         for label, flow in (("step with the flow term", True), ("the same step without it", False)):
             one = step_fn(flow)
-            one()
+            for _ in range(4):  # warm-up: the step's key is captured as a CUDA graph by its fourth call
+                one()
             profile_stage1(one, label, _host_ms(one, 5), tag="[flow]", it=20)
         one = step_fn(True)
         sync_audit("make_phase_b_auto with the flow loss (it=20, the fitted ladder, the flow drawn from FlowStore)",

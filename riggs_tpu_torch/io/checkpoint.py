@@ -43,10 +43,9 @@ import torch.distributed as dist
 
 from riggs_tpu_torch.device import resolve_device
 from riggs_tpu_torch.io.ply import save_gaussians_ply
-from riggs_tpu_torch.models import gaussians as G
 from riggs_tpu_torch.parallel.mesh import LocalRows, Mesh
 from riggs_tpu_torch.train import optim as O
-from riggs_tpu_torch.train.stage1 import Stage1State, init_stage1
+from riggs_tpu_torch.train.stage1 import Stage1State, init_stage1, stage1_leaves
 from riggs_tpu_torch.train.stage2 import Stage2State, stage2_leaves
 
 
@@ -58,16 +57,7 @@ def state_leaves(state: Stage1State | Stage2State) -> dict[str, tuple[torch.Tens
         return stage2_leaves(state)
     if not isinstance(state, Stage1State):
         raise TypeError(f"no checkpoint layout for {type(state).__name__}")
-    out: dict = {}
-    O.named_fields(state.gs, G.Gaussians.TENSORS, ".gs", out)
-    O.named_fields(state.node_gs, G.Gaussians.TENSORS, ".node_gs", out)
-    O.named_fields(state.warp, ("nodes", "node_radius_log", "node_weight_logit"), ".warp", out)
-    O.named_leaves(state.warp.mlp.params_dict(), ".warp.mlp", out)
-    for name in ("opt_gs", "opt_node", "opt_warp"):
-        O.adam_leaves(getattr(state, name), f".{name}", out)
-    O.named_fields(state.stats_gs, G.DensifyStats.TENSORS, ".stats_gs", out)
-    O.named_fields(state.stats_node, G.DensifyStats.TENSORS, ".stats_node", out)
-    return O.named_fields(state, ("it",), "", out)
+    return stage1_leaves(state)
 
 
 def state_to_numpy(state: Stage1State | Stage2State) -> dict[str, np.ndarray]:

@@ -41,6 +41,11 @@ puts the M points of the scene's cloud, and averages over the alive slots.
 
 The warp's parameters are its ``nn.Module``'s own and are updated in place
 (``NodeWarp.replace_params``): a step consumes the state it is given.
+``make_phase_b_auto``'s step consumes the whole state: it runs
+``phase_b_step`` on buffers of its own (``train/step_graph.py``), copies in a
+state whose tensors are not those buffers, and returns a state whose every
+tensor is one of them, overwritten in place by its next call. On the card it
+replays the step as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -68,6 +73,7 @@ from riggs_tpu_torch.train import schedule as S
 from riggs_tpu_torch.train.config import Config
 from riggs_tpu_torch.train.sampling import FrameSampler
 from riggs_tpu_torch.train.static import TrainState, densify_step, reset_opacity_step
+from riggs_tpu_torch.train.step_graph import StaticStep
 
 
 @dataclasses.dataclass
@@ -81,6 +87,22 @@ class Stage1State:
     stats_gs: G.DensifyStats
     stats_node: G.DensifyStats
     it: torch.Tensor  # () int32 iteration counter; the auto steps increment it
+
+
+def stage1_leaves(state: Stage1State) -> dict[str, tuple[torch.Tensor, bool]]:
+    """Every tensor of a stage-1 state under the key ``jax.tree_util.keystr``
+    gives it in ``riggs_tpu`` (the checkpoints' table, ``io/checkpoint.py``):
+    key -> (the state's own tensor, whether it is stored transposed)."""
+    out: dict = {}
+    O.named_fields(state.gs, G.Gaussians.TENSORS, ".gs", out)
+    O.named_fields(state.node_gs, G.Gaussians.TENSORS, ".node_gs", out)
+    O.named_fields(state.warp, ("nodes", "node_radius_log", "node_weight_logit"), ".warp", out)
+    O.named_leaves(state.warp.mlp.params_dict(), ".warp.mlp", out)
+    for name in ("opt_gs", "opt_node", "opt_warp"):
+        O.adam_leaves(getattr(state, name), f".{name}", out)
+    O.named_fields(state.stats_gs, G.DensifyStats.TENSORS, ".stats_gs", out)
+    O.named_fields(state.stats_node, G.DensifyStats.TENSORS, ".stats_node", out)
+    return O.named_fields(state, ("it",), "", out)
 
 
 def init_stage1(
@@ -176,9 +198,9 @@ def stage1_frame_loss(
     bg: torch.Tensor,
     mean2d_bias: torch.Tensor,
     arap_t: torch.Tensor,
-    lambda_arap: float,
-    lambda_motion: float,
-    lambda_flow: float = 0.0,
+    lambda_arap: float | torch.Tensor,
+    lambda_motion: float | torch.Tensor,
+    lambda_flow: float | torch.Tensor = 0.0,
     lambda_chamfer: float = 1e-3,
     warm: bool = False,
     active_sh: int = 0,
@@ -264,9 +286,9 @@ def phase_b_step(
     lrs_gs: dict,
     lrs_warp: dict,
     arap_t: torch.Tensor,
-    lambda_arap: float,
-    lambda_motion: float,
-    lambda_flow: float = 0.0,
+    lambda_arap: float | torch.Tensor,
+    lambda_motion: float | torch.Tensor,
+    lambda_flow: float | torch.Tensor = 0.0,
     lambda_chamfer: float = 1e-3,
     warm: bool = False,
     active_sh: int = 0,
@@ -281,7 +303,9 @@ def phase_b_step(
 ):
     """One phase-B step: value and gradient of ``stage1_frame_loss`` in the
     Gaussians, the warp and ``mean2d_bias``; Adam on both; the
-    densification statistics. Returns (new state, metrics)."""
+    densification statistics. A learning rate and the ARAP, motion-mask and
+    flow lambdas may be 0-dim float32 tensors on the device. Returns (new
+    state, metrics)."""
     with trace.span("riggs.entry.phase_b_step"):
         gs_p = {k: v.detach().requires_grad_(True) for k, v in state.gs.params_dict().items()}
         params = {"gs": gs_p, "warp": state.warp.params_dict()}
@@ -340,23 +364,72 @@ def phase_b_flags(cfg: Config, it: int) -> dict:
     )
 
 
+def _static(state: Stage1State) -> tuple:
+    """A stage-1 state's static fields: what its buffers hold besides the
+    leaves."""
+    w = state.warp
+    return tuple((g.device, g.max_sh_degree, g.isotropic, g.with_motion_mask, g.shared_scale)
+                 for g in (state.gs, state.node_gs)) + (w.net, w.K, w.hyper_dim, w.d_rot_as_res, w.with_node_weight)
+
+
+# phase B's lambdas that move with ``it``: device scalars in the auto step
+MOVING_LAMBDAS = ("lambda_arap", "lambda_motion", "lambda_flow")
+
+
 def make_phase_b_auto(cfg: Config):
     """The phase-B step with every schedule derived from the host iteration
     ``it``: the learning rates of ``stage1_lr_fns_f32`` and the flags of
     ``phase_b_flags``. The caller passes the frame, the ARAP sample times,
-    ``it`` and the run's constants (chamfer, motion loss, window shape)."""
+    ``it`` and the run's constants (chamfer, motion loss, window shape); the
+    caller owns the count, the step still increments the device
+    ``state.it``.
+
+    The step runs ``phase_b_step`` on static buffers (``step_graph.StaticStep``
+    over ``stage1_leaves``), as ``make_stage2_auto`` runs ``stage2_step``:
+    the frame (its flow fields too), the background, the ARAP sample times,
+    the rates of ``xyz`` and of the warp's ``mlp`` and the three lambdas of
+    ``MOVING_LAMBDAS`` (device float32 scalars) are copied in, and so is the
+    state where its tensors are not the buffers; the new state is written
+    back into them and the metrics come out as one copy of their packed
+    buffer. It consumes the whole state and returns a state whose every
+    tensor is a buffer, overwritten in place by its next call. On the card
+    it runs through ``StepGraphs`` (``step.graphs``): captured as one CUDA
+    graph after the eager calls of its key, then replayed. The key holds
+    everything the graph bakes in: the capacity, the node count, the frame's
+    layout (H x W, the padded thinned length, which of its optional fields
+    it carries), the background's and the sample times', every keyword and
+    flag of the step (the ladder, ``max_per_tile``, the tiers, the SH
+    degree, the warm-up, the losses switched on) and the device; the state's
+    layout belongs to the buffers, whose graphs are dropped with them."""
     gauss_lrs, warp_lrs = stage1_lr_fns_f32(cfg)
+    static = StaticStep(stage1_leaves, _static)
 
     def step(state, frame, bg, arap_t, *, it: int, use_chamfer=False, use_motion_loss=False,
              use_flow_loss=False, lambda_dssim=0.2, max_per_tile=1024, isotropic=False, tile_ladder=None):
-        new_state, metrics = phase_b_step(
-            state, frame, bg, gauss_lrs(it), warp_lrs(it), arap_t,
-            use_chamfer=use_chamfer, use_motion_loss=use_motion_loss, use_flow_loss=use_flow_loss,
-            lambda_dssim=lambda_dssim, max_per_tile=max_per_tile, isotropic=isotropic,
-            tile_ladder=tile_ladder, **phase_b_flags(cfg, it),
-        )
-        return dataclasses.replace(new_state, it=state.it + 1), metrics
+        with trace.span("riggs.entry.phase_b_auto"):
+            flags = phase_b_flags(cfg, it)
+            sb = static.load(state)
+            fr, fr_key = sb.frame(frame)
+            bg_buf, bg_key = sb.input("bg", bg)
+            arap_buf, arap_key = sb.input("arap_t", arap_t)
+            lrs_gs, lrs_warp = gauss_lrs(it), warp_lrs(it)
+            lrs_gs["xyz"] = sb.scalar("lr_xyz", lrs_gs["xyz"])
+            lrs_warp["mlp"] = sb.scalar("lr_mlp", lrs_warp["mlp"])
+            lambdas = {k: sb.scalar(k, flags.pop(k)) for k in MOVING_LAMBDAS}
+            kw = dict(use_chamfer=use_chamfer, use_motion_loss=use_motion_loss, use_flow_loss=use_flow_loss,
+                      lambda_dssim=lambda_dssim, max_per_tile=max_per_tile, isotropic=isotropic,
+                      tile_ladder=tile_ladder, **flags)
+            key = (sb.device, state.gs.capacity, state.warp.node_num, fr_key, bg_key, arap_key,
+                   tuple(sorted(kw.items())))
 
+            def body():
+                new, metrics = phase_b_step(sb.state, fr, bg_buf, lrs_gs, lrs_warp, arap_buf, **lambdas, **kw)
+                sb.keep(dataclasses.replace(new, it=sb.state.it + 1))
+                sb.pack(key, metrics)
+
+            return static.run(key, body)
+
+    step.graphs = static.graphs
     return step
 
 

@@ -40,7 +40,6 @@ is returned, with a warning.
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
 import os
 import warnings
@@ -71,7 +70,7 @@ from riggs_tpu_torch.train.config import Config
 from riggs_tpu_torch.train.sampling import FrameSampler
 from riggs_tpu_torch.train.stage1 import _overflow
 from riggs_tpu_torch.train.static import SplitDraws, TrainState, densify_step
-from riggs_tpu_torch.train.step_graph import Packed, StepGraphs, copy_all, copy_in, layout
+from riggs_tpu_torch.train.step_graph import StaticStep, layout
 
 MAX_PER_TILE_LIMIT = 8192
 MAX_TILES_LIMIT = 1024
@@ -318,80 +317,11 @@ def stage2_flags(cfg: Config, it: int, uid: int, template_idx: int) -> dict:
     )
 
 
-def _signature(state: Stage2State, leaves: dict) -> tuple:
-    """What a state's buffers are made for: its static fields and every
-    leaf's key, shape, dtype and device, by key (the order of a tree's dict
-    is not part of it)."""
+def _static(state: Stage2State) -> tuple:
+    """A stage-2 state's static fields: what its buffers hold besides the
+    leaves."""
     g = state.gs
-    return ((g.device, g.max_sh_degree, g.isotropic, g.with_motion_mask, g.shared_scale, state.skel.net)
-            + tuple(sorted((k, tuple(t.shape), t.dtype, t.device) for k, (t, _) in leaves.items())))
-
-
-class _AutoBuffers:
-    """The static buffers of ``make_stage2_auto``'s step: a stage-2 state of
-    its own (``state``, a deep copy of the state it was made from; the step
-    returns this object) and the step's inputs: a frame of each layout, the
-    background, the frame's index and the two learning rates that change
-    with ``it``; and the packed metrics of each key."""
-
-    def __init__(self, state: Stage2State, leaves: dict):
-        self.signature = _signature(state, leaves)
-        self.device = dev = state.gs.device
-        self.state = copy.deepcopy(state)
-        self.bufs = {k: t for k, (t, _) in stage2_leaves(self.state).items()}
-        self.uid = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.lr_xyz = torch.zeros((), dtype=torch.float32, device=dev)
-        self.lr_skel = torch.zeros((), dtype=torch.float32, device=dev)
-        self.frames: dict = {}
-        self.bgs: dict = {}
-        self.packs: dict = {}
-
-    @torch.no_grad()
-    def load(self, state: Stage2State, leaves: dict) -> None:
-        """Copy in each leaf of ``state`` that is not its buffer, then point
-        every tensor that was assigned over the own state's (``train_stage2``'s
-        FPS reset assigns ``control_nodes``) at its buffer."""
-        self._copy(leaves)
-        own = leaves if state is self.state else stage2_leaves(self.state)
-        for k, (t, _) in own.items():
-            if t.data_ptr() != self.bufs[k].data_ptr():
-                t.set_(self.bufs[k])
-
-    @torch.no_grad()
-    def keep(self, new: Stage2State) -> None:
-        """Write a step's new state into the buffers (inside a graph, its
-        last nodes)."""
-        self._copy(stage2_leaves(new))
-
-    def _copy(self, leaves: dict) -> None:
-        copy_all([self.bufs[k] for k in leaves], [t for t, _ in leaves.values()])
-
-    def frame(self, fr: Frame) -> tuple[Frame, tuple]:
-        """The static frame of ``fr``'s layout with ``fr`` copied in, and
-        the layout."""
-        cam = fr.cam
-        parts = (cam.w2c, cam.intrinsics, cam.fid, fr.image, fr.alpha_mask, fr.thinned, fr.thinned_mask)
-        key = (cam.width, cam.height, cam.znear, cam.zfar) + tuple(
-            None if t is None else (tuple(t.shape), t.dtype) for t in parts)
-        st = self.frames.get(key)
-        if st is None:
-            w2c, intr, fid, image, alpha, thinned, thinned_mask = (
-                None if t is None else torch.empty(t.shape, dtype=t.dtype, device=self.device) for t in parts)
-            st = self.frames[key] = Frame(cam=dataclasses.replace(cam, w2c=w2c, intrinsics=intr, fid=fid),
-                                          image=image, alpha_mask=alpha, thinned=thinned, thinned_mask=thinned_mask)
-        for buf, src in zip((st.cam.w2c, st.cam.intrinsics, st.cam.fid, st.image, st.alpha_mask, st.thinned,
-                             st.thinned_mask), parts):
-            if src is not None:
-                copy_in(buf, src)
-        return st, key
-
-    def bg(self, bg: torch.Tensor) -> tuple[torch.Tensor, tuple]:
-        key = (tuple(bg.shape), bg.dtype)
-        buf = self.bgs.get(key)
-        if buf is None:
-            buf = self.bgs[key] = torch.empty(bg.shape, dtype=bg.dtype, device=self.device)
-        copy_in(buf, bg)
-        return buf, key
+    return (g.device, g.max_sh_degree, g.isotropic, g.with_motion_mask, g.shared_scale, state.skel.net)
 
 
 def make_stage2_auto(cfg: Config, template_idx: int):
@@ -399,49 +329,37 @@ def make_stage2_auto(cfg: Config, template_idx: int):
     ``it`` (the caller owns the count; the step still increments the device
     ``state.it``): the learning rates and the flags of ``stage2_flags``.
 
-    The step runs ``stage2_step`` on static buffers (``_AutoBuffers``): the
-    frame, the background, the frame's index (a device int64 index) and the
-    rates of ``xyz`` and of the skeleton (device float32 scalars) are copied
-    in, and so is the state where its tensors are not the buffers; the new
-    state is written back into them and the metrics come out as one copy of
-    their packed buffer. On the card it runs through ``StepGraphs``
-    (``step.graphs``): captured as one CUDA graph after the eager calls of
-    its key, then replayed. The key holds everything the graph bakes in:
-    the capacity, the frame's layout (H x W, the padded thinned length), the
-    background's, the identity of ``pre_d_xyz_all`` and ``pre_d_joints_all``
-    (read in place at the index), every keyword and flag of the step (the
-    ladder, ``max_per_tile``, the tiers, the template frame's lambdas) and
-    the device; the state's layout belongs to the buffers, whose graphs are
-    dropped with them."""
+    The step runs ``stage2_step`` on static buffers (``step_graph.StaticStep``
+    over ``stage2_leaves``): the frame, the background, the frame's index (a
+    device int64 index) and the rates of ``xyz`` and of the skeleton (device
+    float32 scalars) are copied in, and so is the state where its tensors
+    are not the buffers; the new state is written back into them and the
+    metrics come out as one copy of their packed buffer. On the card it
+    runs through ``StepGraphs`` (``step.graphs``): captured as one CUDA
+    graph after the eager calls of its key, then replayed. The key holds
+    everything the graph bakes in: the capacity, the frame's layout (H x W,
+    the padded thinned length), the background's, the identity of
+    ``pre_d_xyz_all`` and ``pre_d_joints_all`` (read in place at the index),
+    every keyword and flag of the step (the ladder, ``max_per_tile``, the
+    tiers, the template frame's lambdas) and the device; the state's layout
+    belongs to the buffers, whose graphs are dropped with them."""
     o = cfg.opt
     gs_lr = S.expon_lr_f32(o.position_lr_init, o.position_lr_final,
                            lr_delay_mult=o.position_lr_delay_mult, max_steps=o.position_lr_max_steps)
     skel_lr = S.expon_lr_f32(o.deform_mlp_lr_init, o.deform_mlp_lr_final,
                              lr_delay_mult=o.deform_mlp_lr_delay_mult, max_steps=o.deform_mlp_lr_max_steps)
-    graphs = StepGraphs()
-    held: list = [None]  # the step's _AutoBuffers
-
-    def buffers(state) -> _AutoBuffers:
-        sb, leaves = held[0], stage2_leaves(state)
-        if sb is None or _signature(state, leaves) != sb.signature:
-            graphs.clear()
-            held[0] = _AutoBuffers(state, leaves)
-        else:
-            sb.load(state, leaves)
-        return held[0]
+    static = StaticStep(stage2_leaves, _static)
 
     def step(state, frame, uid, bg, pre_d_xyz_all, pre_d_joints_all, *, it: int, use_chamfer=True,
              lambda_dssim=0.2, max_per_tile=1024, isotropic=False, tile_ladder=None):
         with trace.span("riggs.entry.stage2_auto"):
             flags = stage2_flags(cfg, it, uid, template_idx)
-            sb = buffers(state)
+            sb = static.load(state)
             fr, fr_key = sb.frame(frame)
-            bg_buf, bg_key = sb.bg(bg)
-            sb.uid.fill_(int(uid))
-            sb.lr_xyz.fill_(gs_lr(it))
-            sb.lr_skel.fill_(5e-4 if flags["warm"] else skel_lr(max(it - o.skeleton_warm_up, 0)))
+            bg_buf, bg_key = sb.input("bg", bg)
+            uid_buf = sb.scalar("uid", int(uid), torch.int64, (1,))
             lrs_gs = {
-                "xyz": sb.lr_xyz,
+                "xyz": sb.scalar("lr_xyz", gs_lr(it)),
                 "f_dc": o.feature_lr,
                 "f_rest": o.feature_lr / 20.0,
                 "opacity": o.opacity_lr,
@@ -449,23 +367,21 @@ def make_stage2_auto(cfg: Config, template_idx: int):
                 "rotation": o.rotation_lr,
                 "feature": o.feature_lr,
             }
+            lr_skel = sb.scalar("lr_skel", 5e-4 if flags["warm"] else skel_lr(max(it - o.skeleton_warm_up, 0)))
             kw = dict(use_chamfer=use_chamfer, lambda_dssim=lambda_dssim, max_per_tile=max_per_tile,
                       isotropic=isotropic, tile_ladder=tile_ladder, **flags)
             key = (sb.device, state.gs.capacity, fr_key, bg_key, layout(pre_d_xyz_all), layout(pre_d_joints_all),
                    tuple(sorted(kw.items())))
 
             def body():
-                new, metrics = stage2_step(sb.state, fr, sb.uid, bg_buf, lrs_gs, sb.lr_skel,
-                                           _row(pre_d_xyz_all, sb.uid), _row(pre_d_joints_all, sb.uid), **kw)
+                new, metrics = stage2_step(sb.state, fr, uid_buf, bg_buf, lrs_gs, lr_skel,
+                                           _row(pre_d_xyz_all, uid_buf), _row(pre_d_joints_all, uid_buf), **kw)
                 sb.keep(new)
-                if key not in sb.packs:
-                    sb.packs[key] = Packed(metrics, sb.device)
-                sb.packs[key].write(metrics)
+                sb.pack(key, metrics)
 
-            graphs.run(key, body, sb.device)
-            return sb.state, sb.packs[key].read()
+            return static.run(key, body)
 
-    step.graphs = graphs
+    step.graphs = static.graphs
     return step
 
 

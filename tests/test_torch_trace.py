@@ -127,8 +127,11 @@ def test_stage2_step_records_its_layers_under_its_entry(stage2):
 def test_phase_b_step_records_its_layers_under_its_entry(phase_b):
     phase_b()
     _, spans, _ = _traced(phase_b)
-    assert {n for n, _, _ in spans} == TRAIN | {"riggs.entry.phase_b_step", "riggs.deform.nodes"}
-    assert _nested_under(spans, "riggs.entry.phase_b_step")
+    assert {n for n, _, _ in spans} == TRAIN | {"riggs.entry.phase_b_auto", "riggs.entry.phase_b_step",
+                                                "riggs.deform.nodes"}
+    # make_phase_b_auto's own span around phase_b_step's, every layer inside that
+    assert _nested_under(spans, "riggs.entry.phase_b_auto")
+    assert _nested_under([sp for sp in spans if sp[0] != "riggs.entry.phase_b_auto"], "riggs.entry.phase_b_step")
 
 
 def test_viewer_frame_counts_its_renders_and_reads(viewer, monkeypatch):
